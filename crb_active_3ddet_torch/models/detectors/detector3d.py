@@ -1,0 +1,92 @@
+"""Config-driven detector (torch): the SECONDNet topology of
+``crb_active_3ddet_tpu/models/detectors/detector3d.py`` (reference
+``detector3d_template.py:24-53``, ``second_net.py:9-34``):
+vfe → backbone_3d → map_to_bev → backbone_2d → dense_head.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import nn
+
+from ...utils.common import resolve_device
+from ..backbones_2d.base_bev_backbone import build_backbone_2d
+from ..backbones_2d.map_to_bev import build_map_to_bev
+from ..backbones_3d.spconv_backbone import build_backbone_3d
+from ..backbones_3d.vfe import build_vfe
+from ..dense_heads.anchor_head_single import build_dense_head
+
+_PORTED = {'SECONDNet'}
+
+
+class Detector3D(nn.Module):
+    def __init__(self, model_cfg, num_class, class_names, grid_size,
+                 point_cloud_range, num_point_features):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.num_class = num_class
+        self.class_names = tuple(class_names)
+        self.vfe = build_vfe(model_cfg['VFE'], num_point_features)
+        self.backbone_3d = build_backbone_3d(
+            model_cfg['BACKBONE_3D'], self.vfe.get_output_feature_dim(),
+            grid_size)
+        self.map_to_bev = build_map_to_bev(model_cfg['MAP_TO_BEV'])
+        self.backbone_2d = build_backbone_2d(
+            model_cfg['BACKBONE_2D'], self.map_to_bev.num_bev_features)
+        self.dense_head = build_dense_head(
+            model_cfg['DENSE_HEAD'], self.backbone_2d.num_bev_features,
+            num_class, class_names, grid_size, point_cloud_range)
+        self.module_topology = ('vfe', 'backbone_3d', 'map_to_bev',
+                                'backbone_2d', 'dense_head')
+
+    @property
+    def device(self):
+        return self.dense_head.conv_cls.weight.device
+
+    def forward(self, batch_dict):
+        batch_dict = dict(batch_dict)       # never mutate the caller's dict
+        for name in self.module_topology:
+            batch_dict = getattr(self, name)(batch_dict)
+        return batch_dict
+
+
+def init_weights(model, generator: torch.Generator):
+    """Seeded random weights: normal(0, 1/√fan_in) for every weight, small
+    normal biases and BN affine terms, positive running variances.  The
+    anchor head keeps its focal-loss prior on the cls bias."""
+    cls_bias = model.dense_head.conv_cls.bias
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if p is cls_bias:
+                continue
+            r = torch.randn(p.shape, generator=generator)
+            if name.endswith('weight') and p.ndim > 1:
+                fan_in = p[0].numel() if p.ndim != 3 else p.shape[0] * p.shape[1]
+                r = r / math.sqrt(fan_in)
+            elif name.endswith('weight'):
+                r = 1.0 + 0.1 * r
+            else:
+                r = 0.05 * r
+            p.copy_(r)
+        for name, buf in model.named_buffers():
+            if name.endswith('running_mean'):
+                buf.copy_(0.05 * torch.randn(buf.shape, generator=generator))
+            elif name.endswith('running_var'):
+                buf.copy_(0.5 + torch.rand(buf.shape, generator=generator))
+    return model
+
+
+def build_detector(model_cfg, num_class, dataset, device='cuda'):
+    """dataset provides grid_size, point_cloud_range, num_point_features and
+    class_names.  The model lives on ``device``: CUDA unless the caller asks
+    for the CPU."""
+    name = model_cfg['NAME']
+    if name not in _PORTED:
+        raise KeyError(f'detector {name} is not ported yet')
+    model = Detector3D(model_cfg, num_class, dataset.class_names,
+                       tuple(int(g) for g in dataset.grid_size),
+                       tuple(float(x) for x in dataset.point_cloud_range),
+                       int(dataset.num_point_features))
+    return model.to(resolve_device(device))

@@ -1,0 +1,111 @@
+"""Post-processing: NMS + the per-frame outputs the AL layer reads (torch).
+
+Port of ``post_processing`` (:110), ``post_process_frame`` (:27) and
+``generate_recall_record`` (:221) from
+``crb_active_3ddet_tpu/models/post_processing.py`` (reference
+``detector3d_template.py:186-453``).  Frames are processed as one batch (the
+JAX package vmaps per frame): every output is a fixed (B, P, ...) tensor with
+a validity mask.  The two-stage score fusions (roi labels, IoU-head score
+types) and the score-only selection of configs without NMS_CONFIG
+(CenterPoint) come with those detectors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import iou3d
+from ..ops import nms as nms_ops
+from ..ops.points_in_boxes import box_point_density
+
+
+def _take(x, idx):
+    """x (B, A, ...) rows at idx (B, P) → (B, P, ...)."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.ndim - 2)))
+                        .expand(*idx.shape, *x.shape[2:]))
+
+
+def _masked(valid, x):
+    v = valid.reshape(*valid.shape, *([1] * (x.ndim - valid.ndim)))
+    return torch.where(v, x, torch.zeros_like(x))
+
+
+def post_processing(batch_dict, post_cfg, num_class):
+    """batch_dict needs batch_cls_preds (B, A, C), batch_box_preds (B, A, 7+),
+    cls_preds_normalized, optionally points (B, N, 3+) + points_valid.
+    Returns a dict of (B, P, ...) tensors."""
+    cls_preds = batch_dict['batch_cls_preds']
+    box_preds = batch_dict['batch_box_preds']
+    normalized = bool(batch_dict.get('cls_preds_normalized', False))
+    scores = cls_preds if normalized else torch.sigmoid(cls_preds)
+    max_scores = scores.max(dim=-1).values
+    labels = scores.argmax(dim=-1) + 1
+
+    nms_cfg = post_cfg.get('NMS_CONFIG', None)
+    if nms_cfg is None:
+        raise NotImplementedError('post-processing without NMS_CONFIG is not '
+                                  'ported yet')
+    score_thresh = post_cfg.get('SCORE_THRESH', None)
+    score_thresh = float(score_thresh) if score_thresh else None
+    if bool(nms_cfg.get('MULTI_CLASSES_NMS', False)):
+        mc_scores, mc_labels, mc_boxes, mc_valid, mc_idx = \
+            nms_ops.multi_classes_nms(scores, box_preds, nms_cfg,
+                                      score_thresh=score_thresh)
+        b = cls_preds.shape[0]
+        keep_valid = mc_valid.reshape(b, -1)
+        keep_idx = mc_idx.reshape(b, -1)
+        out = {
+            'pred_boxes': _masked(keep_valid,
+                                  mc_boxes.reshape(b, -1, mc_boxes.shape[-1])),
+            'pred_scores': _masked(keep_valid, mc_scores.reshape(b, -1)),
+            'pred_labels': _masked(keep_valid, mc_labels.reshape(b, -1)),
+            'pred_logits': _masked(keep_valid, _take(cls_preds, keep_idx)),
+            'pred_valid': keep_valid,
+        }
+    else:
+        keep_idx, keep_valid, keep_scores = nms_ops.class_agnostic_nms(
+            max_scores, box_preds[..., :7], nms_cfg, score_thresh=score_thresh)
+        out = {
+            'pred_boxes': _masked(keep_valid, _take(box_preds, keep_idx)),
+            'pred_scores': _masked(keep_valid, keep_scores),
+            'pred_labels': _masked(keep_valid, torch.gather(labels, 1, keep_idx)),
+            'pred_logits': _masked(keep_valid, _take(cls_preds, keep_idx)),
+            'pred_valid': keep_valid,
+        }
+    points = batch_dict.get('points', None)
+    if points is not None:
+        out['pred_box_unique_density'] = box_point_density(
+            points[..., :3], out['pred_boxes'][..., :7],
+            batch_dict.get('points_valid', None), out['pred_valid'])
+    return out
+
+
+def post_process_frame(cls_preds, box_preds, post_cfg, num_class,
+                       normalized=False, points=None, points_valid=None):
+    """Single frame: (A, num_class) logits and (A, 7+) boxes → fixed-shape
+    dict of (P, ...) tensors (the batched path with B = 1)."""
+    batch = {'batch_cls_preds': cls_preds[None],
+             'batch_box_preds': box_preds[None],
+             'cls_preds_normalized': normalized}
+    if points is not None:
+        batch['points'] = points[None]
+        batch['points_valid'] = None if points_valid is None else points_valid[None]
+    return {k: v[0] for k, v in
+            post_processing(batch, post_cfg, num_class).items()}
+
+
+def generate_recall_record(pred_boxes, pred_valid, gt_boxes, gt_valid,
+                           thresh_list=(0.3, 0.5, 0.7)):
+    """Recall counts vs 3D-IoU thresholds, batched over leading dims.
+
+    Parity: ``detector3d_template.generate_recall_record:411-453``.  Returns
+    {'gt': count, 'rcnn_<t>': count} per frame.
+    """
+    iou = iou3d.boxes_iou3d(gt_boxes[..., :7], pred_boxes[..., :7])
+    iou = torch.where(pred_valid[..., None, :], iou, torch.zeros_like(iou))
+    gt_max = torch.where(gt_valid, iou.max(dim=-1).values,
+                         torch.zeros_like(gt_valid, dtype=iou.dtype))
+    out = {'gt': gt_valid.sum(-1)}
+    for t in thresh_list:
+        out[f'rcnn_{t}'] = (gt_max > t).sum(-1)
+    return out

@@ -1,0 +1,204 @@
+"""Port kernels' plain versions vs the JAX package's Pallas kernels (interpret
+mode) and XLA ops; the CUDA kernels themselves vs their plain versions on the
+card (marked ``cuda``, skipped without one).
+
+Tolerance 1e-4 absolute throughout, as in tests/test_pallas_kernels.py: both
+sides are f32 and differ only in summation order (gather-GEMM) or in rounding
+of the same clip arithmetic (overlap, boxes of size ≤ 5 m at |x| ≤ 10 m).
+"""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from crb_active_3ddet_tpu.ops import iou3d as jiou
+from crb_active_3ddet_tpu.ops.pallas_kernels import sparse_conv_gather_gemm as jgemm
+from crb_active_3ddet_tpu.ops.pallas_overlap import (boxes_iou_bev_pallas,
+                                                     boxes_overlap_bev_pallas)
+from crb_active_3ddet_tpu.ops.sparse.sparse_ops import subm_conv3d_gather as jgather
+
+from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap
+from crb_active_3ddet_torch.ops import iou3d as tiou
+from crb_active_3ddet_torch.ops.cuda_kernels import sparse_conv_gather_gemm
+from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+
+ATOL = 1e-4
+
+
+def _random_boxes(rng, n):
+    b = np.zeros((n, 7), np.float32)
+    b[:, 0:2] = rng.uniform(-10, 10, (n, 2))
+    b[:, 2] = rng.uniform(-1, 1, n)
+    b[:, 3:6] = rng.uniform(0.5, 5.0, (n, 3))
+    b[:, 6] = rng.uniform(-np.pi, np.pi, n)
+    return b
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x))
+
+
+# ---- overlap (K1) ----
+
+def test_overlap_plain_matches_pallas_and_xla():
+    rng = np.random.RandomState(3)
+    a, b = _random_boxes(rng, 70), _random_boxes(rng, 150)   # ragged tiles
+    got = tiou.boxes_overlap_bev(_t(a), _t(b)).numpy()
+    pallas = np.asarray(boxes_overlap_bev_pallas(jnp.asarray(a), jnp.asarray(b),
+                                                 row_tile=16, interpret=True))
+    xla = np.asarray(jiou.boxes_overlap_bev(jnp.asarray(a), jnp.asarray(b)))
+    assert got.shape == (70, 150)
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+    np.testing.assert_allclose(got, xla, atol=ATOL)
+
+
+def test_overlap_plain_degenerate_rows():
+    rng = np.random.RandomState(4)
+    a = _random_boxes(rng, 8)
+    a[3:] = 0.0            # zero-padded (degenerate) boxes give zero overlap
+    b = _random_boxes(rng, 8)
+    got = tiou.boxes_overlap_bev(_t(a), _t(b)).numpy()
+    assert np.all(got[3:] == 0.0)
+    pallas = np.asarray(boxes_overlap_bev_pallas(jnp.asarray(a), jnp.asarray(b),
+                                                 row_tile=8, interpret=True))
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+
+
+def test_iou_bev_matches_pallas():
+    rng = np.random.RandomState(5)
+    a = _random_boxes(rng, 33)
+    got = tiou.boxes_iou_bev(_t(a), _t(a)).numpy()
+    ref = np.asarray(boxes_iou_bev_pallas(jnp.asarray(a), jnp.asarray(a),
+                                          row_tile=16, interpret=True))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_iou3d_matches_xla():
+    rng = np.random.RandomState(6)
+    a, b = _random_boxes(rng, 20), _random_boxes(rng, 30)
+    b[:10, :2] = a[:10, :2] + 0.3          # make some pairs overlap
+    got = tiou.boxes_iou3d(_t(a), _t(b)).numpy()
+    ref = np.asarray(jiou.boxes_iou3d(jnp.asarray(a), jnp.asarray(b)))
+    np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_overlap_batched_equals_per_frame():
+    """The batch dimension (one launch per NMS step on the card) gives the
+    per-frame matrices, also across the plain version's row chunks."""
+    rng = np.random.RandomState(7)
+    a = np.stack([_random_boxes(rng, 150) for _ in range(3)])
+    b = np.stack([_random_boxes(rng, 40) for _ in range(3)])
+    got = cuda_overlap.boxes_overlap_bev_cuda(_t(a), _t(b)).numpy()
+    assert got.shape == (3, 150, 40)
+    for f in range(3):
+        ref = np.asarray(jiou.boxes_overlap_bev(jnp.asarray(a[f]),
+                                                jnp.asarray(b[f])))
+        np.testing.assert_allclose(got[f], ref, atol=ATOL)
+
+
+# ---- gather-GEMM (K2) ----
+
+def _gemm_case(seed, v_in, v_out, k, c_in, c_out, missing=False):
+    rng = np.random.RandomState(seed)
+    feats = rng.randn(v_in, c_in).astype(np.float32)
+    if missing:
+        rulebook = np.full((v_out, k), -1, np.int32)
+    else:
+        rulebook = rng.randint(-1, v_in, (v_out, k)).astype(np.int32)
+    w = (rng.randn(k, c_in, c_out) * 0.1).astype(np.float32)
+    return feats, rulebook, w
+
+
+@pytest.mark.parametrize('case', [
+    (0, 64, 48, 27, 16, 32, False),     # test_matches_xla_gather_gemm
+    (1, 8, 8, 27, 4, 8, True),          # test_all_missing_neighbors
+    (2, 20, 37, 27, 8, 16, False),      # test_unaligned_voxel_count
+    (3, 50, 70, 3, 64, 128, False),     # conv_out shape: K = 3
+], ids=['random', 'all_missing', 'unaligned', 'k3'])
+def test_gather_gemm_plain_matches_pallas(case):
+    feats, rulebook, w = _gemm_case(*case)
+    got = sparse_conv_gather_gemm(_t(feats), _t(rulebook), _t(w)).numpy()
+    pallas = np.asarray(jgemm(jnp.asarray(feats), jnp.asarray(rulebook),
+                              jnp.asarray(w), block_v=16, interpret=True))
+    xla = np.asarray(jgather(jnp.asarray(feats), jnp.asarray(rulebook),
+                             jnp.asarray(w)))
+    assert got.shape == (rulebook.shape[0], w.shape[2])
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, pallas, atol=ATOL)
+    np.testing.assert_allclose(got, xla, atol=ATOL)
+    if case[-1]:
+        assert np.all(got == 0.0)
+
+
+def test_gather_gemm_plain_bf16_matches_xla():
+    """bf16 features and weights, f32 accumulation (the USE_BF16 path):
+    bf16×bf16 products are exact in f32, so only summation order differs —
+    tolerance 1e-4 relative to the output scale."""
+    feats, rulebook, w = _gemm_case(8, 64, 48, 27, 32, 64)
+    fb = torch.from_numpy(feats).to(torch.bfloat16)
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    got = sparse_conv_gather_gemm(fb, _t(rulebook), wb)
+    assert got.dtype == torch.float32
+    ref = np.asarray(jgather(jnp.asarray(fb.float().numpy()).astype(jnp.bfloat16),
+                             jnp.asarray(rulebook),
+                             jnp.asarray(wb.float().numpy()).astype(jnp.bfloat16)))
+    scale = 1.0 + np.abs(ref).max()
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL * scale)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors no kernel is launched (the counters stay put); on a
+    CUDA tensor the wrapper launches the kernel or raises."""
+    before = (cuda_kernels.launches, cuda_overlap.launches)
+    feats, rulebook, w = _gemm_case(0, 16, 8, 27, 4, 16)
+    sparse_conv_gather_gemm(_t(feats), _t(rulebook), _t(w))
+    rng = np.random.RandomState(0)
+    cuda_overlap.boxes_overlap_bev_cuda(_t(_random_boxes(rng, 4)),
+                                        _t(_random_boxes(rng, 4)))
+    assert (cuda_kernels.launches, cuda_overlap.launches) == before
+
+
+# ---- the CUDA kernels on the card (skipped without one) ----
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA card; the CUDA kernels have no CPU mode')
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device('cuda')
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('shape', [(64, 48, 27, 16, 32), (200, 130, 27, 4, 16),
+                                   (100, 70, 27, 64, 64), (90, 64, 3, 64, 128),
+                                   (30, 17, 27, 32, 32)])
+def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
+    feats, rulebook, w = _gemm_case(9, *shape)
+    f = _t(feats).to(cuda_device, dtype)
+    r = _t(rulebook).to(cuda_device)
+    ww = _t(w).to(cuda_device, dtype)
+    n0 = cuda_kernels.launches
+    got = sparse_conv_gather_gemm(f, r, ww)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches == n0 + 1
+    ref = subm_conv3d_gather(f, r, ww)
+    torch.testing.assert_close(got, ref, atol=ATOL * (1 + ref.abs().max().item()),
+                               rtol=0)
+
+
+@pytest.mark.cuda
+def test_overlap_kernel_matches_plain(cuda_device):
+    rng = np.random.RandomState(10)
+    a = np.stack([_random_boxes(rng, 70) for _ in range(2)])
+    a[:, 60:] = 0.0
+    b = np.stack([_random_boxes(rng, 150) for _ in range(2)])
+    ta, tb = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    n0 = cuda_overlap.launches
+    got = cuda_overlap.boxes_overlap_bev_cuda(ta, tb)
+    torch.cuda.synchronize()
+    assert cuda_overlap.launches == n0 + 1
+    ref = cuda_overlap.overlap_bev_plain(ta, tb)
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)
+    assert torch.all(got[:, 60:] == 0)
