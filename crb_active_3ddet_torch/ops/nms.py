@@ -8,9 +8,10 @@ Port of ``crb_active_3ddet_tpu/ops/nms.py`` (``rotated_nms_matrix`` :174,
 
 Greedy NMS keeps exactly the boxes solving
     keep_i = NOT OR_{j<i, iou(i,j)>t} keep_j          (score-descending i),
-reached by iterating from all-kept.  The (K, K) overlap matrix comes from the
-hand-written overlap kernel (``ops/cuda_overlap.py``), one launch for the whole
-batch.  Reference behaviours kept on purpose: boxes ranked below
+reached by iterating from all-kept.  The (K, K) overlap matrix comes from
+``ops/iou3d.boxes_overlap_bev`` (the hand-written kernel of
+``ops/cuda_overlap.py`` on a card), one launch for the whole batch.
+Reference behaviours kept on purpose: boxes ranked below
 ``matrix_cap`` never enter the kept set, and the fixpoint stops after
 ``rounds`` rounds.  ``jax.lax.top_k`` becomes a stable descending sort: ties
 go to the lowest index, as in XLA.
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import torch
 
-from .cuda_overlap import boxes_overlap_bev_cuda
+from . import iou3d
 
 _NEG_INF = -1e10
 
@@ -87,7 +88,7 @@ def rotated_nms_matrix(boxes, scores, iou_thresh: float, pre_max: int,
     areas = top_boxes[..., 3] * top_boxes[..., 4]
     alive = top_scores > _NEG_INF / 2
 
-    overlap = boxes_overlap_bev_cuda(top_boxes, top_boxes)
+    overlap = iou3d.boxes_overlap_bev(top_boxes, top_boxes)
     iou = overlap / torch.clamp(areas[..., :, None] + areas[..., None, :]
                                 - overlap, min=1e-8)
     idx = torch.arange(k, device=boxes.device)
