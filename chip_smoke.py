@@ -5,22 +5,28 @@
 Run from the root of a checkout.  It
   1. prints the card's name and power limit and builds the hand-written CUDA
      kernels (one nvcc per source, started together);
-  2. drives the port's SECOND eval step (``make_eval_step``) at the full
-     width of tools/cfgs/synthetic_models/second_synth.yaml, batch 8, from
-     seeded random weights, with every kernel launch counter set to 0 just
-     before and read just after, and records each kernel call's inputs;
-  3. times the step, each of its stages, and one step under torch.profiler
+  2. drives the port's eval step (``make_eval_step``) for two detectors, each
+     at the full width of its config, batch 8, from seeded random weights:
+     SECOND (tools/cfgs/synthetic_models/second_synth.yaml) and PV-RCNN
+     (pv_rcnn_synth.yaml), with every kernel launch counter set to 0 just
+     before each step and read just after, and records each kernel call's
+     inputs;
+  3. times each step, each of its stages, and one step under torch.profiler
      (kernel launches, host syncs, device time, busy share);
   4. checks the outputs: the same batch on the plain PyTorch versions (on the
      card) against the kernel path, at the 3D backbone's output, the BEV
      features, the head's raw outputs and the decoded pre-NMS predictions;
+     for PV-RCNN also the keypoints (equal), the point features, the point
+     head's outputs, and the RoI stage run from one common set of RoIs;
   5. holds each kernel against its plain version on the card at the inputs
-     the main path gave it (the gather-GEMM at all 12 sparse-conv layers,
-     bf16; the overlap at the NMS's (8, 1024, 1024), with degenerate rows,
-     and at the recall record's (8, MAX_OBJECTS, 500)), and times kernel,
-     plain version and library yardstick with CUDA events;
-  6. runs a reduced SECOND in f32 on the card against the CPU path (which the
-     CPU tests hold against the JAX reference), predictions and recall record.
+     each path gave it (the gather-GEMM at all 12 sparse-conv layers, bf16;
+     the overlap at every NMS's and recall record's shape, with degenerate
+     rows; the farthest point sampling at (8, 18000) -> 1024 and at small
+     shapes with ties, few and no valid points, for equality), and times
+     kernel, plain version and library yardstick with CUDA events;
+  6. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
+     the CPU path (which the CPU tests hold against the JAX reference),
+     predictions and recall record.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 """
@@ -39,23 +45,34 @@ import torch
 MEM_BW = 3.35e12                     # H100 SXM HBM3 bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
 OVERLAP_OPS_PER_PAIR = 440           # f32 ops of the 8-slot clip, per pair
+FPS_OPS_PER_POINT_STEP = 10          # 3 sub, 3 mul, 2 add, 1 min, 1 compare
 BATCH = 8
-CFG = 'tools/cfgs/synthetic_models/second_synth.yaml'
-# conv_cls bias of the seeded model: about 40 % of the anchors then score
-# above SCORE_THRESH 0.1, so the NMS runs at its full MATRIX_CAP width
+SECOND_CFG = 'tools/cfgs/synthetic_models/second_synth.yaml'
+PVRCNN_CFG = 'tools/cfgs/synthetic_models/pv_rcnn_synth.yaml'
+# conv_cls bias of the seeded models: about 40 % of SECOND's anchors then
+# score above SCORE_THRESH 0.1, so its NMS runs at its full MATRIX_CAP width
+# (PV-RCNN's proposal NMS has no threshold and always runs 1024 boxes)
 CLS_BIAS = -2.26
 # kernel path vs plain path, bf16 main path: max |diff| / (1 + |ref|).  The
 # two paths feed K2 the same operands and differ only in its f32 summation
 # order; a changed sum rounds to another bf16 value at the next layer's
 # input cast, which the later layers carry on.  Limits are 3-5x the
-# readings on an H100 80GB HBM3 at 700 W (PERF.md, Findings): 3.4e-4,
-# 1.8e-3, 2.0e-4, 6.4e-4, 6.4e-4, 1.5e-3 in this order.
+# readings on an H100 80GB HBM3 at 700 W (PERF.md, Findings).
 E2E_TOL = {'encoded_spconv_features': 1e-3, 'spatial_features_2d': 5e-3,
            'cls_preds': 1e-3, 'box_preds': 2e-3, 'dir_cls_preds': 2e-3,
            'batch_box_preds': 5e-3}
+# PV-RCNN's point branch reads the backbone's f32 stage outputs and BEV map;
+# the RoI stage is run from common RoIs.  Limits are 4-12x the readings
+# (2.8e-5, 8.1e-6, 1.7e-6, 8.8e-8, 8.6e-8 in this order).
+POINT_TOL = {'point_features_before_fusion': 1e-4, 'point_features': 4e-5,
+             'point_cls_preds': 1e-5, 'rcnn_cls': 1e-6, 'rcnn_reg': 1e-6}
 SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
                  'conv3.0', 'conv3.1', 'conv3.2', 'conv4.0', 'conv4.1',
                  'conv4.2', 'conv_out']
+# (N, K, valid) of the small FPS checks; the first three are those of the JAX
+# package's own parity test
+FPS_SMALL = [(300, 32, 300), (1024, 256, 640), (129, 64, 129),
+             (64, 100, 5), (64, 16, 0)]
 
 
 def log(*a):
@@ -80,33 +97,36 @@ def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions (on the
     card) — the comparison baseline; the port itself has no such switch."""
     from crb_active_3ddet_torch.models.backbones_3d import spconv_backbone
-    from crb_active_3ddet_torch.ops import cuda_overlap, iou3d
+    from crb_active_3ddet_torch.ops import cuda_fps, cuda_overlap, iou3d, pointnet2
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
-    saved = spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda
+    saved = (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
+             pointnet2.farthest_point_sample_cuda)
     spconv_backbone.sparse_conv_gather_gemm = subm_conv3d_gather
     iou3d.boxes_overlap_bev_cuda = cuda_overlap.overlap_bev_plain
+    pointnet2.farthest_point_sample_cuda = cuda_fps.fps_plain
     try:
         yield
     finally:
-        spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda = saved
+        (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
+         pointnet2.farthest_point_sample_cuda) = saved
 
 
 @contextlib.contextmanager
-def recording_overlap(calls):
-    """Append (boxes_a, boxes_b, launches) of every overlap call to calls."""
-    from crb_active_3ddet_torch.ops import cuda_overlap, iou3d
-    real = iou3d.boxes_overlap_bev_cuda
+def recording(caller, attr, wrapper, calls):
+    """Append (args, launches) of every call ``caller.attr`` makes to the
+    kernel wrapper module ``wrapper`` to calls."""
+    real = getattr(caller, attr)
 
-    def record(a, b):
-        before = cuda_overlap.launches
-        out = real(a, b)
-        calls.append((a, b, cuda_overlap.launches - before))
+    def record(*args):
+        before = wrapper.launches
+        out = real(*args)
+        calls.append((args, wrapper.launches - before))
         return out
-    iou3d.boxes_overlap_bev_cuda = record
+    setattr(caller, attr, record)
     try:
         yield
     finally:
-        iou3d.boxes_overlap_bev_cuda = real
+        setattr(caller, attr, real)
 
 
 def stage_ms(model, dataset, batch, post_cfg, num_class, iters=3):
@@ -129,13 +149,11 @@ def stage_ms(model, dataset, batch, post_cfg, num_class, iters=3):
             d = timed('voxelize', prepare_device_batch, batch, dataset.voxel_cfg,
                       dataset.grid_size, dataset.point_cloud_range,
                       dataset.voxel_size)
-            d = timed('vfe', model.vfe, dict(d))
-            d = timed('backbone_3d (rulebooks + 12 gather-GEMMs)', model.backbone_3d, d)
-            d = timed('map_to_bev + backbone_2d', lambda x: model.backbone_2d(
-                model.map_to_bev(x)), d)
-            d = timed('dense_head', model.dense_head, d)
-            preds = timed('post_processing (NMS, density)', pp.post_processing, d,
-                          post_cfg, num_class)
+            d = dict(d)
+            for name in model.module_topology:
+                d = timed(name, getattr(model, name), d)
+            preds = timed('post_processing', pp.post_processing, d, post_cfg,
+                          num_class)
             gt = d['gt_boxes']
             timed('recall record', pp.generate_recall_record, preds['pred_boxes'],
                   preds['pred_valid'], gt[..., :7], torch.abs(gt).sum(-1) > 0)
@@ -164,7 +182,8 @@ def profile_step(step, batch, rows=10):
 
 
 def reduced_cfg(cfg):
-    """Reduced SECOND (grid 128×128×40, narrow BEV) for the CPU/card check."""
+    """Reduced SECOND or PV-RCNN (grid 128×128×40, narrow BEV and point
+    branch, f32) for the CPU/card check."""
     d = cfg.DATA_CONFIG
     d.POINT_CLOUD_RANGE = [0, -3.2, -3, 6.4, 3.2, 1]
     d.NUM_SCENES, d.NUM_BG_POINTS, d.MAX_OBJECTS = 4, 1200, 4
@@ -179,6 +198,17 @@ def reduced_cfg(cfg):
     m.BACKBONE_3D.VOXEL_CAPS = [384, 256, 128, 128]
     m.BACKBONE_2D.LAYER_NUMS, m.BACKBONE_2D.NUM_FILTERS = [1, 1], [16, 32]
     m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [16, 16]
+    if m.get('PFE', None) is not None:
+        m.PFE.NUM_KEYPOINTS, m.PFE.NUM_OUTPUT_FEATURES = 256, 32
+        for layer in m.PFE.SA_LAYER.values():
+            layer.MLPS, layer.NSAMPLE = [[8, 8], [8, 8]], [8, 8]
+        m.POINT_HEAD.CLS_FC = [32, 32]
+        r = m.ROI_HEAD
+        r.SHARED_FC, r.CLS_FC, r.REG_FC = [64, 64], [32, 32], [32, 32]
+        r.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE = 256
+        r.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 32
+        r.ROI_GRID_POOL.GRID_SIZE = 4
+        r.ROI_GRID_POOL.MLPS, r.ROI_GRID_POOL.NSAMPLE = [[16, 16], [16, 16]], [8, 8]
     return cfg
 
 
@@ -198,27 +228,52 @@ def build(cfg, batch_size, device, seed, cls_bias):
     return dataset, loader, model, step
 
 
+def rel_err(a, b, heading=False):
+    """max |a − b| / (1 + |b|) and max |a − b|; box headings modulo π."""
+    a, b = a.float(), b.float()
+    d = (a - b).abs()
+    if heading:
+        dh = (a[..., 6] - b[..., 6]).remainder(np.pi)
+        d[..., 6] = torch.minimum(dh, np.pi - dh)
+    return (d / (1 + b.abs())).max().item(), d.max().item()
+
+
 def check_kernel_path(model, vox):
     """The same batch through the plain versions on the card, held against
-    the kernel path before the NMS.  Continuous tensors are compared as they
+    the kernel path before any NMS.  Continuous tensors are compared as they
     are; the decoded boxes' heading modulo π, since a direction-bin argmax
     between two near-equal logits moves it by exactly π — each such flip
-    must be a near-tie within the dir logits' own difference."""
+    must be a near-tie within the dir logits' own difference.  PV-RCNN: the
+    keypoints must be equal (the FPS is exact); the RoI stage is run on both
+    paths' point features from the kernel path's RoIs, because a near-tie in
+    the proposal NMS may pick other RoIs, after which nothing compares."""
+    two_stage = hasattr(model, 'roi_head')
     with torch.no_grad():
         out = model(vox)
         with plain_versions():
             ref = model(vox)
+        if two_stage:
+            keys = ('point_coords', 'point_coords_valid', 'point_features',
+                    'point_cls_scores')
+            same_rois = torch.equal(out['rois'], ref['rois'])
+            roi_ref = model.roi_head({**{k: ref[k] for k in keys},
+                                      'rois': out['rois']})
+            ref = {**ref, 'rcnn_cls': roi_ref['rcnn_cls'],
+                   'rcnn_reg': roi_ref['rcnn_reg']}
+    tols = dict(E2E_TOL)
+    if two_stage:
+        for k in ('point_coords', 'point_coords_valid'):
+            if not torch.equal(out[k], ref[k]):
+                raise RuntimeError(f'kernel path vs plain path: {k} differs')
+        log(f'kernel path vs plain: keypoints equal; RoI sets equal: {same_rois}')
+        tols.update(POINT_TOL)
+        del tols['batch_box_preds']       # the roi head's: other RoIs on ref
     errs, diffs = {}, {}
-    for key in E2E_TOL:
-        a, b = out[key].float(), ref[key].float()
-        d = (a - b).abs()
-        if key == 'batch_box_preds':
-            dh = (a[..., 6] - b[..., 6]).remainder(np.pi)
-            d[..., 6] = torch.minimum(dh, np.pi - dh)
-        diffs[key] = d.max().item()
-        errs[key] = (d / (1 + b.abs())).max().item()
-        log(f'kernel path vs plain, {key} {tuple(b.shape)}: max |diff|/(1+|ref|) '
-            f'= {errs[key]:.3e} (tol {E2E_TOL[key]:.0e}), max |diff| {diffs[key]:.3e}')
+    for key in tols:
+        errs[key], diffs[key] = rel_err(out[key], ref[key],
+                                        heading=key == 'batch_box_preds')
+        log(f'kernel path vs plain, {key} {tuple(ref[key].shape)}: max |diff|/(1+|ref|) '
+            f'= {errs[key]:.3e} (tol {tols[key]:.0e}), max |diff| {diffs[key]:.3e}')
     nb = model.dense_head.model_cfg['NUM_DIR_BINS']
     da = out['dir_cls_preds'].reshape(BATCH, -1, nb).float()
     db = ref['dir_cls_preds'].reshape(BATCH, -1, nb).float()
@@ -229,7 +284,7 @@ def check_kernel_path(model, vox):
     log(f'direction-bin flips kernel vs plain: {int(flip.sum())} of {flip.numel()} '
         f'anchors, largest reference logit gap among them {worst_gap:.3e} '
         f'(must be <= 2 x max |diff| of dir_cls_preds = {2 * diffs["dir_cls_preds"]:.3e})')
-    bad = [k for k in E2E_TOL if not errs[k] <= E2E_TOL[k]]
+    bad = [k for k in tols if not errs[k] <= tols[k]]
     if bad:
         raise RuntimeError(f'kernel path disagrees with the plain path at {bad}')
     if not worst_gap <= 2 * diffs['dir_cls_preds']:
@@ -266,7 +321,7 @@ def time_overlap(name, a, b, n_launch, tag):
             'library_ms': None}
 
 
-def time_gather_gemm(lname, layer, feats, rbk, n_launch):
+def time_gather_gemm(name, layer, feats, rbk, n_launch):
     """Hold the gather-GEMM against its plain version at one layer's inputs
     (bf16, as the main path feeds it); time both and the matmul yardstick."""
     from crb_active_3ddet_torch.ops import cuda_kernels
@@ -281,7 +336,7 @@ def time_gather_gemm(lname, layer, feats, rbk, n_launch):
     err = (got - ref).abs().max().item()
     tol = 1e-4 * (1 + ref.abs().max().item())
     if not err <= tol:
-        raise RuntimeError(f'gather-GEMM {lname}: max err {err} > {tol}')
+        raise RuntimeError(f'{name}: max err {err} > {tol}')
     ms = cuda_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
     plain_ms = cuda_time_ms(lambda: subm_conv3d_gather(f, rbk, w))
     g = f[torch.clamp(rbk, min=0).long()].reshape(rbk.shape[0], k * cin)
@@ -291,11 +346,11 @@ def time_gather_gemm(lname, layer, feats, rbk, n_launch):
     nbytes = f.numel() * 2 + rbk.numel() * 4 + w.numel() * 2 + ref.numel() * 4
     flops = 2 * nnz * cin * cout
     bound = max(nbytes / MEM_BW, flops / PEAK[cdt]) * 1e3
-    log(f'gather_gemm {lname}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
+    log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
         f'nnz {nnz}: err {err:.2e} (tol {tol:.1e}) kernel {ms:.4f} ms, '
         f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, '
         f'bound {bound:.4f} ms')
-    return {'name': f'gather_gemm[{lname}]', 'route': 'cuda',
+    return {'name': name, 'route': 'cuda',
             'source': 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
             'replaces': 'crb_active_3ddet_tpu/ops/pallas_kernels.py:60',
             'launches': n_launch, 'max_abs_err': err, 'ms': ms,
@@ -304,11 +359,76 @@ def time_gather_gemm(lname, layer, feats, rbk, n_launch):
             'library_ms': lib_ms}
 
 
-def check_reduced(dev):
-    """Reduced SECOND in f32: the card's kernels against the CPU path."""
+def fps_equal(points, valid, k, tag):
+    """The FPS kernel against its plain version, for equality; returns the
+    indices and the largest index difference (0, or it raised).  Every chosen
+    index of a frame with valid points is valid."""
+    from crb_active_3ddet_torch.ops import cuda_fps
+    got = cuda_fps.farthest_point_sample_cuda(points, valid, k)
+    torch.cuda.synchronize()
+    ref = cuda_fps.fps_plain(points, valid, k)
+    wrong = int((got != ref).sum())
+    if wrong:
+        raise RuntimeError(f'FPS {tag}: {wrong} of {got.numel()} indices differ '
+                           f'from the plain version')
+    chosen_valid = torch.gather(valid, 1, got.long())
+    has_valid = valid.any(dim=1, keepdim=True)
+    if not (chosen_valid | ~has_valid).all():
+        raise RuntimeError(f'FPS {tag}: an invalid point was chosen')
+    if not (got[~has_valid.expand_as(got)] == 0).all():
+        raise RuntimeError(f'FPS {tag}: a frame without valid points must give 0')
+    return got, float((got - ref).abs().max())
+
+
+def time_fps(name, points, valid, k, n_launch):
+    """Hold the FPS kernel to its plain version at the main path's inputs and
+    at small shapes (random and snapped to a lattice, where the maxima tie);
+    time kernel and plain version; return the kernel's JSON entry."""
+    from crb_active_3ddet_torch.ops import cuda_fps
+    got, err = fps_equal(points, valid, k, 'main path')
+    distinct = min(len(torch.unique(r)) for r in got)
+    for n, kk, nv in FPS_SMALL:
+        for snapped in (False, True):
+            rng = np.random.RandomState(n + kk)
+            pts = (rng.randint(-8, 9, (3, n, 3)) / 8 if snapped
+                   else rng.randn(3, n, 3) * 8).astype(np.float32)
+            ok = np.broadcast_to(np.arange(n) < nv, (3, n)).copy()
+            fps_equal(torch.from_numpy(pts).to(points.device),
+                      torch.from_numpy(ok).to(points.device), kk,
+                      f'({n}, {kk}, {nv}, snapped={snapped})')
+    ms = cuda_time_ms(lambda: cuda_fps.farthest_point_sample_cuda(points, valid, k),
+                      warmup=2, iters=10)
+    plain_ms = cuda_time_ms(lambda: cuda_fps.fps_plain(points, valid, k),
+                            warmup=0, iters=2)
+    p1, v1 = points[:1].contiguous(), valid[:1].contiguous()
+    one_ms = cuda_time_ms(lambda: cuda_fps.farthest_point_sample_cuda(p1, v1, k),
+                          warmup=2, iters=10)
+    b, n, _ = points.shape
+    nbytes = points.numel() * 4 + valid.numel() + b * k * 4
+    ops = b * (k - 1) * n * FPS_OPS_PER_POINT_STEP
+    bound = max(nbytes / MEM_BW, ops / PEAK[torch.float32]) * 1e3
+    log(f'{name} ({b}, {n}) -> {k}: equal to the plain version (also at '
+        f'{len(FPS_SMALL)} small shapes, random and snapped); fewest distinct '
+        f'keypoints in a frame {distinct}; kernel {ms:.4f} ms ({one_ms:.4f} ms for '
+        f'one frame alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (a '
+        f'serial chain of {k - 1} block-wide argmax steps: latency, not this '
+        f'bound, sets its time)')
+    return {'name': name, 'route': 'cuda',
+            'source': 'crb_active_3ddet_torch/csrc/fps.cu',
+            'replaces': 'crb_active_3ddet_tpu/ops/pallas_kernels.py:148',
+            'launches': n_launch, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': bound,
+            'bound_by': 'bytes' if nbytes / MEM_BW >= ops / PEAK[torch.float32]
+            else 'operations',
+            'library_ms': None}
+
+
+def check_reduced(cfg_file, dev):
+    """Reduced model in f32: the card's kernels against the CPU path."""
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch
-    small = reduced_cfg(load_config(CFG))
+    small = reduced_cfg(load_config(cfg_file))
+    name = small.MODEL.NAME
     _, sloader, _, sstep_gpu = build(small, 2, dev, seed=1, cls_bias=0.0)
     _, _, _, sstep_cpu = build(small, 2, torch.device('cpu'), seed=1, cls_bias=0.0)
     sb = next(iter(sloader))
@@ -316,53 +436,40 @@ def check_reduced(dev):
     pc, rc = sstep_cpu(host_to_device_batch(sb, 'cpu'))
     for k in ('pred_valid', 'pred_labels'):
         if not torch.equal(pg[k].cpu(), pc[k]):
-            raise RuntimeError(f'reduced SECOND f32: {k} differs card vs CPU')
+            raise RuntimeError(f'reduced {name} f32: {k} differs card vs CPU')
     for k in ('pred_boxes', 'pred_scores'):
         e = (pg[k].cpu() - pc[k]).abs().max().item()
-        log(f'reduced SECOND f32 card vs CPU {k}: max err {e:.2e} (tol 1e-4)')
+        log(f'reduced {name} f32 card vs CPU {k}: max err {e:.2e} (tol 1e-4)')
         if not e <= 1e-4:
-            raise RuntimeError(f'reduced SECOND f32: {k} differs card vs CPU')
+            raise RuntimeError(f'reduced {name} f32: {k} differs card vs CPU')
     if rg.keys() != rc.keys() or not all(torch.equal(rg[k].cpu(), rc[k]) for k in rc):
-        raise RuntimeError('reduced SECOND f32: recall record differs card vs CPU')
-    log(f"reduced SECOND kept {pc['pred_valid'].sum(-1).tolist()}, recall record "
+        raise RuntimeError(f'reduced {name} f32: recall record differs card vs CPU')
+    if not pc['pred_valid'].any():
+        raise RuntimeError(f'reduced {name} f32: no box kept')
+    log(f"reduced {name} kept {pc['pred_valid'].sum(-1).tolist()}, recall record "
         + ', '.join(f'{k} {v.tolist()}' for k, v in rc.items()) + ' (card = CPU)')
 
 
-def main():
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device', file=sys.stderr)
-        return 1
+def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
+    """One detector's eval step at full width: counters to 0, one step,
+    counters read; output checks; step time, stages, profile; kernel path vs
+    plain path; every kernel vs its plain version at this path's inputs.
+    ``overlap_tags`` names the overlap calls the step must make, in order.
+    Returns the kernels' JSON entries."""
     from crb_active_3ddet_torch.config import load_config
-    from crb_active_3ddet_torch.ops import cuda_build, cuda_kernels, cuda_overlap
+    from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap,
+                                            iou3d, pointnet2)
     from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
                                                       prepare_device_batch)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device('cuda')
-
-    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()[0]
-    log(f'card: {smi}')
-
-    t0 = time.perf_counter()
-    built = cuda_build.build_all(['gather_gemm', 'overlap_bev'])
-    log(f'kernel build: {time.perf_counter() - t0:.1f} s wall, per source '
-        + ', '.join(f'{k} {v:.1f} s' for k, v in built.items()))
-    for name, (_, report) in cuda_build.BUILD_LOG.items():
-        regs = sorted({ln.split('Used ')[1].strip() for ln in report.splitlines()
-                       if 'Used ' in ln})
-        spill = [ln.strip() for ln in report.splitlines()
-                 if 'spill' in ln and not ' 0 bytes spill stores, 0 bytes spill loads' in ln]
-        log(f'  {name}: ptxas {"; ".join(regs)[:300]}; spills: {spill[:2] or "none"}')
-
-    # ---- the main path: full-width SECOND eval step, batch 8 ----
-    cfg = load_config(CFG)
+    cfg = load_config(cfg_file)
+    name = cfg.MODEL.NAME
+    log(f'==== {name}: {cfg_file}, batch {BATCH} ====')
     dataset, loader, model, step = build(cfg, BATCH, dev, seed=0, cls_bias=CLS_BIAS)
+    two_stage = hasattr(model, 'roi_head')
     host = next(iter(loader))
     batch = host_to_device_batch(host, dev)
     # each sparse conv layer's inputs and the gather-GEMM launches it made
-    captured, launched, overlap_calls = [], [], []
+    captured, launched, overlap_calls, fps_calls = [], [], [], []
     layers = [m for m in model.backbone_3d.modules()
               if type(m).__name__ == 'SparseConvLayer']
     hooks = [m.register_forward_pre_hook(lambda mod, args: captured.append(
@@ -370,27 +477,38 @@ def main():
     hooks += [m.register_forward_hook(lambda mod, args, out: launched.append(
         cuda_kernels.launches - captured[len(launched)][3])) for m in layers]
     torch.cuda.synchronize()
-    cuda_kernels.launches = cuda_overlap.launches = 0
-    with recording_overlap(overlap_calls):
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.launches = cuda_overlap.launches = cuda_fps.launches = 0
+    with recording(iou3d, 'boxes_overlap_bev_cuda', cuda_overlap, overlap_calls), \
+            recording(pointnet2, 'farthest_point_sample_cuda', cuda_fps, fps_calls):
         preds, rec = step(batch)
     torch.cuda.synchronize()
     counts = {'gather_gemm': cuda_kernels.launches,
-              'overlap_bev': cuda_overlap.launches}
+              'overlap_bev': cuda_overlap.launches, 'fps': cuda_fps.launches}
     for h in hooks:
         h.remove()
-    log(f'main path launches: {counts}')
-    for name, n in counts.items():
-        if n == 0:
-            raise RuntimeError(f'kernel {name} was not launched on the main path')
+    log(f'{name} main path launches: {counts}; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    expected = {'gather_gemm': len(SPARSE_LAYERS), 'overlap_bev': len(overlap_tags),
+                'fps': 1 if two_stage else 0}
+    for kernel, n in expected.items():
+        if counts[kernel] < n:
+            raise RuntimeError(f'{name}: kernel {kernel} was launched '
+                               f'{counts[kernel]} times on the main path, '
+                               f'expected at least {n}')
     if len(captured) != len(SPARSE_LAYERS):
         raise RuntimeError(f'expected {len(SPARSE_LAYERS)} sparse conv layers, '
                            f'saw {len(captured)}')
     if sum(launched) != counts['gather_gemm']:
         raise RuntimeError(f'gather-GEMM launches per layer {launched} '
                            f"do not add up to {counts['gather_gemm']}")
-    if len(overlap_calls) != 2 or sum(c[2] for c in overlap_calls) != counts['overlap_bev']:
-        raise RuntimeError(f'expected the overlap from the NMS and the recall '
-                           f'record, saw {[(tuple(a.shape), n) for a, _, n in overlap_calls]}')
+    if len(overlap_calls) != len(overlap_tags) \
+            or sum(n for _, n in overlap_calls) != counts['overlap_bev']:
+        raise RuntimeError(f'{name}: expected the overlap calls {overlap_tags}, saw '
+                           f'{[(tuple(a[0].shape), n) for a, n in overlap_calls]}')
+    if two_stage and [n for _, n in fps_calls] != [1]:
+        raise RuntimeError(f'{name}: expected one FPS call that launches once '
+                           f'for the whole batch, saw {[n for _, n in fps_calls]}')
 
     for k, v in preds.items():
         if v.dtype.is_floating_point and not torch.isfinite(v).all():
@@ -403,7 +521,6 @@ def main():
     for _ in range(2):                                  # warm-up
         step(batch)
     torch.cuda.synchronize()
-    n_iter = 5
     t = time.perf_counter()
     for _ in range(n_iter):
         p, _ = step(batch)
@@ -416,7 +533,10 @@ def main():
     thresh = float(cfg.MODEL.POST_PROCESSING.SCORE_THRESH)
     alive = (torch.sigmoid(out['batch_cls_preds']).max(-1).values >= thresh).sum(-1)
     kept = preds['pred_valid'].sum(-1)
-    if not ((kept > 0).all() and (kept < alive).all()):
+    # SECOND's NMS must suppress some of the many live anchors; PV-RCNN's
+    # final NMS sees RoIs that already went through the proposal NMS
+    if not ((kept > 0).all() and (kept <= alive).all()
+            and (two_stage or (kept < alive).all())):
         raise RuntimeError(f'NMS check: kept {kept.tolist()} alive {alive.tolist()}')
     pcr = np.asarray(dataset.point_cloud_range, np.float64)
     vsz = np.asarray(dataset.voxel_size, np.float64)
@@ -429,33 +549,79 @@ def main():
         max_real = max(max_real, len(np.unique((c[ok, 2] * gsz[1] + c[ok, 1])
                                                * gsz[0] + c[ok, 0])))
     cap = dataset.voxel_cfg['max_voxels']
-    log(f'eval step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
+    log(f'{name} eval step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
         f'{BATCH / step_s:.2f} scans/s; boxes alive {alive.tolist()}, '
         f'kept {kept.tolist()}; max real voxels {max_real} of buffer {cap}; '
         f"recall record {', '.join(f'{k} {v.tolist()}' for k, v in rec.items())}")
-    if max_real > cap:
+    # second_synth.yaml's buffer holds every scene; pv_rcnn_synth.yaml's own
+    # MAX_NUMBER_OF_VOXELS (16000) is below the densest scenes, so that
+    # config truncates, here as in the JAX package
+    if max_real > cap and not two_stage:
         raise RuntimeError('voxel buffer truncates real voxels')
+    if two_stage:
+        roi_valid = out['roi_valid'].sum(-1)
+        log(f"{name} points per frame {host['num_points'].tolist()} of "
+            f"{host['points'].shape[1]}; valid RoIs {roi_valid.tolist()} of "
+            f"{out['roi_valid'].shape[1]}; RoI labels "
+            f"{torch.bincount(out['roi_labels'].flatten(), minlength=4).tolist()}")
+        if not (roi_valid == out['roi_valid'].shape[1]).all():
+            raise RuntimeError('the proposal layer did not fill its RoIs')
     stages = stage_ms(model, dataset, batch, cfg.MODEL.POST_PROCESSING,
                       len(cfg.CLASS_NAMES))
-    log('eval step stages (ms, synchronised): ' + ', '.join(
+    log(f'{name} eval step stages (ms, synchronised): ' + ', '.join(
         f'{k} {v:.2f}' for k, v in stages.items())
         + f'; sum {sum(stages.values()):.2f}')
     profile_step(step, batch)
 
-    # ---- each kernel against its plain version at the main path's inputs ----
-    results = [time_gather_gemm(lname, layer, feats, rbk, n)
+    # ---- each kernel against its plain version at this path's inputs ----
+    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n)
                for lname, (layer, feats, rbk, _), n
                in zip(SPARSE_LAYERS, captured, launched)]
-    (nms_a, _, nms_n), (gt, pred, rec_n) = overlap_calls
-    boxes = nms_a.clone()
-    boxes[:, 1000:] = 0.0                               # degenerate rows
-    if not (cuda_overlap.boxes_overlap_bev_cuda(boxes, boxes)[:, 1000:] == 0).all():
-        raise RuntimeError('overlap: degenerate rows give non-zero areas')
-    results.append(time_overlap('overlap_bev[nms]', boxes, boxes, nms_n, 'NMS'))
-    results.append(time_overlap('overlap_bev[recall]', gt.contiguous(),
-                                pred.contiguous(), rec_n, 'recall record'))
+    for tag, ((a, b), n) in zip(overlap_tags, overlap_calls):
+        a, b = a.contiguous(), b.contiguous()
+        if a.shape == b.shape and torch.equal(a, b):    # an NMS's square matrix
+            a = b = a.clone()
+            cut = a.shape[1] - max(1, a.shape[1] // 40)
+            a[:, cut:] = 0.0                            # degenerate rows
+            if not (cuda_overlap.boxes_overlap_bev_cuda(a, a)[:, cut:] == 0).all():
+                raise RuntimeError('overlap: degenerate rows give non-zero areas')
+        results.append(time_overlap(f'{prefix}overlap_bev[{tag}]', a, b, n, tag))
+    if two_stage:
+        (points, valid, k), n = fps_calls[0]
+        results.append(time_fps(f'{prefix}fps', points, valid, k, n))
+    return results
 
-    check_reduced(dev)
+
+def main():
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 1
+    from crb_active_3ddet_torch.ops import cuda_build
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device('cuda')
+
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    log(f'card: {smi}')
+
+    t0 = time.perf_counter()
+    built = cuda_build.build_all(['gather_gemm', 'overlap_bev', 'fps'])
+    log(f'kernel build: {time.perf_counter() - t0:.1f} s wall, per source '
+        + ', '.join(f'{k} {v:.1f} s' for k, v in built.items()))
+    for name, (_, report) in cuda_build.BUILD_LOG.items():
+        regs = sorted({ln.split('Used ')[1].strip() for ln in report.splitlines()
+                       if 'Used ' in ln})
+        spill = [ln.strip() for ln in report.splitlines()
+                 if 'spill' in ln and not ' 0 bytes spill stores, 0 bytes spill loads' in ln]
+        log(f'  {name}: ptxas {"; ".join(regs)[:300]}; spills: {spill[:2] or "none"}')
+
+    results = drive_path(SECOND_CFG, dev, '', ['nms', 'recall'], n_iter=5)
+    results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.',
+                          ['proposal_nms', 'nms', 'recall'], n_iter=5)
+    check_reduced(SECOND_CFG, dev)
+    check_reduced(PVRCNN_CFG, dev)
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

@@ -117,6 +117,8 @@ class VoxelBackBone8x(nn.Module):
                                         stride=(2, 1, 1), padding=(0, 0, 0),
                                         subm=False)
         self.num_point_features = 128
+        self.backbone_channels = {'x_conv1': 16, 'x_conv2': 32,
+                                  'x_conv3': 64, 'x_conv4': 64}
 
     def forward(self, batch_dict):
         cfg = self.model_cfg

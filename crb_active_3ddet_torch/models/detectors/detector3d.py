@@ -1,7 +1,9 @@
-"""Config-driven detector (torch): the SECONDNet topology of
+"""Config-driven detector (torch): the SECONDNet and PVRCNN topologies of
 ``crb_active_3ddet_tpu/models/detectors/detector3d.py`` (reference
-``detector3d_template.py:24-53``, ``second_net.py:9-34``):
-vfe → backbone_3d → map_to_bev → backbone_2d → dense_head.
+``detector3d_template.py:24-53``, ``second_net.py:9-34``, ``pv_rcnn.py:9-43``):
+vfe → backbone_3d → map_to_bev → [pfe] → backbone_2d → dense_head →
+[point_head → roi_head]; the bracketed modules are built when the config
+names them.
 """
 
 from __future__ import annotations
@@ -14,16 +16,19 @@ from torch import nn
 from ...utils.common import resolve_device
 from ..backbones_2d.base_bev_backbone import build_backbone_2d
 from ..backbones_2d.map_to_bev import build_map_to_bev
-from ..backbones_3d.spconv_backbone import build_backbone_3d
+from ..backbones_3d.pfe import build_pfe
+from ..backbones_3d.spconv_backbone import SparseConv3d, build_backbone_3d
 from ..backbones_3d.vfe import build_vfe
 from ..dense_heads.anchor_head_single import build_dense_head
+from ..point_heads.point_head_simple import build_point_head
+from ..roi_heads.pvrcnn_head import build_roi_head
 
-_PORTED = {'SECONDNet'}
+_PORTED = {'SECONDNet', 'PVRCNN'}
 
 
 class Detector3D(nn.Module):
     def __init__(self, model_cfg, num_class, class_names, grid_size,
-                 point_cloud_range, num_point_features):
+                 point_cloud_range, voxel_size, num_point_features):
         super().__init__()
         self.model_cfg = model_cfg
         self.num_class = num_class
@@ -38,8 +43,24 @@ class Detector3D(nn.Module):
         self.dense_head = build_dense_head(
             model_cfg['DENSE_HEAD'], self.backbone_2d.num_bev_features,
             num_class, class_names, grid_size, point_cloud_range)
-        self.module_topology = ('vfe', 'backbone_3d', 'map_to_bev',
-                                'backbone_2d', 'dense_head')
+        topology = ['vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d',
+                    'dense_head']
+        if model_cfg.get('PFE', None) is not None:
+            self.pfe = build_pfe(
+                model_cfg['PFE'], voxel_size, point_cloud_range,
+                self.map_to_bev.num_bev_features, num_point_features,
+                self.backbone_3d.backbone_channels)
+            # the pfe reads the BEV map before the 2D backbone consumes it
+            topology.insert(topology.index('backbone_2d'), 'pfe')
+        if model_cfg.get('POINT_HEAD', None) is not None:
+            self.point_head = build_point_head(model_cfg['POINT_HEAD'],
+                                               num_class, self.pfe)
+            topology.append('point_head')
+        if model_cfg.get('ROI_HEAD', None) is not None:
+            self.roi_head = build_roi_head(model_cfg['ROI_HEAD'], num_class,
+                                           self.pfe.num_point_features)
+            topology.append('roi_head')
+        self.module_topology = tuple(topology)
 
     @property
     def device(self):
@@ -55,15 +76,19 @@ class Detector3D(nn.Module):
 def init_weights(model, generator: torch.Generator):
     """Seeded random weights: normal(0, 1/√fan_in) for every weight, small
     normal biases and BN affine terms, positive running variances.  The
-    anchor head keeps its focal-loss prior on the cls bias."""
+    anchor head keeps its focal-loss prior on the cls bias.  Fan-in: a sparse
+    conv weight is (K, Cin, Cout); every other weight (Conv2d, Conv1d,
+    ConvTranspose2d as laid out, Linear) has its outputs first."""
     cls_bias = model.dense_head.conv_cls.bias
+    sparse = {id(m.weight) for m in model.modules() if isinstance(m, SparseConv3d)}
     with torch.no_grad():
         for name, p in model.named_parameters():
             if p is cls_bias:
                 continue
             r = torch.randn(p.shape, generator=generator)
             if name.endswith('weight') and p.ndim > 1:
-                fan_in = p[0].numel() if p.ndim != 3 else p.shape[0] * p.shape[1]
+                fan_in = p.shape[0] * p.shape[1] if id(p) in sparse \
+                    else p[0].numel()
                 r = r / math.sqrt(fan_in)
             elif name.endswith('weight'):
                 r = 1.0 + 0.1 * r
@@ -88,5 +113,6 @@ def build_detector(model_cfg, num_class, dataset, device='cuda'):
     model = Detector3D(model_cfg, num_class, dataset.class_names,
                        tuple(int(g) for g in dataset.grid_size),
                        tuple(float(x) for x in dataset.point_cloud_range),
+                       tuple(float(v) for v in dataset.voxel_size),
                        int(dataset.num_point_features))
     return model.to(resolve_device(device))

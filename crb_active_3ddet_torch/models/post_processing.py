@@ -5,9 +5,11 @@ Port of ``post_processing`` (:110), ``post_process_frame`` (:27) and
 ``crb_active_3ddet_tpu/models/post_processing.py`` (reference
 ``detector3d_template.py:186-453``).  Frames are processed as one batch (the
 JAX package vmaps per frame): every output is a fixed (B, P, ...) tensor with
-a validity mask.  The two-stage score fusions (roi labels, IoU-head score
-types) and the score-only selection of configs without NMS_CONFIG
-(CenterPoint) come with those detectors.
+a validity mask.  Two-stage models hand over ``roi_labels`` (the labels,
+when ``has_class_labels``: class-agnostic rcnn scores carry no class) and
+``full_cls_scores`` (exported as ``pred_logits``).  The IoU-head score fusions
+(SECONDNetIoU's SCORE_TYPE) and the score-only selection of configs without
+NMS_CONFIG (CenterPoint) come with those detectors.
 """
 
 from __future__ import annotations
@@ -17,12 +19,7 @@ import torch
 from ..ops import iou3d
 from ..ops import nms as nms_ops
 from ..ops.points_in_boxes import box_point_density
-
-
-def _take(x, idx):
-    """x (B, A, ...) rows at idx (B, P) → (B, P, ...)."""
-    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.ndim - 2)))
-                        .expand(*idx.shape, *x.shape[2:]))
+from ..utils.common import take_rows
 
 
 def _masked(valid, x):
@@ -32,14 +29,19 @@ def _masked(valid, x):
 
 def post_processing(batch_dict, post_cfg, num_class):
     """batch_dict needs batch_cls_preds (B, A, C), batch_box_preds (B, A, 7+),
-    cls_preds_normalized, optionally points (B, N, 3+) + points_valid.
+    cls_preds_normalized, optionally points (B, N, 3+) + points_valid, and
+    from a RoI head has_class_labels, roi_labels (B, A), full_cls_scores.
     Returns a dict of (B, P, ...) tensors."""
     cls_preds = batch_dict['batch_cls_preds']
     box_preds = batch_dict['batch_box_preds']
     normalized = bool(batch_dict.get('cls_preds_normalized', False))
     scores = cls_preds if normalized else torch.sigmoid(cls_preds)
     max_scores = scores.max(dim=-1).values
-    labels = scores.argmax(dim=-1) + 1
+    if batch_dict.get('has_class_labels', False):
+        labels = batch_dict['roi_labels']
+    else:
+        labels = scores.argmax(dim=-1) + 1
+    logits_src = batch_dict.get('full_cls_scores', cls_preds)
 
     nms_cfg = post_cfg.get('NMS_CONFIG', None)
     if nms_cfg is None:
@@ -59,17 +61,17 @@ def post_processing(batch_dict, post_cfg, num_class):
                                   mc_boxes.reshape(b, -1, mc_boxes.shape[-1])),
             'pred_scores': _masked(keep_valid, mc_scores.reshape(b, -1)),
             'pred_labels': _masked(keep_valid, mc_labels.reshape(b, -1)),
-            'pred_logits': _masked(keep_valid, _take(cls_preds, keep_idx)),
+            'pred_logits': _masked(keep_valid, take_rows(logits_src, keep_idx)),
             'pred_valid': keep_valid,
         }
     else:
         keep_idx, keep_valid, keep_scores = nms_ops.class_agnostic_nms(
             max_scores, box_preds[..., :7], nms_cfg, score_thresh=score_thresh)
         out = {
-            'pred_boxes': _masked(keep_valid, _take(box_preds, keep_idx)),
+            'pred_boxes': _masked(keep_valid, take_rows(box_preds, keep_idx)),
             'pred_scores': _masked(keep_valid, keep_scores),
             'pred_labels': _masked(keep_valid, torch.gather(labels, 1, keep_idx)),
-            'pred_logits': _masked(keep_valid, _take(cls_preds, keep_idx)),
+            'pred_logits': _masked(keep_valid, take_rows(logits_src, keep_idx)),
             'pred_valid': keep_valid,
         }
     points = batch_dict.get('points', None)

@@ -1,0 +1,121 @@
+"""PV-RCNN RoI head (torch), eval mode: port of
+``crb_active_3ddet_tpu/models/roi_heads/pvrcnn_head.py`` (reference
+``pcdet/models/roi_heads/pvrcnn_head.py``): RoI-grid pooling over the
+keypoint features, the shared FC tower, the cls/reg heads and the box decode.
+
+Module names and layouts are OpenPCDet's (``roi_grid_pool_layer``,
+``shared_fc_layer``, ``cls_layers``, ``reg_layers``: Conv1d(k=1) + BatchNorm1d
+stacks with Dropout entries), with one difference kept from the JAX package:
+the shared FC reads the pooled grid flattened grid-major, (B·R, G³·C), where
+OpenPCDet flattens channel-major.  The MC-dropout rounds, the LossNet taps and
+the shared-feature export of the pool scorers call ``tower`` again and are
+not ported yet; neither are target assignment and the losses.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...utils import common
+from ..backbones_3d.pfe import StackSAModuleMSG, pointwise_stack, run_pointwise
+from . import roi_head_template as rht
+
+
+def get_dense_grid_points(rois, grid_size: int):
+    """(N, 7) rois → (N, G³, 3) local grid points."""
+    g = grid_size
+    ar = torch.arange(g, device=rois.device)
+    idx = torch.stack(torch.meshgrid(ar, ar, ar, indexing='ij'),
+                      dim=-1).reshape(-1, 3).to(rois.dtype)
+    local_size = rois[:, None, 3:6]
+    return (idx[None] + 0.5) / g * local_size - local_size / 2
+
+
+def get_global_grid_points_of_roi(rois, grid_size: int):
+    """(N, 7) rois → (N, G³, 3) global grid points."""
+    local = get_dense_grid_points(rois, grid_size)
+    rotated = common.rotate_points_along_z(local, rois[:, 6])
+    return rotated + rois[:, None, 0:3]
+
+
+class PVRCNNHead(nn.Module):
+    def __init__(self, model_cfg, input_channels, num_class=1):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.num_class = num_class
+        pool = model_cfg['ROI_GRID_POOL']
+        if 'NUM_GROUPS' in pool:
+            raise NotImplementedError('vector-pool RoI grid pooling (PV-RCNN++) '
+                                      'is not ported yet')
+        self.grid_size = int(pool['GRID_SIZE'])
+        self.roi_grid_pool_layer = StackSAModuleMSG(
+            pool['POOL_RADIUS'], pool['NSAMPLE'], pool['MLPS'], input_channels)
+        pooled = self.grid_size ** 3 * self.roi_grid_pool_layer.num_out_channels
+        dp = float(model_cfg.get('DP_RATIO', 0.0))
+        shared = list(model_cfg['SHARED_FC'])
+        # OpenPCDet's Dropout positions: between the shared layers when
+        # DP_RATIO > 0, after the first block of each head always
+        self.shared_fc_layer = pointwise_stack(
+            [pooled, *shared], nn.Conv1d, nn.BatchNorm1d, dp_ratio=dp,
+            dropout_after=range(len(shared) - 1) if dp > 0 else ())
+        self.cls_layers = pointwise_stack(
+            [shared[-1], *model_cfg['CLS_FC']], nn.Conv1d, nn.BatchNorm1d,
+            dropout_after=(0,), dp_ratio=dp, out_channels=num_class)
+        self.reg_layers = pointwise_stack(
+            [shared[-1], *model_cfg['REG_FC']], nn.Conv1d, nn.BatchNorm1d,
+            dropout_after=(0,), dp_ratio=dp,
+            out_channels=rht._CODER.code_size * num_class)
+        nn.init.normal_(self.cls_layers[-1].weight, std=0.001)
+        nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
+
+    def roi_grid_pool(self, batch_dict):
+        """Keypoint features, weighted by their foreground score, pooled at
+        the G³ grid points of every RoI → (B·R, G³·C), grid-major."""
+        rois = batch_dict['rois']                               # (B, R, 7)
+        b, r = rois.shape[:2]
+        g3 = self.grid_size ** 3
+        point_features = batch_dict['point_features'] \
+            * batch_dict['point_cls_scores'][..., None]
+        grid_pts = get_global_grid_points_of_roi(
+            rois.reshape(b * r, -1), self.grid_size).reshape(b, r * g3, 3)
+        grid_valid = torch.ones(grid_pts.shape[:2], dtype=torch.bool,
+                                device=rois.device)
+        pooled = self.roi_grid_pool_layer(
+            batch_dict['point_coords'], batch_dict['point_coords_valid'],
+            grid_pts, grid_valid, point_features)               # (B, R·G³, C)
+        return pooled.reshape(b * r, -1)
+
+    def tower(self, pooled):
+        """(B·R, G³·C) → shared features, rcnn_cls, rcnn_reg and the shared
+        layers' activations.  Dropout entries follow the modules' own mode
+        (identity in eval), so a pool scorer can call this again with them
+        live."""
+        latents = []
+        shared = run_pointwise(self.shared_fc_layer, pooled, taps=latents)
+        return (shared, run_pointwise(self.cls_layers, shared),
+                run_pointwise(self.reg_layers, shared), latents)
+
+    def forward(self, batch_dict):
+        if self.training:
+            raise NotImplementedError('PVRCNNHead runs in eval mode only')
+        if 'rois' not in batch_dict:
+            batch_dict = rht.proposal_layer(
+                batch_dict, self.model_cfg['NMS_CONFIG']['TEST'])
+        _, rcnn_cls, rcnn_reg, _ = self.tower(self.roi_grid_pool(batch_dict))
+        batch_dict['rcnn_cls'] = rcnn_cls
+        batch_dict['rcnn_reg'] = rcnn_reg
+        batch_cls, batch_box = rht.generate_predicted_boxes(
+            batch_dict['rois'], rcnn_cls, rcnn_reg)
+        batch_dict['batch_cls_preds'] = batch_cls
+        batch_dict['batch_box_preds'] = batch_box
+        batch_dict['cls_preds_normalized'] = False
+        return batch_dict
+
+
+def build_roi_head(model_cfg, num_class, input_channels):
+    """CLASS_AGNOSTIC RoI heads score one class."""
+    nc = 1 if model_cfg.get('CLASS_AGNOSTIC', True) else num_class
+    if model_cfg['NAME'] == 'PVRCNNHead':
+        return PVRCNNHead(model_cfg, input_channels, num_class=nc)
+    raise KeyError(f"roi head {model_cfg['NAME']} is not ported yet")

@@ -21,9 +21,9 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-# the overlap keeps every product and sum separately rounded, like its plain
-# version, so the two agree to the last bit on the same corners
-EXTRA_FLAGS = {'overlap_bev': ['-fmad=false']}
+# the overlap and the FPS keep every product and sum separately rounded, like
+# their plain versions, so the two agree to the last bit on the same inputs
+EXTRA_FLAGS = {'overlap_bev': ['-fmad=false'], 'fps': ['-fmad=false']}
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}     # name → (seconds, ptxas report) of this process's builds

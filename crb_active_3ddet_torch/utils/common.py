@@ -2,7 +2,8 @@
 
 Host-side numpy parts copied from ``crb_active_3ddet_tpu/utils/common.py``
 (limit_period, rotate_points_along_z*, get_voxel_centers, create_logger,
-set_random_seed, AverageMeter); ``limit_period`` also takes torch tensors.
+set_random_seed, AverageMeter); ``limit_period``, ``rotate_points_along_z``
+and ``get_voxel_centers`` also take torch tensors.
 """
 
 from __future__ import annotations
@@ -27,6 +28,12 @@ def resolve_device(device='cuda') -> torch.device:
     return device
 
 
+def take_rows(x, idx):
+    """x (B, A, ...) rows at idx (B, P) → (B, P, ...)."""
+    return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.ndim - 2)))
+                        .expand(*idx.shape, *x.shape[2:]))
+
+
 def limit_period(val, offset: float = 0.5, period: float = np.pi):
     """Wrap angles into [-offset*period, (1-offset)*period).
 
@@ -39,11 +46,21 @@ def limit_period(val, offset: float = 0.5, period: float = np.pi):
 
 
 def rotate_points_along_z(points, angle):
-    """Rotate batched points about the z axis (numpy).
+    """Rotate batched points about the z axis.
 
-    points: (B, N, 3 + C), angle: (B,) — counter-clockwise (lidar convention).
-    Mirrors ``common_utils.rotate_points_along_z`` (`common_utils.py:35-57`).
+    points: (B, N, 3 + C), angle: (B,).  A copy of the JAX package's
+    function, which applies the transpose of the matrix of
+    ``common_utils.rotate_points_along_z`` (`common_utils.py:35-57`): a
+    positive angle turns (1, 0, 0) towards (0, −1, 0).  Works for numpy and
+    torch inputs.
     """
+    if isinstance(points, torch.Tensor):
+        cosa, sina = torch.cos(angle), torch.sin(angle)
+        zeros, ones = torch.zeros_like(angle), torch.ones_like(angle)
+        rot = torch.stack([cosa, sina, zeros, -sina, cosa, zeros,
+                           zeros, zeros, ones], dim=-1).reshape(-1, 3, 3)
+        xyz = torch.einsum('bnc,bdc->bnd', points[..., :3], rot)
+        return torch.cat([xyz, points[..., 3:]], dim=-1)
     cosa, sina = np.cos(angle), np.sin(angle)
     zeros, ones = np.zeros_like(angle), np.ones_like(angle)
     rot = np.stack([
@@ -66,11 +83,19 @@ def rotate_points_along_z_single(points, angle):
 
 
 def get_voxel_centers(voxel_coords, downsample_times, voxel_size, point_cloud_range):
-    """Voxel-index (z, y, x int coords) → metric centers (numpy).
+    """Voxel-index (..., 3) (z, y, x int coords) → metric centers.
 
     Mirrors ``common_utils.get_voxel_centers`` (`common_utils.py:66-82`).
+    Works for numpy and torch inputs.
     """
-    coords = voxel_coords[:, [2, 1, 0]].astype(np.float32)
+    if isinstance(voxel_coords, torch.Tensor):
+        coords = voxel_coords[..., [2, 1, 0]].to(torch.float32)
+        size = torch.tensor(voxel_size, dtype=torch.float32,
+                            device=coords.device) * downsample_times
+        start = torch.tensor(point_cloud_range[0:3], dtype=torch.float32,
+                             device=coords.device)
+        return (coords + 0.5) * size + start
+    coords = voxel_coords[..., [2, 1, 0]].astype(np.float32)
     voxel_size = np.asarray(voxel_size) * downsample_times
     pc_range = np.asarray(point_cloud_range[0:3])
     return (coords + 0.5) * voxel_size + pc_range

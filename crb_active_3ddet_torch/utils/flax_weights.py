@@ -11,7 +11,13 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     torch → torch (in, out, kh, kw) (the inverse of the JAX package's
     ``utils/torch_ckpt.py:215 _t_convtranspose2d``);
   * sparse conv kernels: kept as (K, Cin, Cout), the gather-GEMM's layout;
-  * BN: scale/bias → weight/bias, batch_stats mean/var → running_mean/var.
+  * BN: scale/bias → weight/bias, batch_stats mean/var → running_mean/var;
+  * Dense (in, out) → Linear (out, in), or a k=1 Conv1d / Conv2d weight
+    (out, in, 1[, 1]) where the port keeps OpenPCDet's conv layers (PV-RCNN's
+    point branch).  Flax auto-names inside a StackSAModuleMSG run across the
+    radius loop (``Dense_0, Dense_1`` branch 0, ``Dense_2, Dense_3`` branch
+    1); ``SA_x_conv{i}`` become ``SA_layers.{k}`` in FEATURES_SOURCE order.
+    The shared FC's input stays grid-major, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -48,9 +54,84 @@ def _bn(sd, prefix, params, stats):
     sd[f'{prefix}.num_batches_tracked'] = np.zeros((), np.int64)
 
 
-def flax_to_state_dict(params, batch_stats):
-    """Flax SECONDNet variables → port ``state_dict`` (torch tensors)."""
+def _dense(w, extra_dims=0):
+    """Flax Dense (in, out) → (out, in) plus ``extra_dims`` unit axes."""
+    w = np.asarray(w).T
+    return w.reshape(*w.shape, *([1] * extra_dims))
+
+
+def sa_module_from_flax(sd, prefix, params, stats, mlps):
+    """StackSAModuleMSG: flat Dense_i / BatchNorm_i → mlps.{branch}.{3j, 3j+1}."""
+    i = 0
+    for m, mlp in enumerate(mlps):
+        for j in range(len(mlp)):
+            sd[f'{prefix}.mlps.{m}.{3 * j}.weight'] = _dense(
+                params[f'Dense_{i}']['kernel'], 2)
+            _bn(sd, f'{prefix}.mlps.{m}.{3 * j + 1}',
+                params[f'BatchNorm_{i}'], stats[f'BatchNorm_{i}'])
+            i += 1
+
+
+def _fc_stack(sd, prefix, params, stats, name, n_layers, dropout_after, out=None):
+    """``{name}_fc_k`` / ``{name}_bn_k`` (+ biased ``out``) → the Conv1d
+    stack ``prefix``; every Dropout entry shifts the later indices by one."""
+    pos = 0
+    for k in range(n_layers):
+        sd[f'{prefix}.{pos}.weight'] = _dense(params[f'{name}_fc_{k}']['kernel'], 1)
+        _bn(sd, f'{prefix}.{pos + 1}', params[f'{name}_bn_{k}'],
+            stats[f'{name}_bn_{k}'])
+        pos += 3 + (k in dropout_after)
+    if out is not None:
+        sd[f'{prefix}.{pos}.weight'] = _dense(params[out]['kernel'], 1)
+        sd[f'{prefix}.{pos}.bias'] = params[out]['bias']
+
+
+def _point_branch(sd, params, batch_stats, model_cfg):
+    """PV-RCNN's pfe, point_head and roi_head."""
+    pfe, spfe = params['pfe'], batch_stats['pfe']
+    sa_cfg = model_cfg['PFE']['SA_LAYER']
+    k = 0
+    for src in model_cfg['PFE']['FEATURES_SOURCE']:
+        if src == 'raw_points':
+            sa_module_from_flax(sd, 'pfe.SA_rawpoints', pfe['SA_rawpoints'],
+                       spfe['SA_rawpoints'], sa_cfg[src]['MLPS'])
+        elif src != 'bev':
+            sa_module_from_flax(sd, f'pfe.SA_layers.{k}', pfe[f'SA_{src}'],
+                       spfe[f'SA_{src}'], sa_cfg[src]['MLPS'])
+            k += 1
+    sd['pfe.vsa_point_feature_fusion.0.weight'] = _dense(pfe['vsa_fusion']['kernel'])
+    _bn(sd, 'pfe.vsa_point_feature_fusion.1', pfe['BatchNorm_0'],
+        spfe['BatchNorm_0'])
+
+    ph, sph = params['point_head'], batch_stats['point_head']
+    n = len(model_cfg['POINT_HEAD']['CLS_FC'])
+    for j in range(n):
+        sd[f'point_head.cls_layers.{3 * j}.weight'] = _dense(ph[f'Dense_{j}']['kernel'])
+        _bn(sd, f'point_head.cls_layers.{3 * j + 1}', ph[f'BatchNorm_{j}'],
+            sph[f'BatchNorm_{j}'])
+    sd[f'point_head.cls_layers.{3 * n}.weight'] = _dense(ph[f'Dense_{n}']['kernel'])
+    sd[f'point_head.cls_layers.{3 * n}.bias'] = ph[f'Dense_{n}']['bias']
+
+    roi_cfg = model_cfg['ROI_HEAD']
+    rh, srh = params['roi_head'], batch_stats['roi_head']
+    sa_module_from_flax(sd, 'roi_head.roi_grid_pool_layer', rh['roi_grid_pool'],
+               srh['roi_grid_pool'], roi_cfg['ROI_GRID_POOL']['MLPS'])
+    n_shared = len(roi_cfg['SHARED_FC'])
+    between = range(n_shared - 1) if float(roi_cfg.get('DP_RATIO', 0.0)) > 0 else ()
+    _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n_shared, between)
+    _fc_stack(sd, 'roi_head.cls_layers', rh, srh, 'cls', len(roi_cfg['CLS_FC']),
+              (0,), out='cls_out')
+    _fc_stack(sd, 'roi_head.reg_layers', rh, srh, 'reg', len(roi_cfg['REG_FC']),
+              (0,), out='reg_out')
+
+
+def flax_to_state_dict(params, batch_stats, model_cfg=None):
+    """Flax SECONDNet or PVRCNN variables → port ``state_dict`` (torch
+    tensors).  PVRCNN needs ``model_cfg`` (the MODEL node): the Flax names of
+    the point branch do not say where one MLP ends and the next begins."""
     sd = {}
+    if 'pfe' in params:
+        _point_branch(sd, params, batch_stats, model_cfg)
     p3, s3 = params['backbone_3d'], batch_stats['backbone_3d']
     for i, name in enumerate(VOXEL8X_ORDER):
         layer = f'SparseConvLayer_{i}'

@@ -5,6 +5,9 @@ card (marked ``cuda``, skipped without one).
 Tolerance 1e-4 absolute throughout, as in tests/test_pallas_kernels.py: both
 sides are f32 and differ only in summation order (gather-GEMM) or in rounding
 of the same clip arithmetic (overlap, boxes of size ≤ 5 m at |x| ≤ 10 m).
+The farthest point sampling is held for equality (its plain version against
+the JAX package is in tests/test_torch_pointnet2.py).  This file imports only
+the JAX package's ops, so it also runs where flax is not installed.
 """
 
 import numpy as np
@@ -18,7 +21,7 @@ from crb_active_3ddet_tpu.ops.pallas_overlap import (boxes_iou_bev_pallas,
                                                      boxes_overlap_bev_pallas)
 from crb_active_3ddet_tpu.ops.sparse.sparse_ops import subm_conv3d_gather as jgather
 
-from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap
+from crb_active_3ddet_torch.ops import cuda_fps, cuda_kernels, cuda_overlap
 from crb_active_3ddet_torch.ops import iou3d as tiou
 from crb_active_3ddet_torch.ops.cuda_kernels import sparse_conv_gather_gemm
 from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
@@ -202,3 +205,36 @@ def test_overlap_kernel_matches_plain(cuda_device):
     ref = cuda_overlap.overlap_bev_plain(ta, tb)
     torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)
     assert torch.all(got[:, 60:] == 0)
+
+
+def _fps_points(seed, n, snapped):
+    """Random points, or multiples of 1/8 in [-1, 1] (many exact ties)."""
+    rng = np.random.RandomState(seed)
+    if snapped:
+        return (rng.randint(-8, 9, (n, 3)) / 8).astype(np.float32)
+    return (rng.randn(n, 3) * 8).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+@pytest.mark.parametrize('n,k,nv', [(300, 32, 300), (1024, 256, 640),
+                                    (129, 64, 129), (18000, 1024, 17000),
+                                    (64, 100, 5), (64, 16, 0)])
+def test_fps_kernel_equals_plain(cuda_device, n, k, nv, snapped):
+    pts = np.stack([_fps_points(s, n, snapped) for s in range(3)])
+    valid = np.broadcast_to(np.arange(n) < nv, (3, n)).copy()
+    p, v = _t(pts).to(cuda_device), _t(valid).to(cuda_device)
+    n0 = cuda_fps.launches
+    got = cuda_fps.farthest_point_sample_cuda(p, v, k)
+    torch.cuda.synchronize()
+    assert cuda_fps.launches == n0 + 1            # one launch for the batch
+    assert torch.equal(got, cuda_fps.fps_plain(p, v, k))
+    assert torch.equal(got.cpu(), cuda_fps.fps_plain(_t(pts), _t(valid), k))
+
+
+@pytest.mark.cuda
+def test_fps_kernel_refuses_too_many_points(cuda_device):
+    p = torch.zeros(1, 20000, 3, device=cuda_device)
+    with pytest.raises(ValueError, match='at most'):
+        cuda_fps.farthest_point_sample_cuda(
+            p, torch.ones(1, 20000, dtype=torch.bool, device=cuda_device), 8)
