@@ -19,22 +19,34 @@ Run from the root of a checkout.  It
      for PV-RCNN also the keypoints (equal), the point features, the point
      head's outputs, and the RoI stage run from one common set of RoIs;
   5. holds each kernel against its plain version on the card at the inputs
-     each path gave it (the gather-GEMM at all 12 sparse-conv layers, bf16;
-     the overlap at every NMS's and recall record's shape, with degenerate
-     rows; the farthest point sampling at (8, 18000) -> 1024 and at small
-     shapes with ties, few and no valid points, for equality), and times
-     kernel, plain version and library yardstick with CUDA events;
+     each path gave it (the gather-GEMM at all 12 sparse-conv layers, bf16,
+     with the share of each layer's rulebook that is empty; the overlap at
+     every NMS's and recall record's shape, with degenerate rows, and its
+     bare launch apart from the wrapper's corner computation; the farthest
+     point sampling at (8, 18000) -> 1024 and at other shapes from one point
+     to the kernel's capacity, with ties, few and no valid points, for
+     equality), and times kernel, plain version and library yardstick with
+     CUDA events (a kernel shorter than its call's host time by replaying a
+     CUDA graph of calls);
   6. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
      the CPU path (which the CPU tests hold against the JAX reference),
      predictions and recall record.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
+
+    python3 chip_smoke.py --ablate-k2
+
+instead times, at each sparse conv layer of the SECOND step, measurement
+builds of the gather-GEMM with its row gather, its weight reads or both
+compiled out: where that kernel's time goes, on a machine without a profiler
+for single kernels.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -62,17 +74,20 @@ E2E_TOL = {'encoded_spconv_features': 1e-3, 'spatial_features_2d': 5e-3,
            'cls_preds': 1e-3, 'box_preds': 2e-3, 'dir_cls_preds': 2e-3,
            'batch_box_preds': 5e-3}
 # PV-RCNN's point branch reads the backbone's f32 stage outputs and BEV map;
-# the RoI stage is run from common RoIs.  Limits are 4-12x the readings
-# (2.8e-5, 8.1e-6, 1.7e-6, 8.8e-8, 8.6e-8 in this order).
-POINT_TOL = {'point_features_before_fusion': 1e-4, 'point_features': 4e-5,
-             'point_cls_preds': 1e-5, 'rcnn_cls': 1e-6, 'rcnn_reg': 1e-6}
+# the RoI stage is run from common RoIs.  With K2's sums on tensor cores in
+# every layer, conv_input included, the stage outputs carry the same rounded-
+# to-another-bf16-value differences as the tensors above.  Limits are 4-9x the
+# readings (1.3e-3, 1.9e-4, 2.1e-5, 1.1e-7, 2.4e-7 in this order; PERF.md).
+POINT_TOL = {'point_features_before_fusion': 5e-3, 'point_features': 8e-4,
+             'point_cls_preds': 1e-4, 'rcnn_cls': 1e-6, 'rcnn_reg': 1e-6}
 SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
                  'conv3.0', 'conv3.1', 'conv3.2', 'conv4.0', 'conv4.1',
                  'conv4.2', 'conv_out']
 # (N, K, valid) of the small FPS checks; the first three are those of the JAX
 # package's own parity test
 FPS_SMALL = [(300, 32, 300), (1024, 256, 640), (129, 64, 129),
-             (64, 100, 5), (64, 16, 0)]
+             (64, 100, 5), (64, 16, 0), (1, 4, 1), (2049, 64, 2049),
+             ('capacity', 48, 'capacity')]
 
 
 def log(*a):
@@ -90,6 +105,21 @@ def cuda_time_ms(fn, warmup=3, iters=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time_ms(fn, iters=20, replays=5):
+    """Device time of one ``fn()``: ``iters`` calls captured into a CUDA graph
+    and replayed, so the host's part of a call (allocation, checks, launch)
+    is not timed.  ``cuda_time_ms`` of a call that is shorter on the card
+    than on the host reads the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    return cuda_time_ms(graph.replay, warmup=1, iters=replays) / iters
 
 
 @contextlib.contextmanager
@@ -177,8 +207,36 @@ def profile_step(step, batch, rows=10):
     log(f'profiled step: wall {wall_ms:.2f} ms (under the profiler), kernel '
         f'device time {device_ms:.2f} ms, busy share <= {device_ms / wall_ms:.3f}, '
         f'kernel launches {launches}, stream synchronisations {syncs}')
+    ours = {}
+    for e in events:
+        name = next((k for k in ('gather_mma_kernel', 'gather_fma_kernel',
+                                 'pack_weights_kernel', 'fps_kernel',
+                                 'overlap_bev_kernel') if k in e.key), None)
+        if name and e.device_type == DeviceType.CUDA:
+            n, ms = ours.get(name, (0, 0.0))
+            ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
+    log('hand-written kernels in the profiled step (launches, device ms): '
+        + ', '.join(f'{k} {n} x, {ms:.4f}' for k, (n, ms) in sorted(ours.items())))
     log(events.table(sort_by='self_device_time_total', row_limit=rows,
                      max_name_column_width=60))
+
+
+def ptxas_entries(report):
+    """(kernel<template arguments>, registers, static shared bytes, spill
+    bytes stored+loaded) of every entry function in an nvcc -Xptxas -v report."""
+    entries = []
+    for block in report.split('Compiling entry function ')[1:]:
+        mangled = block.split("'")[1]
+        kernel = re.search(r'\d+([a-z_]+_kernel)(?:I(.*?)EEv)?', mangled)
+        args = re.findall(r'Li(\d+)|(f)|__nv_(bfloat16)', kernel.group(2) or '')
+        regs = re.search(r'Used (\d+) registers', block)
+        smem = re.search(r'(\d+) bytes smem', block)
+        spill = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads', block)
+        entries.append((
+            kernel.group(1) + '<' + ', '.join(next(x for x in a if x) for a in args) + '>',
+            int(regs.group(1)) if regs else -1, int(smem.group(1)) if smem else 0,
+            int(spill.group(1)) + int(spill.group(2)) if spill else -1))
+    return entries
 
 
 def reduced_cfg(cfg):
@@ -295,7 +353,7 @@ def check_kernel_path(model, vox):
 def time_overlap(name, a, b, n_launch, tag):
     """Hold the overlap kernel against its plain version on (a, b); time
     both; return the kernel's JSON entry."""
-    from crb_active_3ddet_torch.ops import cuda_overlap
+    from crb_active_3ddet_torch.ops import cuda_build, cuda_overlap
     got = cuda_overlap.boxes_overlap_bev_cuda(a, b)
     ref = cuda_overlap.overlap_bev_plain(a, b)
     err = (got - ref).abs().max().item()
@@ -305,6 +363,20 @@ def time_overlap(name, a, b, n_launch, tag):
     plain_ms = cuda_time_ms(lambda: cuda_overlap.overlap_bev_plain(a, b),
                             warmup=1, iters=3)
     bsz, n, m = got.shape
+    # the wrapper's share: corners by torch ops, then the bare kernel launch
+    lib = cuda_build.load_library('overlap_bev', cuda_overlap._SIG)
+    a_cor, b_cor = cuda_overlap.corners_cat(a), cuda_overlap.corners_cat(b)
+    out = torch.empty_like(got)
+    bare_ms = graph_time_ms(lambda: lib.overlap_bev_launch(
+        a_cor.data_ptr(), b_cor.data_ptr(), out.data_ptr(), bsz, n, m,
+        torch.cuda.current_stream().cuda_stream))
+    if not torch.equal(out, got):
+        raise RuntimeError(f'overlap {tag}: the bare launch differs from the wrapper')
+    corners_ms = cuda_time_ms(lambda: (cuda_overlap.corners_cat(a),
+                                       cuda_overlap.corners_cat(b)))
+    log(f'overlap_bev {tag} ({bsz}, {n}, {m}): whole wrapper call {ms:.4f} ms; the '
+        f'bare kernel {bare_ms:.4f} ms on the card (graph replay); the corner '
+        f'computation in torch ops alone {corners_ms:.4f} ms as the host enqueues it')
     nbytes = (a[..., :7].numel() + b[..., :7].numel() + bsz * n * m) * 4
     ops = bsz * n * m * OVERLAP_OPS_PER_PAIR
     bound = max(nbytes / MEM_BW, ops / PEAK[torch.float32]) * 1e3
@@ -319,6 +391,28 @@ def time_overlap(name, a, b, n_launch, tag):
             'bound_by': 'bytes' if nbytes / MEM_BW >= ops / PEAK[torch.float32]
             else 'operations',
             'library_ms': None}
+
+
+def rulebook_emptiness(name, rbk):
+    """Log what share of a layer's rulebook a gather-GEMM can skip, at the
+    granularity of an entry, of a (16-row group, offset) pair and of a
+    (64-row tile, offset) pair; 'live' counts only groups or tiles that hold
+    at least one hit (the others are the buffers' padding rows)."""
+    hit = rbk >= 0
+    v, k = hit.shape
+    parts = [f'{name}: entries that hit {hit.float().mean().item():.4f}']
+    for rows in (16, 64):
+        pad = (-v) % rows
+        h = torch.cat([hit, hit.new_zeros(pad, k)]) if pad else hit
+        pair = h.reshape(-1, rows, k).any(1)               # (groups, K)
+        live = pair.any(1)
+        n_pair = int(pair.sum())
+        parts.append(
+            f'{rows}-row: pairs without a hit {1 - pair.float().mean().item():.4f} '
+            f'of all, {1 - pair[live].float().mean().item():.4f} of the live '
+            f'groups ({int(live.sum())} of {len(live)} groups live), '
+            f'rows that hit in a pair with a hit {int(hit.sum()) / max(1, n_pair * rows):.4f}')
+    log('; '.join(parts))
 
 
 def time_gather_gemm(name, layer, feats, rbk, n_launch):
@@ -337,18 +431,23 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch):
     tol = 1e-4 * (1 + ref.abs().max().item())
     if not err <= tol:
         raise RuntimeError(f'{name}: max err {err} > {tol}')
-    ms = cuda_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
+    if not torch.equal(got, cuda_kernels.sparse_conv_gather_gemm(f, rbk, w)):
+        raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    rulebook_emptiness(name, rbk)
+    ms = graph_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
+    call_ms = cuda_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
     plain_ms = cuda_time_ms(lambda: subm_conv3d_gather(f, rbk, w))
     g = f[torch.clamp(rbk, min=0).long()].reshape(rbk.shape[0], k * cin)
     w2 = w.reshape(k * cin, cout)
-    lib_ms = cuda_time_ms(lambda: torch.matmul(g, w2))
+    lib_ms = graph_time_ms(lambda: torch.matmul(g, w2))
     nnz = int((rbk >= 0).sum())
     nbytes = f.numel() * 2 + rbk.numel() * 4 + w.numel() * 2 + ref.numel() * 4
     flops = 2 * nnz * cin * cout
     bound = max(nbytes / MEM_BW, flops / PEAK[cdt]) * 1e3
     log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
-        f'nnz {nnz}: err {err:.2e} (tol {tol:.1e}) kernel {ms:.4f} ms, '
-        f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, '
+        f'nnz {nnz}: err {err:.2e} (tol {tol:.1e}) kernel {ms:.4f} ms on the card '
+        f'(graph replay; {call_ms:.4f} ms a call as the host enqueues it), '
+        f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms (graph replay), '
         f'bound {bound:.4f} ms')
     return {'name': name, 'route': 'cuda',
             'source': 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
@@ -388,6 +487,10 @@ def time_fps(name, points, valid, k, n_launch):
     got, err = fps_equal(points, valid, k, 'main path')
     distinct = min(len(torch.unique(r)) for r in got)
     for n, kk, nv in FPS_SMALL:
+        if n == 'capacity':
+            n = nv = cuda_fps.max_points()
+            if n < 18432:
+                raise RuntimeError(f'FPS capacity {n} shrank below 18432')
         for snapped in (False, True):
             rng = np.random.RandomState(n + kk)
             pts = (rng.randint(-8, 9, (3, n, 3)) / 8 if snapped
@@ -408,11 +511,12 @@ def time_fps(name, points, valid, k, n_launch):
     ops = b * (k - 1) * n * FPS_OPS_PER_POINT_STEP
     bound = max(nbytes / MEM_BW, ops / PEAK[torch.float32]) * 1e3
     log(f'{name} ({b}, {n}) -> {k}: equal to the plain version (also at '
-        f'{len(FPS_SMALL)} small shapes, random and snapped); fewest distinct '
+        f'{len(FPS_SMALL)} other shapes, N = 1 up to the capacity '
+        f'{cuda_fps.max_points()}, random and snapped); fewest distinct '
         f'keypoints in a frame {distinct}; kernel {ms:.4f} ms ({one_ms:.4f} ms for '
         f'one frame alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (a '
-        f'serial chain of {k - 1} block-wide argmax steps: latency, not this '
-        f'bound, sets its time)')
+        f'serial chain of {k - 1} cluster-wide argmax steps, {ms / (k - 1) * 1e3:.3f} us '
+        f'each: latency, not this bound, sets its time)')
     return {'name': name, 'route': 'cuda',
             'source': 'crb_active_3ddet_torch/csrc/fps.cu',
             'replaces': 'crb_active_3ddet_tpu/ops/pallas_kernels.py:148',
@@ -592,6 +696,42 @@ def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
     return results
 
 
+def ablate_gather_gemm(dev):
+    """Time the gather-GEMM (bf16, graph replay) at the inputs of each sparse
+    conv layer of the SECOND step, as built and with parts compiled out."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.ops import cuda_build, cuda_kernels
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
+    _, loader, model, step = build(load_config(SECOND_CFG), BATCH, dev, seed=0,
+                                   cls_bias=CLS_BIAS)
+    captured = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: captured.append((mod, args[0], args[1])))
+        for m in model.backbone_3d.modules() if type(m).__name__ == 'SparseConvLayer']
+    step(host_to_device_batch(next(iter(loader)), dev))
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    libs = cuda_build.build_variants('gather_gemm', {
+        'as built': [], 'no gather': ['-DGG_ABLATE_A'], 'no weight reads': ['-DGG_ABLATE_B'],
+        'neither': ['-DGG_ABLATE_A', '-DGG_ABLATE_B']}, cuda_kernels._SIG)
+    for lname, (layer, feats, rbk) in zip(SPARSE_LAYERS, captured):
+        f = feats.to(torch.bfloat16).reshape(-1, feats.shape[-1]).contiguous()
+        w = layer[0].weight.to(torch.bfloat16).contiguous()
+        k, cin, cout = w.shape
+        out = torch.empty((rbk.shape[0], cout), dtype=torch.float32, device=dev)
+        wpack = torch.empty(((k + 3) // 4 * 4, cin, cout), dtype=torch.bfloat16, device=dev)
+
+        def launch(lib):
+            cuda_build.check(lib, 'gather_gemm', lib.gather_gemm_launch(
+                f.data_ptr(), rbk.data_ptr(), w.data_ptr(), wpack.data_ptr(),
+                out.data_ptr(), rbk.shape[0], k, cin, cout, 1,
+                torch.cuda.current_stream().cuda_stream))
+        log(f'gather_gemm[{lname}] {cin}->{cout}, ms on the card (graph replay): '
+            + ', '.join(f'{tag} {graph_time_ms(lambda: launch(lib)):.4f}'
+                        for tag, lib in libs.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -605,17 +745,18 @@ def main():
                           '--format=csv,noheader'], capture_output=True,
                          text=True, check=True).stdout.strip().splitlines()[0]
     log(f'card: {smi}')
+    if sys.argv[1:] == ['--ablate-k2']:
+        ablate_gather_gemm(dev)
+        return 0
 
     t0 = time.perf_counter()
     built = cuda_build.build_all(['gather_gemm', 'overlap_bev', 'fps'])
     log(f'kernel build: {time.perf_counter() - t0:.1f} s wall, per source '
         + ', '.join(f'{k} {v:.1f} s' for k, v in built.items()))
     for name, (_, report) in cuda_build.BUILD_LOG.items():
-        regs = sorted({ln.split('Used ')[1].strip() for ln in report.splitlines()
-                       if 'Used ' in ln})
-        spill = [ln.strip() for ln in report.splitlines()
-                 if 'spill' in ln and not ' 0 bytes spill stores, 0 bytes spill loads' in ln]
-        log(f'  {name}: ptxas {"; ".join(regs)[:300]}; spills: {spill[:2] or "none"}')
+        log(f'  {name}: ptxas registers / static shared bytes / spill bytes: '
+            + '; '.join(f'{entry} {regs}/{smem}/{spill}'
+                        for entry, regs, smem, spill in ptxas_entries(report)))
 
     results = drive_path(SECOND_CFG, dev, '', ['nms', 'recall'], n_iter=5)
     results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.',

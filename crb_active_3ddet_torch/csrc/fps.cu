@@ -9,152 +9,244 @@
 // Replaces the Pallas kernel crb_active_3ddet_tpu/ops/pallas_kernels.py
 // (farthest_point_sample_pallas, body _fps_kernel).  What it keeps of that
 // kernel is the function, not its shape: no lane padding, no masked-sum
-// coordinate fetch (the chosen point is read by index), and the indices are
-// stored as a plain (B, K) int32 tensor.
+// coordinate fetch, and the indices are stored as a plain (B, K) int32 tensor.
 //
 // What bounds it on the H100: neither bytes nor operations but latency.  The
 // work is a chain of K - 1 steps, each a pass over the frame's points followed
-// by a block-wide argmax whose result the next step needs; the bytes moved
-// (points in once, K indices out) and the 9 f32 operations a point a step are
-// both microseconds.  The design therefore keeps all state on chip for the
-// whole chain and makes each step short:
-//   * one thread block of 1024 threads per frame (grid = B), one launch for
-//     the whole batch;
-//   * the coordinates live in shared memory as three arrays (12 B a point:
-//     216 KB at N = 18 000, under the 227 KB a block may opt into), read with
-//     stride 1 across the threads;
-//   * each thread keeps the running minimum distance of its <= 18 points in
-//     registers (point i belongs to thread i % 1024, slot i / 1024), so the
-//     kernel is built for N <= 18 432 and the launch refuses more;
-//   * the argmax compares (value, index) pairs, greater value first, lower
-//     index on equal values, in a warp butterfly; the 32 warp results go
-//     through shared memory and every warp reduces them again, so all threads
-//     hold the winner after ONE block barrier a step (the two scratch rows
-//     alternate, which makes the second barrier unnecessary).
+// by an argmax over all of them whose result the next step needs; the bytes
+// moved (points in once, K indices out) and the 10 f32 operations a point a
+// step are both microseconds.  A step costs (a) the operations one SM's four
+// schedulers must dispatch for the pass and the reduction, all warps of the
+// block counted, and (b) the latency of agreeing on the winner.  The design:
+//   * one thread block CLUSTER of 8 blocks a frame (grid = (8, B), one launch
+//     for the whole batch), so eight SMs share a frame's pass.  Block r owns
+//     the r-th eighth of the frame's points; coordinates and running minimum
+//     distances live in registers (24 points a thread), nothing in shared
+//     memory but the exchange slots;
+//   * 128 threads a block: one warp a scheduler.  Every warp repeats the
+//     reduction's operations, so more warps a block cost more dispatch slots a
+//     step than their shorter pass saves (1 024 threads x 3 points a thread
+//     took over twice the time of 128 x 24);
+//   * the pass keeps only max(min-distance) a thread (10 operations a
+//     point); the index is found afterwards, by the lanes that hold the warp's
+//     maximum.  The argmax compares 64-bit keys, (distance bits mapped so that
+//     unsigned order is float order) << 32 | ~index: the greater key is the
+//     greater distance and, on equal distances, the lower index.  A warp
+//     reduces with two redux.sync operations (high word, then low word
+//     among the lanes that hold the high word's maximum);
+//   * ONE exchange a step and no barrier: each warp sends its candidate (key
+//     and the candidate's coordinates, 24 bytes) into its slot in the shared
+//     memory of all 8 blocks with st.async, which counts the bytes on the
+//     receiving block's mbarrier; a warp waits on its own block's mbarrier
+//     until all 32 candidates have arrived, and reduces them itself.  The
+//     winner's coordinates travel with its key, so no block reads another
+//     block's points, and neither a block barrier nor a cluster barrier is on
+//     the chain (with cluster.sync() in its place the same kernel took 1.4x
+//     as long).  Slots and mbarriers are double-buffered: a block can be at
+//     most one step ahead of the slowest, since it needs that block's
+//     candidates;
+//   * a slot without a point is held at -inf, below every real entry
+//     (>= -1e10), so short frames and blocks without points need no branch.
+// A cluster of 16 (non-portable size) halves the pass but was slower, for one
+// frame and more so for eight: the exchange, not the pass, is what is left of
+// a step.
 //
 // The distance is (dx*dx + dy*dy) + dz*dz with every product and sum rounded
 // on its own (__fmul_rn / __fadd_rn, and the file is built with -fmad=false):
 // one differing index changes every later one, so the arithmetic is that of
 // the plain PyTorch version to the last bit.
-//
-// Later work: a thread block cluster per frame (the points spread over the
-// shared memory of several SMs, the argmax finished through distributed
-// shared memory) would shorten each step's pass; B = 8 blocks use 8 of 132 SMs.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int THREADS = 1024;
-constexpr int PER_THREAD = 18;
-constexpr int MAX_POINTS = THREADS * PER_THREAD;
 constexpr float BIG = 1e10f;
+constexpr unsigned FULL = 0xffffffffu;
 
-// (v, i) <- the better of (v, i) and (ov, oi): greater value, then lower index
-__device__ __forceinline__ void take_better(float& v, int& i, float ov, int oi) {
-  if (ov > v || (ov == v && oi < i)) {
-    v = ov;
-    i = oi;
-  }
+// float bits -> unsigned whose order is the floats' order
+__device__ __forceinline__ unsigned ordered_bits(float v) {
+  const unsigned u = __float_as_uint(v);
+  return u ^ (static_cast<unsigned>(static_cast<int>(u) >> 31) | 0x80000000u);
 }
 
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    take_better(v, i, ov, oi);
-  }
+// max over the warp of the key (hi, lo); returns the lowest lane holding it
+__device__ __forceinline__ int warp_max_key(unsigned hi, unsigned lo, unsigned& top_hi,
+                                            unsigned& top_lo) {
+  top_hi = __reduce_max_sync(FULL, hi);
+  top_lo = __reduce_max_sync(FULL, hi == top_hi ? lo : 0u);
+  return __ffs(__ballot_sync(FULL, hi == top_hi && lo == top_lo)) - 1;
 }
 
-__global__ void __launch_bounds__(THREADS, 1)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// the same shared-memory address in block `rank` of the cluster
+__device__ __forceinline__ uint32_t in_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// asynchronous remote stores that count their bytes on the target's mbarrier
+__device__ __forceinline__ void st_async_u64(uint32_t addr, unsigned long long v, uint32_t bar) {
+  asm volatile("st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], %1, [%2];\n"
+               :: "r"(addr), "l"(v), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void st_async_f4(uint32_t addr, float x, float y, float z, float w,
+                                            uint32_t bar) {
+  asm volatile("st.async.weak.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+               "[%0], {%1, %2, %3, %4}, [%5];\n"
+               :: "r"(addr), "f"(x), "f"(y), "f"(z), "f"(w), "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+constexpr int CL = 8;                       // blocks a frame (portable maximum)
+constexpr int THREADS = 128;                // one warp a scheduler
+constexpr int WARPS = THREADS / 32;
+constexpr int PT = 24;                      // points a thread
+constexpr int MAX_POINTS = CL * THREADS * PT;
+constexpr int SLOTS = CL * WARPS;           // candidates a step
+static_assert(SLOTS == 32, "the final reduction reads one candidate a lane");
+
+__global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
 fps_kernel(const float* __restrict__ points, const unsigned char* __restrict__ valid,
            int* __restrict__ out, int n, int k) {
-  extern __shared__ float coords[];           // x[n], y[n], z[n]
-  __shared__ float red_v[2][32];
-  __shared__ int red_i[2][32];
-  float* sx = coords;
-  float* sy = coords + n;
-  float* sz = coords + 2 * n;
+  __shared__ __align__(16) unsigned long long key_s[2][SLOTS];
+  __shared__ float4 xyz_s[2][SLOTS];
+  __shared__ __align__(8) unsigned long long bar_s[2];
 
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* p = points + (long long)blockIdx.x * n * 3;
-  const unsigned char* ok = valid + (long long)blockIdx.x * n;
-  int* o = out + (long long)blockIdx.x * k;
+  const float* p = points + (size_t)blockIdx.y * n * 3;
+  const unsigned char* ok = valid + (size_t)blockIdx.y * n;
+  int* o = out + (size_t)blockIdx.y * k;
 
-  for (int e = tid; e < 3 * n; e += THREADS) {      // coalesced (N, 3) read
-    const int q = e / 3, c = e - 3 * q;
-    coords[c * n + q] = p[e];
-  }
-  float dist[PER_THREAD];
-  unsigned live = 0;                                // bit j: slot j is valid
+  const int chunk = (n + CL - 1) / CL;              // points a block owns
+  const int base = rank * chunk;
+  const int end = min(n, base + chunk);
+
+  // a slot without a point is held at -inf, below every real entry, and an
+  // invalid point at -1e10, where min(., d >= 0) keeps it
+  float px[PT], py[PT], pz[PT], dist[PT];
 #pragma unroll
-  for (int j = 0; j < PER_THREAD; ++j) {
-    const int i = j * THREADS + tid;
-    const bool v = i < n && ok[i] != 0;
-    live |= v ? (1u << j) : 0u;
-    dist[j] = v ? BIG : -BIG;
+  for (int j = 0; j < PT; ++j) {
+    const int i = base + j * THREADS + tid;
+    const bool own = i < end;
+    px[j] = own ? p[3 * i + 0] : 0.f;
+    py[j] = own ? p[3 * i + 1] : 0.f;
+    pz[j] = own ? p[3 * i + 2] : 0.f;
+    dist[j] = !own ? -CUDART_INF_F : (ok[i] != 0 ? BIG : -BIG);
   }
-  if (tid == 0) o[0] = 0;
-  __syncthreads();
+  float cx = p[0], cy = p[1], cz = p[2];            // the start is index 0
+  if (rank == 0 && tid == 0) o[0] = 0;
+  if (tid == 0) {
+    mbar_init(smem_addr(&bar_s[0]), 1);
+    mbar_init(smem_addr(&bar_s[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();                                   // every block has started
 
-  int last = 0;
   for (int s = 1; s < k; ++s) {
-    const float cx = sx[last], cy = sy[last], cz = sz[last];
-    float best_v = -CUDART_INF_F;                   // below every real entry
-    int best_i = 0x7fffffff;
+    const int buf = s & 1;
+    if (tid == 0) mbar_arrive_expect(smem_addr(&bar_s[buf]), SLOTS * 24);
+    float best_v = -CUDART_INF_F;
 #pragma unroll
-    for (int j = 0; j < PER_THREAD; ++j) {
-      const int i = j * THREADS + tid;
-      if (i < n) {
-        const float dx = __fsub_rn(sx[i], cx);
-        const float dy = __fsub_rn(sy[i], cy);
-        const float dz = __fsub_rn(sz[i], cz);
-        float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                            __fmul_rn(dz, dz));
-        d = ((live >> j) & 1u) ? d : -BIG;
-        const float m = fminf(dist[j], d);
-        dist[j] = m;
-        if (m > best_v) {                           // i ascends with j
-          best_v = m;
-          best_i = i;
+    for (int j = 0; j < PT; ++j) {
+      const float dx = __fsub_rn(px[j], cx);
+      const float dy = __fsub_rn(py[j], cy);
+      const float dz = __fsub_rn(pz[j], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      dist[j] = fminf(dist[j], d);
+      best_v = fmaxf(best_v, dist[j]);
+    }
+    // the warp's candidate: greatest distance, then lowest index
+    unsigned hi = ordered_bits(best_v), lo = 0u;
+    unsigned top_hi = __reduce_max_sync(FULL, hi), top_lo;
+    float bx = 0.f, by = 0.f, bz = 0.f;
+    if (hi == top_hi) {
+#pragma unroll
+      for (int j = PT - 1; j >= 0; --j)
+        if (dist[j] == best_v) {                    // the lowest j wins: i ascends with j
+          lo = ~static_cast<unsigned>(base + j * THREADS + tid);
+          bx = px[j];
+          by = py[j];
+          bz = pz[j];
         }
-      }
     }
-    warp_argmax(best_v, best_i);
-    const int row = s & 1;
-    if (lane == 0) {
-      red_v[row][warp] = best_v;
-      red_i[row][warp] = best_i;
+    top_lo = __reduce_max_sync(FULL, lo);
+    int src = __ffs(__ballot_sync(FULL, hi == top_hi && lo == top_lo)) - 1;
+    const float wx = __shfl_sync(FULL, bx, src);
+    const float wy = __shfl_sync(FULL, by, src);
+    const float wz = __shfl_sync(FULL, bz, src);
+    const int slot = rank * WARPS + warp;
+    const unsigned long long key = (static_cast<unsigned long long>(top_hi) << 32) | top_lo;
+    if (lane < 2 * CL) {
+      const uint32_t to = lane & (CL - 1);
+      const uint32_t bar = in_rank(smem_addr(&bar_s[buf]), to);
+      if (lane < CL)
+        st_async_u64(in_rank(smem_addr(&key_s[buf][slot]), to), key, bar);
+      else
+        st_async_f4(in_rank(smem_addr(&xyz_s[buf][slot]), to), wx, wy, wz, 0.f, bar);
     }
-    __syncthreads();
-    best_v = red_v[row][lane];
-    best_i = red_i[row][lane];
-    warp_argmax(best_v, best_i);
-    last = best_i < n ? best_i : 0;               // only if every entry is NaN
-    if (tid == 0) o[s] = last;
+    mbar_wait(smem_addr(&bar_s[buf]), ((s - 1) >> 1) & 1);
+
+    // every warp reduces all candidates itself, one a lane
+    const unsigned long long cand = key_s[buf][lane];
+    src = warp_max_key(static_cast<unsigned>(cand >> 32), static_cast<unsigned>(cand),
+                       top_hi, top_lo);
+    const float4 c = xyz_s[buf][src];
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
+    if (rank == 0 && tid == 0) {
+      const unsigned last = ~top_lo;
+      o[s] = last < static_cast<unsigned>(n) ? static_cast<int>(last) : 0;  // NaN only
+    }
   }
+  cluster.sync();        // no block leaves while another may still write to it
 }
 
 }  // namespace
 
 extern "C" {
 
-// Most points a frame may hold (the per-thread register array's capacity).
+// Most points a frame may hold (the per-thread register arrays' capacity).
 int fps_max_points() { return MAX_POINTS; }
 
 // points (B, N, 3) f32, valid (B, N) bytes (0 = padding), out (B, K) int32.
 int fps_launch(const float* points, const unsigned char* valid, int* out, int B,
                int N, int K, void* stream) {
   if (B == 0 || K == 0) return 0;
-  if (N < 1 || N > MAX_POINTS) return static_cast<int>(cudaErrorInvalidValue);
-  const int smem = 3 * N * static_cast<int>(sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(
-      fps_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      3 * MAX_POINTS * static_cast<int>(sizeof(float)));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<<<B, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  if (N < 1 || N > MAX_POINTS || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  fps_kernel<<<dim3(CL, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       points, valid, out, N, K);
   return static_cast<int>(cudaGetLastError());
 }

@@ -46,24 +46,24 @@ def _stale(name):
     return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
 
 
-def _start(name):
+def _start(name, flags=()):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), '-o', tmp,
+    cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, []), *flags, '-o', tmp,
            str(CSRC / f'{name}.cu')]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, time.perf_counter()
 
 
-def _finish(name, proc, tmp, t0):
+def _finish(name, proc, tmp, t0, tag=''):
     out, _ = proc.communicate()
     if proc.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(f'nvcc failed for csrc/{name}.cu:\n{out}')
-    os.replace(tmp, _lib_path(name))      # atomic: concurrent builds agree
-    BUILD_LOG[name] = (time.perf_counter() - t0, out)
+    os.replace(tmp, _lib_path(name + tag))      # atomic: concurrent builds agree
+    BUILD_LOG[name + tag] = (time.perf_counter() - t0, out)
 
 
 def build_all(names):
@@ -75,6 +75,30 @@ def build_all(names):
     return {n: BUILD_LOG[n][0] for n in started}
 
 
+def build_variants(name, variants, signatures):
+    """Measurement builds of ``csrc/<name>.cu``: one library per entry of
+    ``variants`` ({tag: extra nvcc flags, e.g. a -D that compiles part of the
+    kernel's work out}), built concurrently; returns {tag: ctypes handle}.
+    The port itself never loads them."""
+    jobs = {tag: _start(name, flags) for tag, flags in variants.items()}
+    libs = {}
+    for tag, job in jobs.items():
+        _finish(name, *job, tag=f'_{tag}')
+        libs[tag] = _bind(ctypes.CDLL(str(_lib_path(f'{name}_{tag}'))), name, signatures)
+    return libs
+
+
+def _bind(lib, name, signatures):
+    for fn, argtypes in signatures.items():
+        f = getattr(lib, fn)
+        f.argtypes = argtypes
+        f.restype = ctypes.c_int
+    err_string = getattr(lib, f'{name}_error_string')
+    err_string.argtypes = [ctypes.c_int]
+    err_string.restype = ctypes.c_char_p
+    return lib
+
+
 def load_library(name, signatures):
     """ctypes handle of ``lib<name>.so`` (built if stale), with each
     function's ``argtypes`` set from ``signatures`` and ``restype`` int
@@ -83,14 +107,7 @@ def load_library(name, signatures):
     lib = _LIBS.get(name)
     if lib is None:
         build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
-            f = getattr(lib, fn)
-            f.argtypes = argtypes
-            f.restype = ctypes.c_int
-        err_string = getattr(lib, f'{name}_error_string')
-        err_string.argtypes = [ctypes.c_int]
-        err_string.restype = ctypes.c_char_p
+        lib = _bind(ctypes.CDLL(str(_lib_path(name))), name, signatures)
         _LIBS[name] = lib
     return lib
 

@@ -9,10 +9,11 @@ argmax each step, ties to the lowest index; invalid points are held at −1e10
 a frame without valid points returns index 0 throughout).
 
 On CUDA tensors the wrapper launches the kernel once for the whole batch (or
-raises); on CPU tensors it runs the plain version below, a K-step loop with
-the same arithmetic written out the same way.  The selection is exact: one
-differing index would change every later one.  ``launches`` counts kernel
-launches.
+raises): a cluster of 8 thread blocks a frame, each holding an eighth of the
+frame's points in registers, at most ``max_points()`` a frame.  On CPU tensors
+it runs the plain version below, a K-step loop with the same arithmetic
+written out the same way.  The selection is exact: one differing index would
+change every later one.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -68,6 +69,11 @@ def farthest_point_sample_cuda(points, valid, num_samples: int):
     if points.device.type == 'cpu':
         return fps_plain(points, valid, num_samples)
     return _launch(points, valid, num_samples)
+
+
+def max_points():
+    """Most points a frame may hold on the card (builds the kernel if needed)."""
+    return cuda_build.load_library('fps', _SIG).fps_max_points()
 
 
 def _launch(points, valid, num_samples):

@@ -7,7 +7,9 @@ sparse_conv_gather_gemm``: ``out[v] = Σ_k feat[rulebook[v, k]] @ W[k]`` with
 
 On CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors
 it runs the plain version, ``ops.sparse.sparse_ops.subm_conv3d_gather``.
-``launches`` counts kernel launches.
+bf16 operands run on tensor cores (``mma.sync``), f32 operands on CUDA cores
+in full f32; both skip the offsets without a hit.
+``launches`` counts the wrapper's calls that reached the card.
 """
 
 from __future__ import annotations
@@ -22,10 +24,12 @@ from .sparse.sparse_ops import subm_conv3d_gather
 launches = 0
 
 _SIG = {'gather_gemm_launch': [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                               ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p]}
+                               ctypes.c_void_p]}
 SUPPORTED_CIN = (4, 8, 16, 32, 64)
+MAX_K = 32               # offsets a rulebook row may hold (the kernel's mask)
 
 
 def supported_cout(cout):
@@ -59,19 +63,31 @@ def _launch(features, rulebook, weights):
     if features.ndim != 2 or weights.shape[:2] != (k, cin):
         raise ValueError(f'gather-GEMM: shapes {tuple(features.shape)}, '
                          f'{tuple(rulebook.shape)}, {tuple(weights.shape)}')
-    if cin not in SUPPORTED_CIN or not supported_cout(cout):
-        raise ValueError(f'gather-GEMM: Cin={cin}, Cout={cout} not supported')
+    if cin not in SUPPORTED_CIN or not supported_cout(cout) or not 1 <= k <= MAX_K:
+        raise ValueError(f'gather-GEMM: K={k}, Cin={cin}, Cout={cout} not supported')
     if not (features.is_contiguous() and rulebook.is_contiguous()
             and weights.is_contiguous()):
         raise ValueError('gather-GEMM: inputs must be contiguous')
     lib = cuda_build.load_library('gather_gemm', _SIG)
     out = torch.empty((v_out, cout), dtype=torch.float32, device=dev)
+    bf16 = features.dtype == torch.bfloat16
+    # the tensor-core path reads W as mma fragments, which the launch packs
+    # into this scratch (below Cin 16 it folds several offsets into one mma
+    # step, so K rounds up to 4), and reads features and rulebook 16 bytes a
+    # lane
+    wpack = None
+    if bf16:
+        if features.data_ptr() % 16 or rulebook.data_ptr() % 16:
+            raise ValueError('gather-GEMM: features and rulebook must be '
+                             '16-byte aligned')
+        wpack = torch.empty((-(-k // 4) * 4, cin, cout), dtype=torch.bfloat16,
+                            device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_gemm_launch(
             features.data_ptr(), rulebook.data_ptr(), weights.data_ptr(),
-            out.data_ptr(), v_out, k, cin, cout,
-            int(features.dtype == torch.bfloat16), stream)
+            None if wpack is None else wpack.data_ptr(), out.data_ptr(),
+            v_out, k, cin, cout, int(bf16), stream)
     cuda_build.check(lib, 'gather_gemm', err)
     launches += 1
     return out

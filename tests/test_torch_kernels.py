@@ -134,6 +134,58 @@ def test_gather_gemm_plain_matches_pallas(case):
         assert np.all(got == 0.0)
 
 
+EDGE_CASES = ['all_missing', 'single_hit', 'ragged16', 'ragged64_sparse', 'cin4',
+              'k3_cout128']
+
+
+def _edge_case(name):
+    """Rulebooks at the edges of the CUDA kernel's tiling (a warp owns 32
+    rows in two 16-row groups, a block 64 or 128): nothing to gather, one
+    single entry, row counts that fill no group or tile, whole tiles without
+    a hit beside tiles with few, the Cin 4 layer, and K = 3 with Cout 128."""
+    rng = np.random.RandomState(11)
+    v_in, v_out, k, c_in, c_out = {
+        'all_missing': (40, 70, 27, 32, 32), 'single_hit': (40, 100, 27, 16, 16),
+        'ragged16': (60, 37, 27, 64, 64), 'ragged64_sparse': (150, 201, 27, 32, 64),
+        'cin4': (50, 90, 27, 4, 16), 'k3_cout128': (50, 70, 3, 64, 128)}[name]
+    feats = rng.randn(v_in, c_in).astype(np.float32)
+    w = (rng.randn(k, c_in, c_out) * 0.1).astype(np.float32)
+    rulebook = rng.randint(0, v_in, (v_out, k)).astype(np.int32)
+    if name == 'all_missing':
+        rulebook[:] = -1
+    elif name == 'single_hit':
+        rulebook[:] = -1
+        rulebook[77, 13] = 5
+    elif name in ('ragged64_sparse', 'cin4'):
+        rulebook[rng.rand(v_out, k) > 0.05] = -1       # 5 % of the entries hit
+        rulebook[64:128] = -1                          # a tile with no hit at all
+        rulebook[:16, 20:] = -1                        # offsets no row of a group has
+    else:
+        rulebook[rng.rand(v_out, k) < 0.3] = -1
+    return feats, rulebook, w
+
+
+@pytest.mark.parametrize('name', EDGE_CASES)
+def test_gather_gemm_plain_edge_cases_match_pallas(name):
+    """Tolerance 1e-4·(1 + max|ref|): f32 on both sides, another summation
+    order."""
+    feats, rulebook, w = _edge_case(name)
+    got = sparse_conv_gather_gemm(_t(feats), _t(rulebook), _t(w)).numpy()
+    pallas = np.asarray(jgemm(jnp.asarray(feats), jnp.asarray(rulebook),
+                              jnp.asarray(w), block_v=16, interpret=True))
+    xla = np.asarray(jgather(jnp.asarray(feats), jnp.asarray(rulebook),
+                             jnp.asarray(w)))
+    assert got.shape == (rulebook.shape[0], w.shape[2]) and got.dtype == np.float32
+    tol = ATOL * (1 + np.abs(xla).max())
+    np.testing.assert_allclose(got, pallas, atol=tol)
+    np.testing.assert_allclose(got, xla, atol=tol)
+    empty = (rulebook < 0).all(1)
+    assert np.all(got[empty] == 0.0)
+    if name == 'single_hit':
+        assert empty.sum() == len(rulebook) - 1
+        np.testing.assert_allclose(got[77], feats[5] @ w[13], atol=tol)
+
+
 def test_gather_gemm_plain_bf16_matches_xla():
     """bf16 features and weights, f32 accumulation (the USE_BF16 path):
     bf16×bf16 products are exact in f32, so only summation order differs —
@@ -176,7 +228,7 @@ def cuda_device():
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(64, 48, 27, 16, 32), (200, 130, 27, 4, 16),
                                    (100, 70, 27, 64, 64), (90, 64, 3, 64, 128),
-                                   (30, 17, 27, 32, 32)])
+                                   (30, 17, 27, 32, 32), (40, 50, 27, 8, 16)])
 def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
     feats, rulebook, w = _gemm_case(9, *shape)
     f = _t(feats).to(cuda_device, dtype)
@@ -189,6 +241,40 @@ def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
     ref = subm_conv3d_gather(f, r, ww)
     torch.testing.assert_close(got, ref, atol=ATOL * (1 + ref.abs().max().item()),
                                rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', EDGE_CASES)
+def test_gather_gemm_kernel_edge_cases(cuda_device, dtype, name):
+    feats, rulebook, w = _edge_case(name)
+    f = _t(feats).to(cuda_device, dtype)
+    r = _t(rulebook).to(cuda_device)
+    ww = _t(w).to(cuda_device, dtype)
+    n0 = cuda_kernels.launches
+    got = sparse_conv_gather_gemm(f, r, ww)
+    torch.cuda.synchronize()
+    assert cuda_kernels.launches == n0 + 1
+    ref = subm_conv3d_gather(f, r, ww)
+    torch.testing.assert_close(got, ref, atol=ATOL * (1 + ref.abs().max().item()),
+                               rtol=0)
+    assert torch.all(got[(r < 0).all(1)] == 0)
+    assert torch.equal(got, sparse_conv_gather_gemm(f, r, ww))   # same bits again
+
+
+@pytest.mark.cuda
+def test_gather_gemm_kernel_refuses_what_it_does_not_take(cuda_device):
+    f = torch.zeros(8, 16, device=cuda_device)
+    r = torch.zeros(8, 27, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match='not supported'):
+        sparse_conv_gather_gemm(f, torch.zeros(8, 33, dtype=torch.int32,
+                                               device=cuda_device),
+                                torch.zeros(33, 16, 16, device=cuda_device))
+    with pytest.raises(ValueError, match='not supported'):
+        sparse_conv_gather_gemm(f, r, torch.zeros(27, 16, 24, device=cuda_device))
+    with pytest.raises(TypeError):
+        sparse_conv_gather_gemm(f.bfloat16(), r,
+                                torch.zeros(27, 16, 16, device=cuda_device))
 
 
 @pytest.mark.cuda
@@ -219,8 +305,13 @@ def _fps_points(seed, n, snapped):
 @pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
 @pytest.mark.parametrize('n,k,nv', [(300, 32, 300), (1024, 256, 640),
                                     (129, 64, 129), (18000, 1024, 17000),
-                                    (64, 100, 5), (64, 16, 0)])
+                                    (64, 100, 5), (64, 16, 0), (1, 4, 1),
+                                    (7, 12, 7), (2049, 64, 2049),
+                                    ('capacity', 48, 'capacity')])
 def test_fps_kernel_equals_plain(cuda_device, n, k, nv, snapped):
+    if n == 'capacity':
+        n = nv = cuda_fps.max_points()
+        assert n >= 18432
     pts = np.stack([_fps_points(s, n, snapped) for s in range(3)])
     valid = np.broadcast_to(np.arange(n) < nv, (3, n)).copy()
     p, v = _t(pts).to(cuda_device), _t(valid).to(cuda_device)
@@ -233,8 +324,26 @@ def test_fps_kernel_equals_plain(cuda_device, n, k, nv, snapped):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+@pytest.mark.parametrize('part', [0, 3, 7])
+def test_fps_kernel_valid_points_in_one_eighth(cuda_device, part, snapped):
+    """All valid points lie in one eighth of the index range (the share one
+    block of the kernel's cluster owns); more samples than valid points."""
+    n, k = 2048, 300
+    pts = np.stack([_fps_points(s + 20, n, snapped) for s in range(2)])
+    valid = np.zeros((2, n), bool)
+    valid[:, part * 256:(part + 1) * 256] = True
+    p, v = _t(pts).to(cuda_device), _t(valid).to(cuda_device)
+    got = cuda_fps.farthest_point_sample_cuda(p, v, k)
+    torch.cuda.synchronize()
+    assert torch.equal(got, cuda_fps.fps_plain(p, v, k))
+    assert torch.equal(got.cpu(), cuda_fps.fps_plain(_t(pts), _t(valid), k))
+
+
+@pytest.mark.cuda
 def test_fps_kernel_refuses_too_many_points(cuda_device):
-    p = torch.zeros(1, 20000, 3, device=cuda_device)
+    n = 30000
+    p = torch.zeros(1, n, 3, device=cuda_device)
     with pytest.raises(ValueError, match='at most'):
         cuda_fps.farthest_point_sample_cuda(
-            p, torch.ones(1, 20000, dtype=torch.bool, device=cuda_device), 8)
+            p, torch.ones(1, n, dtype=torch.bool, device=cuda_device), 8)

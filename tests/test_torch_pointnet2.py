@@ -78,6 +78,43 @@ def test_fps_plain_equals_scan_and_pallas(n, k, nv, snapped):
         assert _tied_steps(pts, valid, got) >= k // 8
 
 
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+@pytest.mark.parametrize('n,k', [(1, 4), (7, 12), (2049, 64)])
+def test_fps_plain_equals_scan_at_edge_sizes(n, k, snapped):
+    """A single point (it repeats), fewer points than samples, and one point
+    more than a power of two (the CUDA kernel splits a frame into eighths of
+    ceil(N / 8) points, the last of which is then short)."""
+    pts = _points(90 + n, n, snapped)
+    valid = np.ones(n, bool)
+    got = tpn2.farthest_point_sample(_t(pts)[None], _t(valid)[None], k)[0].numpy()
+    scan = np.asarray(jpn2.farthest_point_sample(jnp.asarray(pts),
+                                                 jnp.asarray(valid), k))
+    np.testing.assert_array_equal(got, scan)
+    assert got[0] == 0 and (got < n).all()
+    assert len(set(got.tolist())) == min(n, k)
+
+
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+@pytest.mark.parametrize('part', [0, 3, 7])
+def test_fps_plain_valid_points_in_one_eighth(part, snapped):
+    """All valid points lie in one eighth of the index range, and there are
+    fewer of them than samples: every one is chosen once, then the lowest
+    repeats; index 0 is the start even where it is invalid."""
+    n, k = 512, 80
+    pts = _points(30 + part, n, snapped)
+    valid = np.zeros(n, bool)
+    valid[part * 64:(part + 1) * 64] = True
+    got = tpn2.farthest_point_sample(_t(pts)[None], _t(valid)[None], k)[0].numpy()
+    scan = np.asarray(jpn2.farthest_point_sample(jnp.asarray(pts),
+                                                 jnp.asarray(valid), k))
+    np.testing.assert_array_equal(got, scan)
+    assert got[0] == 0
+    chosen = got[1:] if part else got
+    assert valid[chosen].all()
+    assert set(chosen[:64 - (part == 0)].tolist()) <= set(range(part * 64, part * 64 + 64))
+    assert (got[66:] == part * 64).all()
+
+
 def test_fps_batched_equals_per_frame():
     """One call for the whole batch gives each frame's own sequence, with a
     different validity per frame."""
