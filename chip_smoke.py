@@ -20,14 +20,17 @@ Run from the root of a checkout.  It
      head's outputs, and the RoI stage run from one common set of RoIs;
   5. holds each kernel against its plain version on the card at the inputs
      each path gave it (the gather-GEMM at all 12 sparse-conv layers, bf16,
-     with the share of each layer's rulebook that is empty; the overlap at
-     every NMS's and recall record's shape, with degenerate rows, and its
-     bare launch apart from the wrapper's corner computation; the farthest
-     point sampling at (8, 18000) -> 1024 and at other shapes from one point
-     to the kernel's capacity, with ties, few and no valid points, for
+     with the share of each layer's rulebook that is empty; the overlap's
+     NMS mask at every NMS, bit for bit but for pairs within 1e-6 of the
+     threshold, which it counts, with the share of the lower-triangle live
+     pairs that reached the clip and the fixpoint's rounds, and its float
+     matrix at each recall record, with degenerate rows; the farthest point
+     sampling at (8, 18000) -> 1024 and at other shapes from one point to
+     the kernel's capacity, with ties, few and no valid points, for
      equality), and times kernel, plain version and library yardstick with
      CUDA events (a kernel shorter than its call's host time by replaying a
-     CUDA graph of calls);
+     CUDA graph of calls); the NMS mask also at its worst case (every box at
+     one point) and on pairs that nearly touch;
   6. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
      the CPU path (which the CPU tests hold against the JAX reference),
      predictions and recall record.
@@ -127,30 +130,31 @@ def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions (on the
     card) — the comparison baseline; the port itself has no such switch."""
     from crb_active_3ddet_torch.models.backbones_3d import spconv_backbone
-    from crb_active_3ddet_torch.ops import cuda_fps, cuda_overlap, iou3d, pointnet2
+    from crb_active_3ddet_torch.ops import cuda_fps, cuda_overlap, iou3d, nms, pointnet2
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
     saved = (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
-             pointnet2.farthest_point_sample_cuda)
+             nms.nms_mask, pointnet2.farthest_point_sample_cuda)
     spconv_backbone.sparse_conv_gather_gemm = subm_conv3d_gather
     iou3d.boxes_overlap_bev_cuda = cuda_overlap.overlap_bev_plain
+    nms.nms_mask = cuda_overlap.nms_mask_plain
     pointnet2.farthest_point_sample_cuda = cuda_fps.fps_plain
     try:
         yield
     finally:
         (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
-         pointnet2.farthest_point_sample_cuda) = saved
+         nms.nms_mask, pointnet2.farthest_point_sample_cuda) = saved
 
 
 @contextlib.contextmanager
-def recording(caller, attr, wrapper, calls):
-    """Append (args, launches) of every call ``caller.attr`` makes to the
-    kernel wrapper module ``wrapper`` to calls."""
+def recording(caller, attr, calls, count=lambda: 0):
+    """Append (args, launches, result) of every call ``caller.attr`` makes
+    to calls; ``count()`` reads the launch counter of the kernel behind it."""
     real = getattr(caller, attr)
 
     def record(*args):
-        before = wrapper.launches
+        before = count()
         out = real(*args)
-        calls.append((args, wrapper.launches - before))
+        calls.append((args, count() - before, out))
         return out
     setattr(caller, attr, record)
     try:
@@ -211,7 +215,8 @@ def profile_step(step, batch, rows=10):
     for e in events:
         name = next((k for k in ('gather_mma_kernel', 'gather_fma_kernel',
                                  'pack_weights_kernel', 'fps_kernel',
-                                 'overlap_bev_kernel') if k in e.key), None)
+                                 'overlap_bev_kernel', 'nms_mask_kernel')
+                     if k in e.key), None)
         if name and e.device_type == DeviceType.CUDA:
             n, ms = ours.get(name, (0, 0.0))
             ours[name] = (n + e.count, ms + e.self_device_time_total / 1e3)
@@ -350,47 +355,209 @@ def check_kernel_path(model, vox):
     return out
 
 
+def _entry(name, source, replaces, n_launch, err, ms, plain_ms, nbytes, ops,
+           peak, library_ms=None):
+    """One kernel's entry of the JSON line; the bound from this run's bytes
+    and operations."""
+    t_bytes, t_ops = nbytes / MEM_BW, ops / peak
+    return {'name': name, 'route': 'cuda', 'source': source, 'replaces': replaces,
+            'launches': n_launch, 'max_abs_err': err, 'ms': ms,
+            'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops) * 1e3,
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+            'library_ms': library_ms}
+
+
+K1_SOURCE = 'crb_active_3ddet_torch/csrc/overlap_bev.cu'
+K1_REPLACES = 'crb_active_3ddet_tpu/ops/pallas_overlap.py:122'
+
+
 def time_overlap(name, a, b, n_launch, tag):
-    """Hold the overlap kernel against its plain version on (a, b); time
-    both; return the kernel's JSON entry."""
+    """Hold the overlap kernel's float entry against its plain version on
+    (a, b) as the path gave them; time the call, the bare launch and the
+    plain version; return the kernel's JSON entry."""
     from crb_active_3ddet_torch.ops import cuda_build, cuda_overlap
     got = cuda_overlap.boxes_overlap_bev_cuda(a, b)
     ref = cuda_overlap.overlap_bev_plain(a, b)
     err = (got - ref).abs().max().item()
     if not err <= 1e-4:
         raise RuntimeError(f'overlap {tag}: max err {err} > 1e-4')
+    zero = (a == 0).all(-1)
+    if not (got[zero] == 0).all():
+        raise RuntimeError(f'overlap {tag}: degenerate rows give non-zero areas')
     ms = cuda_time_ms(lambda: cuda_overlap.boxes_overlap_bev_cuda(a, b))
     plain_ms = cuda_time_ms(lambda: cuda_overlap.overlap_bev_plain(a, b),
                             warmup=1, iters=3)
     bsz, n, m = got.shape
-    # the wrapper's share: corners by torch ops, then the bare kernel launch
     lib = cuda_build.load_library('overlap_bev', cuda_overlap._SIG)
-    a_cor, b_cor = cuda_overlap.corners_cat(a), cuda_overlap.corners_cat(b)
+    fa, fb = cuda_overlap._rows(a, bsz), cuda_overlap._rows(b, bsz)
     out = torch.empty_like(got)
     bare_ms = graph_time_ms(lambda: lib.overlap_bev_launch(
-        a_cor.data_ptr(), b_cor.data_ptr(), out.data_ptr(), bsz, n, m,
-        torch.cuda.current_stream().cuda_stream))
+        fa.data_ptr(), fa.stride(0), fa.stride(1), fb.data_ptr(), fb.stride(0),
+        fb.stride(1), out.data_ptr(), bsz, n, m, torch.cuda.current_stream().cuda_stream))
     if not torch.equal(out, got):
         raise RuntimeError(f'overlap {tag}: the bare launch differs from the wrapper')
-    corners_ms = cuda_time_ms(lambda: (cuda_overlap.corners_cat(a),
-                                       cuda_overlap.corners_cat(b)))
-    log(f'overlap_bev {tag} ({bsz}, {n}, {m}): whole wrapper call {ms:.4f} ms; the '
-        f'bare kernel {bare_ms:.4f} ms on the card (graph replay); the corner '
-        f'computation in torch ops alone {corners_ms:.4f} ms as the host enqueues it')
     nbytes = (a[..., :7].numel() + b[..., :7].numel() + bsz * n * m) * 4
     ops = bsz * n * m * OVERLAP_OPS_PER_PAIR
-    bound = max(nbytes / MEM_BW, ops / PEAK[torch.float32]) * 1e3
-    log(f'overlap_bev {tag} ({bsz}, {n}, {m}): err {err:.2e} (tol 1e-4), max |ref| '
-        f'{ref.abs().max().item():.3f}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, '
-        f'bound {bound:.4f} ms')
-    return {'name': name, 'route': 'cuda',
-            'source': 'crb_active_3ddet_torch/csrc/overlap_bev.cu',
-            'replaces': 'crb_active_3ddet_tpu/ops/pallas_overlap.py:122',
-            'launches': n_launch, 'max_abs_err': err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': 'bytes' if nbytes / MEM_BW >= ops / PEAK[torch.float32]
-            else 'operations',
-            'library_ms': None}
+    entry = _entry(name, K1_SOURCE, K1_REPLACES, n_launch, err, ms, plain_ms,
+                   nbytes, ops, PEAK[torch.float32])
+    log(f'overlap_bev {tag} ({bsz}, {n}, {m}), float entry: err {err:.2e} (tol '
+        f'1e-4), max |ref| {ref.abs().max().item():.3f}, {int(zero.sum())} '
+        f'degenerate rows give 0; whole call {ms:.4f} ms, bare kernel '
+        f'{bare_ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms')
+    return entry
+
+
+def unpack_words(words, k):
+    """(..., W) int32 words → (..., k) bool on the device."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words[..., None] >> shifts) & 1).bool().flatten(-2)[..., :k]
+
+
+def mask_vs_plain(words, boxes, alive, thresh, tag):
+    """The mask kernel's words against the plain words on the same inputs:
+    equal but for pairs whose plain IoU lies within 1e-6 of the threshold.
+    Returns (bits that differ, such pairs among those the NMS reads)."""
+    from crb_active_3ddet_torch.ops import cuda_overlap
+    k = boxes.shape[-2]
+    ov = cuda_overlap.overlap_bev_plain(boxes, boxes)
+    ref = cuda_overlap.mask_from_overlap(ov, boxes, alive, thresh)
+    areas = boxes[..., 3] * boxes[..., 4]
+    iou = ov / torch.clamp(areas[..., :, None] + areas[..., None, :] - ov, min=1e-8)
+    lower = torch.ones(k, k, dtype=torch.bool, device=boxes.device).tril(-1)
+    read = lower & alive[..., :, None] & alive[..., None, :]
+    near = read & ((iou - thresh).abs() <= 1e-6)
+    diff = unpack_words(words ^ ref, k)
+    wrong = int((diff & ~near).sum())
+    if wrong:
+        raise RuntimeError(f'nms_mask {tag}: {wrong} bits differ from the plain '
+                           f'version away from the threshold')
+    return int(diff.sum()), int(near.sum())
+
+
+def bare_mask(boxes, alive, thresh, words, clipped=None):
+    """One launch of the mask kernel straight from its C entry point."""
+    from crb_active_3ddet_torch.ops import cuda_build, cuda_overlap
+    lib = cuda_build.load_library('overlap_bev', cuda_overlap._SIG)
+    b, k = alive.shape
+    cuda_build.check(lib, 'overlap_bev', lib.nms_mask_launch(
+        boxes.data_ptr(), boxes.stride(0), boxes.stride(1), alive.data_ptr(), b, k,
+        thresh, words.data_ptr(), None if clipped is None else clipped.data_ptr(),
+        torch.cuda.current_stream().cuda_stream))
+
+
+def clipped_pairs(boxes, alive, thresh):
+    """(pairs the mask kernel clipped, lower-triangle live pairs)."""
+    words = torch.empty(*alive.shape, -(-alive.shape[1] // 32), dtype=torch.int32,
+                        device=boxes.device)
+    clipped = torch.zeros(1, dtype=torch.int64, device=boxes.device)
+    bare_mask(boxes, alive, thresh, words, clipped)
+    a = alive.sum(-1)
+    return int(clipped.item()), int((a * (a - 1) // 2).sum())
+
+
+def time_mask(name, boxes, alive, thresh, n_launch, rounds, tag):
+    """Hold the mask kernel against its plain version at one NMS's inputs;
+    time the call, the bare kernel, the plain version, the route through the
+    float matrix and the fixpoint; return the kernel's JSON entry."""
+    from crb_active_3ddet_torch.ops import cuda_overlap, nms
+    boxes, alive = boxes.contiguous(), alive.contiguous()
+    words = cuda_overlap.nms_mask(boxes, alive, thresh)
+    differ, near = mask_vs_plain(words, boxes, alive, thresh, tag)
+    n_clip, n_lower = clipped_pairs(boxes, alive, thresh)
+    out = torch.empty_like(words)
+    bare_ms = graph_time_ms(lambda: bare_mask(boxes, alive, thresh, out))
+    if not torch.equal(out, words):
+        raise RuntimeError(f'nms_mask {tag}: the bare launch differs from the wrapper')
+    ms = cuda_time_ms(lambda: cuda_overlap.nms_mask(boxes, alive, thresh))
+    plain_ms = cuda_time_ms(lambda: cuda_overlap.nms_mask_plain(boxes, alive, thresh),
+                            warmup=1, iters=3)
+    float_ms = cuda_time_ms(lambda: cuda_overlap.mask_from_overlap(
+        cuda_overlap.boxes_overlap_bev_cuda(boxes, boxes), boxes, alive, thresh))
+    fixpoint_ms = cuda_time_ms(lambda: nms._fixpoint_words(words, 32), iters=5)
+    b, k = alive.shape
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    nms._fixpoint_words(cuda_overlap.nms_mask(boxes, alive, thresh), 32)
+    peak = torch.cuda.max_memory_allocated() - base
+    if peak >= b * k * k * 4:
+        raise RuntimeError(f'nms_mask {tag}: mask and fixpoint took {peak} bytes, '
+                           f'as much as a ({b}, {k}, {k}) float matrix')
+    nbytes = boxes.numel() * 4 + alive.numel() + words.numel() * 4
+    ops_all = b * k * (k - 1) // 2 * OVERLAP_OPS_PER_PAIR
+    entry = _entry(name, K1_SOURCE, K1_REPLACES, n_launch, float(differ > 0), ms,
+                   plain_ms, nbytes, n_clip * OVERLAP_OPS_PER_PAIR, PEAK[torch.float32])
+    bound_all = max(nbytes / MEM_BW, ops_all / PEAK[torch.float32]) * 1e3
+    log(f'nms_mask {tag} ({b}, {k}), thresh {thresh}: {differ} bits differ from the '
+        f'plain words, {near} read pairs within 1e-6 of the threshold; clipped '
+        f'{n_clip} of {n_lower} lower-triangle live pairs '
+        f'({n_clip / max(1, n_lower):.4f}); fixpoint rounds {rounds}; whole call '
+        f'{ms:.4f} ms, bare kernel {bare_ms:.4f} ms (graph replay), plain '
+        f'{plain_ms:.4f} ms, float matrix + torch ops {float_ms:.4f} ms, fixpoint '
+        f'{fixpoint_ms:.4f} ms; bound {entry["bound_ms"]:.4f} ms over the clipped '
+        f'pairs, {bound_all:.4f} ms over all K(K-1)/2 pairs; peak device memory of '
+        f'mask + fixpoint {peak / 2**20:.2f} MiB (a float (B, K, K) matrix: '
+        f'{b * k * k * 4 / 2**20:.2f} MiB)')
+    return entry
+
+
+def near_touching(rng, k, margin, reach=60.0):
+    """k boxes (k even) in pairs whose corner bounds lie 0 to 2 × margin
+    apart along x or y (either side; the other axis overlapping), centres
+    within ±reach m (made on the CPU)."""
+    from crb_active_3ddet_torch.ops import cuda_overlap
+    half = k // 2
+    a, b = np.zeros((half, 7), np.float32), np.zeros((half, 7), np.float32)
+    for box in (a, b):
+        box[:, 3:6] = rng.uniform(0.5, 5.0, (half, 3))
+        box[:, 6] = rng.uniform(-np.pi, np.pi, half)
+    a[:, :2] = rng.uniform(-reach, reach, (half, 2))
+    ac = cuda_overlap.corners_cat(torch.from_numpy(a)).numpy()
+    bc = cuda_overlap.corners_cat(torch.from_numpy(b)).numpy()
+    ax0, ax1, ay0, ay1 = ac[:, :4].min(1), ac[:, :4].max(1), ac[:, 4:].min(1), ac[:, 4:].max(1)
+    bx0, bx1, by0, by1 = bc[:, :4].min(1), bc[:, :4].max(1), bc[:, 4:].min(1), bc[:, 4:].max(1)
+    gap = np.linspace(0, 2 * margin, half).astype(np.float32)
+    side = np.arange(half) % 4
+    along = rng.uniform(0, 1, half).astype(np.float32)
+    b[:, 0] = np.where(side == 0, ax1 + gap - bx0, np.where(
+        side == 1, ax0 - gap - bx1, ax0 + along * (ax1 - ax0)))
+    b[:, 1] = np.where(side == 2, ay1 + gap - by0, np.where(
+        side == 3, ay0 - gap - by1, ay0 + along * (ay1 - ay0)))
+    return np.stack([a, b], 1).reshape(k, 7)
+
+
+def mask_stress(dev, k=1024):
+    """The mask kernel at (8, k) on its worst case (every box at one point:
+    every pair is clipped; threshold 0.1) and on pairs that nearly touch
+    (corner bounds 0 to 2 × the early-out's margin apart; threshold 0, so
+    that any area a skipped pair should have had would show), against the
+    plain words."""
+    from crb_active_3ddet_torch.ops import cuda_overlap
+    rng = np.random.RandomState(7)
+    point = np.zeros((BATCH, k, 7), np.float32)
+    point[..., :2] = 3.0
+    point[..., 3:6] = rng.uniform(0.5, 5.0, (BATCH, k, 3))
+    point[..., 6] = rng.uniform(-np.pi, np.pi, (BATCH, k))
+    touch = np.stack([near_touching(rng, k, 1e-2) for _ in range(BATCH)])
+    alive = torch.ones(BATCH, k, dtype=torch.bool, device=dev)
+    for tag, boxes, thresh in (('every box at one point', point, 0.1),
+                               ('near-touching pairs', touch, 0.0)):
+        boxes = torch.from_numpy(boxes).to(dev)
+        words = cuda_overlap.nms_mask(boxes, alive, thresh)
+        differ, near = mask_vs_plain(words, boxes, alive, thresh, tag)
+        if thresh == 0.0 and differ:    # every zero IoU lies "within 1e-6" of 0
+            raise RuntimeError(f'nms_mask {tag}: {differ} bits differ at threshold 0')
+        n_clip, n_lower = clipped_pairs(boxes, alive, thresh)
+        out = torch.empty_like(words)
+        bare_ms = graph_time_ms(lambda: bare_mask(boxes, alive, thresh, out))
+        excused = ('none excused at threshold 0' if thresh == 0.0 else
+                   f'{near} pairs within 1e-6 of the threshold')
+        log(f'nms_mask {tag} ({BATCH}, {k}), thresh {thresh}: {differ} bits differ '
+            f'from the plain words, {excused}; clipped {n_clip} of '
+            f'{n_lower} ({n_clip / n_lower:.4f}); bare kernel {bare_ms:.4f} ms '
+            f'(graph replay); bound over the clipped pairs '
+            f'{n_clip * OVERLAP_OPS_PER_PAIR / PEAK[torch.float32] * 1e3:.4f} ms')
 
 
 def rulebook_emptiness(name, rbk):
@@ -442,20 +609,15 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch):
     lib_ms = graph_time_ms(lambda: torch.matmul(g, w2))
     nnz = int((rbk >= 0).sum())
     nbytes = f.numel() * 2 + rbk.numel() * 4 + w.numel() * 2 + ref.numel() * 4
-    flops = 2 * nnz * cin * cout
-    bound = max(nbytes / MEM_BW, flops / PEAK[cdt]) * 1e3
+    entry = _entry(name, 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
+                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
+                   plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[cdt], lib_ms)
     log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
         f'nnz {nnz}: err {err:.2e} (tol {tol:.1e}) kernel {ms:.4f} ms on the card '
         f'(graph replay; {call_ms:.4f} ms a call as the host enqueues it), '
         f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms (graph replay), '
-        f'bound {bound:.4f} ms')
-    return {'name': name, 'route': 'cuda',
-            'source': 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
-            'replaces': 'crb_active_3ddet_tpu/ops/pallas_kernels.py:60',
-            'launches': n_launch, 'max_abs_err': err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': 'bytes' if nbytes / MEM_BW >= flops / PEAK[cdt] else 'operations',
-            'library_ms': lib_ms}
+        f'bound {entry["bound_ms"]:.4f} ms')
+    return entry
 
 
 def fps_equal(points, valid, k, tag):
@@ -508,23 +670,18 @@ def time_fps(name, points, valid, k, n_launch):
                           warmup=2, iters=10)
     b, n, _ = points.shape
     nbytes = points.numel() * 4 + valid.numel() + b * k * 4
-    ops = b * (k - 1) * n * FPS_OPS_PER_POINT_STEP
-    bound = max(nbytes / MEM_BW, ops / PEAK[torch.float32]) * 1e3
+    entry = _entry(name, 'crb_active_3ddet_torch/csrc/fps.cu',
+                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:148', n_launch, err, ms,
+                   plain_ms, nbytes, b * (k - 1) * n * FPS_OPS_PER_POINT_STEP,
+                   PEAK[torch.float32])
     log(f'{name} ({b}, {n}) -> {k}: equal to the plain version (also at '
         f'{len(FPS_SMALL)} other shapes, N = 1 up to the capacity '
         f'{cuda_fps.max_points()}, random and snapped); fewest distinct '
         f'keypoints in a frame {distinct}; kernel {ms:.4f} ms ({one_ms:.4f} ms for '
-        f'one frame alone), plain {plain_ms:.4f} ms, bound {bound:.4f} ms (a '
-        f'serial chain of {k - 1} cluster-wide argmax steps, {ms / (k - 1) * 1e3:.3f} us '
-        f'each: latency, not this bound, sets its time)')
-    return {'name': name, 'route': 'cuda',
-            'source': 'crb_active_3ddet_torch/csrc/fps.cu',
-            'replaces': 'crb_active_3ddet_tpu/ops/pallas_kernels.py:148',
-            'launches': n_launch, 'max_abs_err': err, 'ms': ms,
-            'plain_ms': plain_ms, 'bound_ms': bound,
-            'bound_by': 'bytes' if nbytes / MEM_BW >= ops / PEAK[torch.float32]
-            else 'operations',
-            'library_ms': None}
+        f'one frame alone), plain {plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
+        f'(a serial chain of {k - 1} cluster-wide argmax steps, '
+        f'{ms / (k - 1) * 1e3:.3f} us each: latency, not this bound, sets its time)')
+    return entry
 
 
 def check_reduced(cfg_file, dev):
@@ -554,15 +711,15 @@ def check_reduced(cfg_file, dev):
         + ', '.join(f'{k} {v.tolist()}' for k, v in rc.items()) + ' (card = CPU)')
 
 
-def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
+def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
     """One detector's eval step at full width: counters to 0, one step,
     counters read; output checks; step time, stages, profile; kernel path vs
     plain path; every kernel vs its plain version at this path's inputs.
-    ``overlap_tags`` names the overlap calls the step must make, in order.
-    Returns the kernels' JSON entries."""
+    ``nms_tags`` and ``overlap_tags`` name the NMS mask and float overlap
+    calls the step must make, in order.  Returns the kernels' JSON entries."""
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap,
-                                            iou3d, pointnet2)
+                                            iou3d, nms, pointnet2)
     from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
                                                       prepare_device_batch)
     cfg = load_config(cfg_file)
@@ -574,6 +731,7 @@ def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
     batch = host_to_device_batch(host, dev)
     # each sparse conv layer's inputs and the gather-GEMM launches it made
     captured, launched, overlap_calls, fps_calls = [], [], [], []
+    mask_calls, fixpoint_calls = [], []
     layers = [m for m in model.backbone_3d.modules()
               if type(m).__name__ == 'SparseConvLayer']
     hooks = [m.register_forward_pre_hook(lambda mod, args: captured.append(
@@ -582,19 +740,25 @@ def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
         cuda_kernels.launches - captured[len(launched)][3])) for m in layers]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    cuda_kernels.launches = cuda_overlap.launches = cuda_fps.launches = 0
-    with recording(iou3d, 'boxes_overlap_bev_cuda', cuda_overlap, overlap_calls), \
-            recording(pointnet2, 'farthest_point_sample_cuda', cuda_fps, fps_calls):
+    cuda_kernels.launches = cuda_overlap.launches = cuda_overlap.mask_launches = 0
+    cuda_fps.launches = 0
+    with recording(iou3d, 'boxes_overlap_bev_cuda', overlap_calls,
+                   lambda: cuda_overlap.launches), \
+            recording(nms, 'nms_mask', mask_calls, lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', fixpoint_calls), \
+            recording(pointnet2, 'farthest_point_sample_cuda', fps_calls,
+                      lambda: cuda_fps.launches):
         preds, rec = step(batch)
     torch.cuda.synchronize()
     counts = {'gather_gemm': cuda_kernels.launches,
-              'overlap_bev': cuda_overlap.launches, 'fps': cuda_fps.launches}
+              'overlap_bev': cuda_overlap.launches,
+              'nms_mask': cuda_overlap.mask_launches, 'fps': cuda_fps.launches}
     for h in hooks:
         h.remove()
     log(f'{name} main path launches: {counts}; peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     expected = {'gather_gemm': len(SPARSE_LAYERS), 'overlap_bev': len(overlap_tags),
-                'fps': 1 if two_stage else 0}
+                'nms_mask': len(nms_tags), 'fps': 1 if two_stage else 0}
     for kernel, n in expected.items():
         if counts[kernel] < n:
             raise RuntimeError(f'{name}: kernel {kernel} was launched '
@@ -606,13 +770,16 @@ def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
     if sum(launched) != counts['gather_gemm']:
         raise RuntimeError(f'gather-GEMM launches per layer {launched} '
                            f"do not add up to {counts['gather_gemm']}")
-    if len(overlap_calls) != len(overlap_tags) \
-            or sum(n for _, n in overlap_calls) != counts['overlap_bev']:
-        raise RuntimeError(f'{name}: expected the overlap calls {overlap_tags}, saw '
-                           f'{[(tuple(a[0].shape), n) for a, n in overlap_calls]}')
-    if two_stage and [n for _, n in fps_calls] != [1]:
+    for kind, calls, tags in (('overlap_bev', overlap_calls, overlap_tags),
+                              ('nms_mask', mask_calls, nms_tags)):
+        if [n for _, n, _ in calls] != [1] * len(tags) or len(tags) != counts[kind]:
+            raise RuntimeError(f'{name}: expected the {kind} calls {tags}, one launch '
+                               f'each, saw {[(tuple(a[0].shape), n) for a, n, _ in calls]}')
+    if len(fixpoint_calls) != len(nms_tags):
+        raise RuntimeError(f'{name}: {len(fixpoint_calls)} NMS fixpoints for {nms_tags}')
+    if two_stage and [n for _, n, _ in fps_calls] != [1]:
         raise RuntimeError(f'{name}: expected one FPS call that launches once '
-                           f'for the whole batch, saw {[n for _, n in fps_calls]}')
+                           f'for the whole batch, saw {[n for _, n, _ in fps_calls]}')
 
     for k, v in preds.items():
         if v.dtype.is_floating_point and not torch.isfinite(v).all():
@@ -681,17 +848,17 @@ def drive_path(cfg_file, dev, prefix, overlap_tags, n_iter):
     results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n)
                for lname, (layer, feats, rbk, _), n
                in zip(SPARSE_LAYERS, captured, launched)]
-    for tag, ((a, b), n) in zip(overlap_tags, overlap_calls):
-        a, b = a.contiguous(), b.contiguous()
-        if a.shape == b.shape and torch.equal(a, b):    # an NMS's square matrix
-            a = b = a.clone()
-            cut = a.shape[1] - max(1, a.shape[1] // 40)
-            a[:, cut:] = 0.0                            # degenerate rows
-            if not (cuda_overlap.boxes_overlap_bev_cuda(a, a)[:, cut:] == 0).all():
-                raise RuntimeError('overlap: degenerate rows give non-zero areas')
-        results.append(time_overlap(f'{prefix}overlap_bev[{tag}]', a, b, n, tag))
+    for tag, ((boxes, alive, thresh), n, words), (_, _, (_, rounds)) in zip(
+            nms_tags, mask_calls, fixpoint_calls):
+        if not torch.equal(cuda_overlap.nms_mask(boxes, alive, thresh), words):
+            raise RuntimeError(f'nms_mask {tag}: a second call differs from the step\'s')
+        results.append(time_mask(f'{prefix}nms_mask[{tag}]', boxes, alive, thresh, n,
+                                 rounds, f'{name} {tag}'))
+    for tag, ((a, b), n, _) in zip(overlap_tags, overlap_calls):
+        results.append(time_overlap(f'{prefix}overlap_bev[{tag}]', a, b, n,
+                                    f'{name} {tag}'))
     if two_stage:
-        (points, valid, k), n = fps_calls[0]
+        (points, valid, k), n, _ = fps_calls[0]
         results.append(time_fps(f'{prefix}fps', points, valid, k, n))
     return results
 
@@ -758,9 +925,10 @@ def main():
             + '; '.join(f'{entry} {regs}/{smem}/{spill}'
                         for entry, regs, smem, spill in ptxas_entries(report)))
 
-    results = drive_path(SECOND_CFG, dev, '', ['nms', 'recall'], n_iter=5)
-    results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.',
-                          ['proposal_nms', 'nms', 'recall'], n_iter=5)
+    results = drive_path(SECOND_CFG, dev, '', ['nms'], ['recall'], n_iter=5)
+    results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.', ['proposal_nms', 'nms'],
+                          ['recall'], n_iter=5)
+    mask_stress(dev)
     check_reduced(SECOND_CFG, dev)
     check_reduced(PVRCNN_CFG, dev)
 

@@ -21,9 +21,11 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v']
-# the overlap and the FPS keep every product and sum separately rounded, like
-# their plain versions, so the two agree to the last bit on the same inputs
-EXTRA_FLAGS = {'overlap_bev': ['-fmad=false'], 'fps': ['-fmad=false']}
+# the FPS keeps every product and sum separately rounded, like its plain
+# version, so the two agree to the last bit on the same inputs (the overlap
+# writes its arithmetic as round-to-nearest intrinsics instead, so that its
+# cosf and sinf compile as PyTorch's own cos and sin do)
+EXTRA_FLAGS = {'fps': ['-fmad=false']}
 
 _LIBS: dict = {}
 BUILD_LOG: dict = {}     # name → (seconds, ptxas report) of this process's builds

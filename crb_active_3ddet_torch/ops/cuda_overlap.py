@@ -1,4 +1,4 @@
-"""Rotated BEV overlap matrix: wrapper of the CUDA kernel ``csrc/overlap_bev.cu``.
+"""Rotated BEV overlap: wrappers of the CUDA kernels in ``csrc/overlap_bev.cu``.
 
 Counterpart of ``crb_active_3ddet_tpu/ops/pallas_overlap.py:122
 boxes_overlap_bev_pallas``: for (..., N, 7) × (..., M, 7) boxes, the area of
@@ -6,9 +6,15 @@ the intersection of every pair of rotated BEV rectangles.  A's 4 CCW corners
 are clipped against B's 4 edges (Sutherland–Hodgman, ≤ 8 vertices), then the
 shoelace area is taken.  Zero (degenerate) A boxes give 0.
 
-On CUDA tensors the wrapper launches the kernel once for the whole batch (or
-raises); on CPU tensors it runs the plain version below, which vectorises the
-same 8-slot clip over whole tensors.  ``launches`` counts kernel launches.
+Two entry points, each one launch for the whole batch on CUDA tensors (or a
+raise), each taking raw boxes (the kernel computes the corners):
+``boxes_overlap_bev_cuda`` gives the float matrix (``boxes_iou_bev``,
+``boxes_iou3d``), and ``nms_mask`` gives the NMS's suppression matrix as
+32-bit words, with the IoU, its threshold, the lower triangle and the alive
+masks applied in the kernel, so no (K, K) float matrix is made.  On CPU
+tensors each runs its plain version below (``overlap_bev_plain``, which
+vectorises the same 8-slot clip over whole tensors, and ``nms_mask_plain``).
+``launches`` and ``mask_launches`` count the two kernels' launches.
 """
 
 from __future__ import annotations
@@ -25,10 +31,13 @@ _CAP = 8          # max vertices of the intersection of two convex quads
 _ROW_CHUNK = 128  # plain version: rows per step, bounds its temporaries
 
 launches = 0
+mask_launches = 0
 
-_SIG = {'overlap_bev_launch': [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, ctypes.c_void_p]}
+_PTR, _I64, _INT = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+_SIG = {'overlap_bev_launch': [_PTR, _I64, _I64, _PTR, _I64, _I64, _PTR,
+                               _INT, _INT, _INT, _PTR],
+        'nms_mask_launch': [_PTR, _I64, _I64, _PTR, _INT, _INT, ctypes.c_float,
+                            _PTR, _PTR, _PTR]}
 
 
 def corners_xy(boxes):
@@ -119,36 +128,112 @@ def overlap_bev_plain(boxes_a, boxes_b):
                       for r in range(0, n, _ROW_CHUNK)], dim=-2)
 
 
+def pack_bits(bits):
+    """(..., n) bool → (..., ⌈n/32⌉) int32 words: bit b of word w is element
+    32·w + b (bit 31 is the sign bit, which ``&`` and ``!= 0`` do not mind)."""
+    n = bits.shape[-1]
+    w = -(-n // 32)
+    if w * 32 != n:
+        bits = torch.cat([bits, bits.new_zeros(*bits.shape[:-1], w * 32 - n)], -1)
+    shifts = torch.arange(32, dtype=torch.int32, device=bits.device)
+    words = bits.reshape(*bits.shape[:-1], w, 32).to(torch.int32) << shifts
+    return words.sum(-1, dtype=torch.int32)      # disjoint bits: the sum is the OR
+
+
+def mask_from_overlap(overlap, boxes, alive, thresh: float):
+    """Suppression words from the (..., K, K) overlap of ``boxes`` with
+    themselves: bit j of row i is set iff j < i, both alive and
+    iou(i, j) > thresh (``crb_active_3ddet_tpu/ops/nms.py:205-220``)."""
+    areas = boxes[..., 3] * boxes[..., 4]
+    iou = overlap / torch.clamp(areas[..., :, None] + areas[..., None, :]
+                                - overlap, min=_EPS)
+    idx = torch.arange(boxes.shape[-2], device=boxes.device)
+    return pack_bits((iou > thresh) & (idx[None, :] < idx[:, None])
+                     & alive[..., None, :] & alive[..., :, None])
+
+
+def nms_mask_plain(boxes, alive, thresh: float):
+    """Plain torch version of the mask entry: (..., K, 7+), (..., K) bool →
+    (..., K, ⌈K/32⌉) int32, every pair clipped."""
+    return mask_from_overlap(overlap_bev_plain(boxes, boxes), boxes, alive, thresh)
+
+
 def boxes_overlap_bev_cuda(boxes_a, boxes_b):
-    """(..., N, 7), (..., M, 7) → (..., N, M) f32 rotated BEV overlap areas;
-    leading (batch) dimensions must agree."""
+    """(..., N, 7+), (..., M, 7+) → (..., N, M) f32 rotated BEV overlap
+    areas; leading (batch) dimensions must agree."""
     if boxes_a.device.type == 'cpu':
         return overlap_bev_plain(boxes_a, boxes_b)
     return _launch(boxes_a, boxes_b)
 
 
+def nms_mask(boxes, alive, thresh: float):
+    """boxes (..., K, 7+) f32, alive (..., K) bool → (..., K, ⌈K/32⌉) int32
+    suppression words of the NMS, as ``nms_mask_plain`` gives them."""
+    if boxes.device.type == 'cpu':
+        return nms_mask_plain(boxes, alive, thresh)
+    return _launch_mask(boxes, alive, thresh)
+
+
+def _check_boxes(what, dev, *boxes):
+    if dev.type != 'cuda' or any(t.device != dev for t in boxes):
+        raise ValueError(f'{what}: tensors must be on one CUDA device')
+    for t in boxes:
+        if t.ndim < 2 or t.shape[-1] < 7:
+            raise ValueError(f'{what}: boxes of shape {tuple(t.shape)}, want (..., N, 7+)')
+        if t.dtype != torch.float32:
+            raise TypeError(f'{what}: boxes must be float32, got {t.dtype}')
+
+
+def _rows(boxes, b):
+    """(..., N, C) → a (b, N, C) view (or copy) whose last dimension is
+    contiguous, as the kernels read it."""
+    flat = boxes.reshape(b, *boxes.shape[-2:])
+    return flat if flat.stride(-1) == 1 else flat.contiguous()
+
+
+def _stream(dev):
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _launch(boxes_a, boxes_b):
     global launches
     dev = boxes_a.device
-    if dev.type != 'cuda' or boxes_b.device != dev:
-        raise ValueError('overlap: both box tensors must be on one CUDA device')
-    if boxes_a.shape[:-2] != boxes_b.shape[:-2] or boxes_a.shape[-1] < 7 \
-            or boxes_b.shape[-1] < 7:
+    _check_boxes('overlap', dev, boxes_a, boxes_b)
+    if boxes_a.shape[:-2] != boxes_b.shape[:-2]:
         raise ValueError(f'overlap: shapes {tuple(boxes_a.shape)}, '
                          f'{tuple(boxes_b.shape)}')
-    if not (boxes_a.is_floating_point() and boxes_b.is_floating_point()):
-        raise TypeError('overlap: boxes must be floating point')
     batch = boxes_a.shape[:-2]
     n, m = boxes_a.shape[-2], boxes_b.shape[-2]
     b = math.prod(batch)
-    a_cor = corners_cat(boxes_a).reshape(b, n, 8)
-    b_cor = corners_cat(boxes_b).reshape(b, m, 8)
+    a, bb = _rows(boxes_a, b), _rows(boxes_b, b)
     lib = cuda_build.load_library('overlap_bev', _SIG)
     out = torch.empty((b, n, m), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.overlap_bev_launch(a_cor.data_ptr(), b_cor.data_ptr(),
-                                     out.data_ptr(), b, n, m, stream)
+    err = lib.overlap_bev_launch(a.data_ptr(), a.stride(0), a.stride(1),
+                                 bb.data_ptr(), bb.stride(0), bb.stride(1),
+                                 out.data_ptr(), b, n, m, _stream(dev))
     cuda_build.check(lib, 'overlap_bev', err)
     launches += 1
     return out.reshape(*batch, n, m)
+
+
+def _launch_mask(boxes, alive, thresh):
+    global mask_launches
+    dev = boxes.device
+    _check_boxes('nms_mask', dev, boxes)
+    if alive.device != dev or alive.dtype != torch.bool \
+            or alive.shape != boxes.shape[:-1]:
+        raise ValueError(f'nms_mask: alive {alive.dtype} {tuple(alive.shape)} on '
+                         f'{alive.device} for boxes {tuple(boxes.shape)}')
+    batch, k = boxes.shape[:-2], boxes.shape[-2]
+    b, w = math.prod(batch), -(-k // 32)
+    flat = _rows(boxes, b)
+    alive = alive.reshape(b, k).contiguous()
+    lib = cuda_build.load_library('overlap_bev', _SIG)
+    words = torch.empty((b, k, w), dtype=torch.int32, device=dev)
+    err = lib.nms_mask_launch(flat.data_ptr(), flat.stride(0), flat.stride(1),
+                              alive.data_ptr(), b, k, float(thresh),
+                              words.data_ptr(), None, _stream(dev))
+    cuda_build.check(lib, 'overlap_bev', err)
+    mask_launches += 1
+    return words.reshape(*batch, k, w)

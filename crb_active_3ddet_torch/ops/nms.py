@@ -8,9 +8,11 @@ Port of ``crb_active_3ddet_tpu/ops/nms.py`` (``rotated_nms_matrix`` :174,
 
 Greedy NMS keeps exactly the boxes solving
     keep_i = NOT OR_{j<i, iou(i,j)>t} keep_j          (score-descending i),
-reached by iterating from all-kept.  The (K, K) overlap matrix comes from
-``ops/iou3d.boxes_overlap_bev`` (the hand-written kernel of
-``ops/cuda_overlap.py`` on a card), one launch for the whole batch.
+reached by iterating from all-kept.  The suppression matrix (j < i, both
+alive, iou(i, j) > t) comes as 32-bit words from ``ops/cuda_overlap.nms_mask``:
+on a card one launch of the hand-written kernel for the whole batch, which
+computes the corners, clips only the pairs that can overlap and applies the
+IoU threshold and the masks itself, so no (K, K) float matrix is made.
 Reference behaviours kept on purpose: boxes ranked below
 ``matrix_cap`` never enter the kept set, and the fixpoint stops after
 ``rounds`` rounds.  ``jax.lax.top_k`` becomes a stable descending sort: ties
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import torch
 
-from . import iou3d
+from .cuda_overlap import nms_mask, pack_bits
 
 _NEG_INF = -1e10
 
@@ -33,38 +35,29 @@ def _top_k(x, k):
 
 
 def _suppress_fixpoint_packed(o_lower, rounds: int):
-    """Greedy-NMS fixpoint on a bit-packed suppression matrix.
+    """Greedy-NMS fixpoint on a (..., K, K) bool suppression matrix, [i, j]
+    True iff j < i, both alive and iou(i, j) > thresh: its columns packed
+    32 to a word, then ``_fixpoint_words``.  Returns keep (..., K) bool."""
+    return _fixpoint_words(pack_bits(o_lower), rounds)[0]
 
-    o_lower: (..., K, K) bool, [i, j] True iff j < i, both alive and
-    iou(i, j) > thresh.  Returns keep (..., K) bool.  Columns are packed
-    32 to a word; the loop stops when no batch entry changes or after
-    ``rounds`` rounds (a converged entry does not change in further rounds,
-    so stopping on the whole batch equals stopping per entry).
+
+def _fixpoint_words(words, rounds: int):
+    """Greedy-NMS fixpoint on (..., K, W) int32 suppression words (bit
+    j mod 32 of word j // 32 of row i: box j suppresses box i if kept).
+
+    Returns (keep (..., K) bool, rounds run).  The loop stops when no batch
+    entry changes or after ``rounds`` rounds (a converged entry does not
+    change in further rounds, so stopping on the whole batch equals stopping
+    per entry); each round reads back one flag to the host.
     """
-    *bs, k, _ = o_lower.shape
-    w = -(-k // 32)
-    pad = w * 32 - k
-    dev = o_lower.device
-    powers = torch.bitwise_left_shift(
-        torch.ones(32, dtype=torch.int64, device=dev),
-        torch.arange(32, dtype=torch.int64, device=dev))
-
-    def pack(bits):                       # (..., k) bool → (..., w) words
-        if pad:
-            bits = torch.cat([bits, bits.new_zeros(*bits.shape[:-1], pad)], -1)
-        return (bits.reshape(*bits.shape[:-1], w, 32).to(torch.int64)
-                * powers).sum(-1)
-
-    words = pack(o_lower)                 # (..., K, W)
-    keep = torch.ones((*bs, k), dtype=torch.bool, device=dev)
-    for _ in range(rounds):
-        kw = pack(keep)
-        new = ~((words & kw[..., None, :]) != 0).any(-1)
+    keep = torch.ones(words.shape[:-1], dtype=torch.bool, device=words.device)
+    for r in range(rounds):
+        new = ~((words & pack_bits(keep)[..., None, :]) != 0).any(-1)
         changed = bool((new != keep).any())
         keep = new
         if not changed:
-            break
-    return keep
+            return keep, r + 1
+    return keep, rounds
 
 
 def rotated_nms_matrix(boxes, scores, iou_thresh: float, pre_max: int,
@@ -85,16 +78,8 @@ def rotated_nms_matrix(boxes, scores, iou_thresh: float, pre_max: int,
     top_scores, order = _top_k(scores, k)
     top_boxes = torch.gather(
         boxes[..., :7], -2, order[..., None].expand(*order.shape, 7))
-    areas = top_boxes[..., 3] * top_boxes[..., 4]
     alive = top_scores > _NEG_INF / 2
-
-    overlap = iou3d.boxes_overlap_bev(top_boxes, top_boxes)
-    iou = overlap / torch.clamp(areas[..., :, None] + areas[..., None, :]
-                                - overlap, min=1e-8)
-    idx = torch.arange(k, device=boxes.device)
-    o_lower = ((iou > iou_thresh) & (idx[None, :] < idx[:, None])
-               & alive[..., None, :] & alive[..., :, None])
-    keep = _suppress_fixpoint_packed(o_lower, rounds) & alive
+    keep = _fixpoint_words(nms_mask(top_boxes, alive, iou_thresh), rounds)[0] & alive
 
     kept_scores = torch.where(keep, top_scores,
                               torch.full_like(top_scores, _NEG_INF))

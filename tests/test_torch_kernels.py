@@ -293,6 +293,129 @@ def test_overlap_kernel_matches_plain(cuda_device):
     assert torch.all(got[:, 60:] == 0)
 
 
+def _near_touching(rng, k, margin, reach=60.0):
+    """k boxes (k even) in pairs whose corner bounds lie 0 to 2 × margin
+    apart along x or y (either side; the other axis overlapping), centres
+    within ±reach m: the pairs at the edge of the kernel's early-out."""
+    a = _random_boxes(rng, k // 2)
+    b = _random_boxes(rng, k // 2)
+    a[:, :2] = rng.uniform(-reach, reach, (k // 2, 2))
+    b[:, :2] = 0.0
+    ac, b0 = cuda_overlap.corners_cat(_t(a)), cuda_overlap.corners_cat(_t(b))
+    ax0, ax1 = ac[:, :4].min(1).values.numpy(), ac[:, :4].max(1).values.numpy()
+    ay0, ay1 = ac[:, 4:].min(1).values.numpy(), ac[:, 4:].max(1).values.numpy()
+    bx0, bx1 = b0[:, :4].min(1).values.numpy(), b0[:, :4].max(1).values.numpy()
+    by0, by1 = b0[:, 4:].min(1).values.numpy(), b0[:, 4:].max(1).values.numpy()
+    gap = np.linspace(0, 2 * margin, k // 2).astype(np.float32)
+    side = np.arange(k // 2) % 4
+    along = rng.uniform(0, 1, k // 2).astype(np.float32)
+    b[:, 0] = np.where(side == 0, ax1 + gap - bx0, np.where(
+        side == 1, ax0 - gap - bx1, ax0 + along * (ax1 - ax0)))
+    b[:, 1] = np.where(side == 2, ay1 + gap - by0, np.where(
+        side == 3, ay0 - gap - by1, ay0 + along * (ay1 - ay0)))
+    return np.stack([a, b], 1).reshape(k, 7)
+
+
+def _mask_case(name):
+    """(2, K, 7) boxes and (2, K) alive for the mask kernel's cases."""
+    rng = np.random.RandomState(12)
+    k = {'all_dead': 100, 'one_point': 300, 'near_touching': 512,
+         'zero_size': 200}.get(name) or int(name[1:])
+    spread = 35.0 if k >= 512 else 8.0       # a 70 m scene at the NMS's width
+    boxes = np.stack([_random_boxes(rng, k) for _ in range(2)])
+    boxes[..., :2] = rng.uniform(-spread, spread, (2, k, 2))
+    boxes[:, 1::3, :2] = boxes[:, 0:k - 1:3, :2] + rng.normal(0, 0.5, (2, len(range(1, k, 3)), 2))
+    alive = rng.rand(2, k) < 0.9
+    if name == 'all_dead':
+        alive[:] = False
+    elif name == 'one_point':                 # every pair overlaps: the worst case
+        boxes[..., :2] = 3.0
+    elif name == 'near_touching':
+        boxes = np.stack([_near_touching(rng, k, 1e-2) for _ in range(2)])
+    elif name == 'zero_size':                 # degenerate B returns area(A)
+        boxes[:, ::5, 3:5] = 0.0
+    return boxes.astype(np.float32), alive
+
+
+MASK_KERNEL_CASES = ['k1', 'k31', 'k33', 'k128', 'k1024', 'k1025', 'all_dead',
+                     'one_point', 'near_touching', 'zero_size']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('name', MASK_KERNEL_CASES)
+def test_nms_mask_kernel_equals_plain(cuda_device, name):
+    """The mask kernel's words equal ``nms_mask_plain``'s on the card, but
+    for pairs whose plain IoU lies within 1e-6 of the threshold (none are
+    expected: both compute the same f32 arithmetic)."""
+    boxes, alive = _mask_case(name)
+    tb, ta = _t(boxes).to(cuda_device), _t(alive).to(cuda_device)
+    thresh = 0.0 if name == 'near_touching' else 0.1    # 0: any area suppresses
+    n0 = cuda_overlap.mask_launches
+    got = cuda_overlap.nms_mask(tb, ta, thresh)
+    torch.cuda.synchronize()
+    assert cuda_overlap.mask_launches == n0 + 1
+    ref = cuda_overlap.nms_mask_plain(tb, ta, thresh)
+    assert got.shape == ref.shape and got.dtype == torch.int32
+    if name == 'near_touching':      # at threshold 0 every bit must agree
+        assert torch.equal(got, ref)
+    elif not torch.equal(got, ref):
+        k = boxes.shape[1]
+        ov = cuda_overlap.overlap_bev_plain(tb, tb)
+        areas = tb[..., 3] * tb[..., 4]
+        iou = ov / torch.clamp(areas[..., :, None] + areas[..., None, :] - ov, min=1e-8)
+        near = ((iou - thresh).abs() <= 1e-6).cpu().numpy()
+        bits = [np.unpackbits(w.cpu().numpy().view(np.uint8), axis=-1,
+                              bitorder='little')[..., :k] for w in (got, ref)]
+        wrong = (bits[0] != bits[1]) & ~near
+        assert not wrong.any(), f'{int(wrong.sum())} bits differ away from the threshold'
+    if name == 'all_dead':
+        assert not got.any()
+    if name == 'zero_size':
+        assert got.any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('shape', [(8, 40, 500), (2, 70, 150), (3, 1, 33),
+                                   (2, 33, 1), (1, 0, 5), (2, 5, 0)])
+def test_overlap_kernel_float_entry_matches_plain(cuda_device, shape):
+    """The float entry over raw boxes (corners in the kernel), zero rows
+    (degenerate boxes) included and a row stride of 9 floats."""
+    bsz, n, m = shape
+    rng = np.random.RandomState(n + m)
+    a = np.zeros((bsz, n, 9), np.float32)
+    a[..., :7] = np.stack([_random_boxes(rng, n) for _ in range(bsz)])
+    a[:, n - n // 4:] = 0.0
+    b = np.stack([_random_boxes(rng, m) for _ in range(bsz)])
+    b[:, m - m // 5:] = 0.0
+    ta, tb = _t(a).to(cuda_device), _t(b).to(cuda_device)
+    n0 = cuda_overlap.launches
+    got = cuda_overlap.boxes_overlap_bev_cuda(ta, tb)
+    torch.cuda.synchronize()
+    assert cuda_overlap.launches == n0 + 1
+    assert got.shape == (bsz, n, m)
+    ref = cuda_overlap.overlap_bev_plain(ta, tb)
+    torch.testing.assert_close(got, ref, atol=ATOL, rtol=0)
+    assert torch.all(got[:, n - n // 4:] == 0)
+
+
+@pytest.mark.cuda
+def test_overlap_kernels_refuse_what_they_do_not_take(cuda_device):
+    boxes = torch.zeros(2, 8, 7, device=cuda_device)
+    alive = torch.ones(2, 8, dtype=torch.bool, device=cuda_device)
+    with pytest.raises(TypeError):
+        cuda_overlap.boxes_overlap_bev_cuda(boxes.double(), boxes.double())
+    with pytest.raises(TypeError):
+        cuda_overlap.nms_mask(boxes.half(), alive, 0.1)
+    with pytest.raises(ValueError):
+        cuda_overlap.nms_mask(boxes[..., :6], alive, 0.1)
+    with pytest.raises(ValueError):
+        cuda_overlap.nms_mask(boxes, alive.to(torch.uint8), 0.1)
+    with pytest.raises(ValueError):
+        cuda_overlap.nms_mask(boxes, alive.cpu(), 0.1)
+    with pytest.raises(ValueError):
+        cuda_overlap.boxes_overlap_bev_cuda(boxes, boxes[:1])
+
+
 def _fps_points(seed, n, snapped):
     """Random points, or multiples of 1/8 in [-1, 1] (many exact ties)."""
     rng = np.random.RandomState(seed)
