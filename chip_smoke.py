@@ -60,6 +60,7 @@ import torch
 MEM_BW = 3.35e12                     # H100 SXM HBM3 bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
 OVERLAP_OPS_PER_PAIR = 440           # f32 ops of the 8-slot clip, per pair
+MARGIN = 1e-2                        # m, the overlap kernel's early-out margin
 FPS_OPS_PER_POINT_STEP = 10          # 3 sub, 3 mul, 2 add, 1 min, 1 compare
 BATCH = 8
 SECOND_CFG = 'tools/cfgs/synthetic_models/second_synth.yaml'
@@ -397,15 +398,38 @@ def time_overlap(name, a, b, n_launch, tag):
     if not torch.equal(out, got):
         raise RuntimeError(f'overlap {tag}: the bare launch differs from the wrapper')
     nbytes = (a[..., :7].numel() + b[..., :7].numel() + bsz * n * m) * 4
-    ops = bsz * n * m * OVERLAP_OPS_PER_PAIR
+    n_clip = pairs_to_clip(a, b)
     entry = _entry(name, K1_SOURCE, K1_REPLACES, n_launch, err, ms, plain_ms,
-                   nbytes, ops, PEAK[torch.float32])
+                   nbytes, n_clip * OVERLAP_OPS_PER_PAIR, PEAK[torch.float32])
+    bound_all = max(nbytes / MEM_BW,
+                    bsz * n * m * OVERLAP_OPS_PER_PAIR / PEAK[torch.float32]) * 1e3
     log(f'overlap_bev {tag} ({bsz}, {n}, {m}), float entry: err {err:.2e} (tol '
         f'1e-4), max |ref| {ref.abs().max().item():.3f}, {int(zero.sum())} '
         f'degenerate rows give 0; whole call {ms:.4f} ms, bare kernel '
-        f'{bare_ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms, bound '
-        f'{entry["bound_ms"]:.4f} ms')
+        f'{bare_ms:.4f} ms (graph replay), plain {plain_ms:.4f} ms; {n_clip} of '
+        f'{bsz * n * m} pairs need the clip; bound {entry["bound_ms"]:.5f} ms '
+        f'({entry["bound_by"]}) over those, {bound_all:.5f} ms over every pair')
     return entry
+
+
+def pairs_to_clip(a, b):
+    """Pairs of (a, b) whose overlap needs the clip: both boxes of non-zero
+    area and corner bounds within MARGIN of each other.  Any other pair's
+    overlap follows from one test (bounds apart or a point A: 0; a point B:
+    area(A)), so the kernel's bound counts the clip's operations only here."""
+    from crb_active_3ddet_torch.ops import cuda_overlap
+    ca, cb = cuda_overlap.corners_cat(a[..., :7]), cuda_overlap.corners_cat(b[..., :7])
+
+    def bounds(c):
+        return (c[..., :4].amin(-1), c[..., :4].amax(-1),
+                c[..., 4:].amin(-1), c[..., 4:].amax(-1))
+    (ax0, ax1, ay0, ay1), (bx0, bx1, by0, by1) = bounds(ca), bounds(cb)
+    near = ~((ax0[..., :, None] - bx1[..., None, :] > MARGIN)
+             | (bx0[..., None, :] - ax1[..., :, None] > MARGIN)
+             | (ay0[..., :, None] - by1[..., None, :] > MARGIN)
+             | (by0[..., None, :] - ay1[..., :, None] > MARGIN))
+    solid_a, solid_b = a[..., 3] * a[..., 4] > 0, b[..., 3] * b[..., 4] > 0
+    return int((near & solid_a[..., :, None] & solid_b[..., None, :]).sum())
 
 
 def unpack_words(words, k):
@@ -539,7 +563,7 @@ def mask_stress(dev, k=1024):
     point[..., :2] = 3.0
     point[..., 3:6] = rng.uniform(0.5, 5.0, (BATCH, k, 3))
     point[..., 6] = rng.uniform(-np.pi, np.pi, (BATCH, k))
-    touch = np.stack([near_touching(rng, k, 1e-2) for _ in range(BATCH)])
+    touch = np.stack([near_touching(rng, k, MARGIN) for _ in range(BATCH)])
     alive = torch.ones(BATCH, k, dtype=torch.bool, device=dev)
     for tag, boxes, thresh in (('every box at one point', point, 0.1),
                                ('near-touching pairs', touch, 0.0)):

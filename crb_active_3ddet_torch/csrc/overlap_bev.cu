@@ -41,12 +41,14 @@
 //   shared words (order-free) and stored coalesced, zeros included.
 // - Corners, areas, bounds and flags of a block's boxes are computed once
 //   into shared memory, so no corner op runs outside the kernel.
-// - The float entry uses the same early-out a thread at a time, and two
-//   exact shortcuts for the zero-padded rows that its callers pass (a point
-//   A gives 0, a point B gives A's own area: pair_overlap).
+// - The float entry (the recall record's (8, 40) x (8, 500), and callers of
+//   boxes_iou_bev) clips every pair, one thread a pair (8 rows × 32
+//   columns a block), from corners the block computed once; it takes no
+//   early-out, since at its shapes the call's host time, not the clips,
+//   sets what a caller waits.
 // What is left: at an eval step's NMS about 1 % of the pairs reach the clip,
-// so the time is one block's chain (prologue, cheap pass, one round of
-// clips) and not the arithmetic of the clips; with every box at one point
+// so the mask's time is one block's chain (prologue, cheap pass, one round
+// of clips) and not the arithmetic of the clips; with every box at one point
 // (the worst case) every pair is clipped.
 //
 // The early-out may only skip a pair whose clip gives exactly 0.0.  Two
@@ -71,6 +73,7 @@ constexpr float MAX_POS = 200.f;    // m, |x| and |y| of the centre
 constexpr int TILE = 32;            // rows of a block = bits of a word
 constexpr int THREADS = 256;
 constexpr int CHUNK = THREADS;      // columns of one cheap pass: 8 words
+constexpr int FROWS = THREADS / 32; // rows of a float-entry block
 
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -82,13 +85,11 @@ struct BoxTile {
   float cx[4][N], cy[4][N];      // CCW corners
   float x0[N], x1[N], y0[N], y1[N];  // bounds of the corners
   float area[N];                 // dx · dy
-  unsigned char flags[N];        // ALIVE | FAR_OK | POINT | FINITE
+  unsigned char flags[N];        // ALIVE | FAR_OK
 };
 
-// FAR_OK: may take part in a skipped pair; POINT: dx = dy = 0 with a finite
-// centre and heading, so all 4 corners are the centre exactly; FINITE: all
-// 4 corners are finite.
-constexpr unsigned char ALIVE = 1, FAR_OK = 2, POINT = 4, FINITE = 8;
+// FAR_OK: may take part in a skipped pair.
+constexpr unsigned char ALIVE = 1, FAR_OK = 2;
 
 template <int N>
 __device__ __forceinline__ void load_box(BoxTile<N>& t, int s, const float* p,
@@ -99,14 +100,12 @@ __device__ __forceinline__ void load_box(BoxTile<N>& t, int s, const float* p,
   const float lx[4] = {dx2, -dx2, -dx2, dx2};
   const float ly[4] = {dy2, dy2, -dy2, -dy2};
   float x0 = 0.f, x1 = 0.f, y0 = 0.f, y1 = 0.f;
-  bool finite = true;
 #pragma unroll
   for (int e = 0; e < 4; ++e) {
     const float cx = add(sub(mul(lx[e], c), mul(ly[e], sn)), x);
     const float cy = add(add(mul(lx[e], sn), mul(ly[e], c)), y);
     t.cx[e][s] = cx;
     t.cy[e][s] = cy;
-    finite = finite && isfinite(cx) && isfinite(cy);
     x0 = e ? fminf(x0, cx) : cx;
     x1 = e ? fmaxf(x1, cx) : cx;
     y0 = e ? fminf(y0, cy) : cy;
@@ -118,10 +117,7 @@ __device__ __forceinline__ void load_box(BoxTile<N>& t, int s, const float* p,
   const bool far_ok = isfinite(h) && fabsf(x) <= MAX_POS && fabsf(y) <= MAX_POS
                       && dx >= MIN_SIDE && dx <= MAX_SIDE
                       && dy >= MIN_SIDE && dy <= MAX_SIDE;
-  const bool point = dx == 0.f && dy == 0.f && isfinite(x) && isfinite(y)
-                     && isfinite(h);
-  t.flags[s] = (alive ? ALIVE : 0) | (far_ok ? FAR_OK : 0) | (point ? POINT : 0)
-               | (finite ? FINITE : 0);
+  t.flags[s] = (alive ? ALIVE : 0) | (far_ok ? FAR_OK : 0);
 }
 
 // Bounds of box a (tile A, slot s) and box b (tile B, slot u) more than
@@ -215,55 +211,25 @@ __device__ __forceinline__ float overlap_area(const BoxTile<N>& A, int s,
   return mul(0.5f, fabsf(acc));
 }
 
-// Shoelace area of A's own 4 corners, summed as overlap_area sums them.
-template <int N>
-__device__ __forceinline__ float self_area(const BoxTile<N>& A, int s) {
-  float acc = 0.f;
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int f = (e + 1) % 4;
-    acc = add(acc, sub(mul(A.cx[e][s], A.cy[f][s]), mul(A.cx[f][s], A.cy[e][s])));
-  }
-  return mul(0.5f, fabsf(acc));
-}
-
-// overlap_area with two exact shortcuts: a point A gives 0 (all its corners
-// are one point, so any clip of them has zero shoelace area); a point B,
-// whose edges have zero length, puts every finite vertex of A at distance
-// exactly 0, inside, so the clip returns A's corners unchanged and the area
-// is A's own.
-template <int N, int M>
-__device__ __forceinline__ float pair_overlap(const BoxTile<N>& A, int s,
-                                              const BoxTile<M>& B, int u) {
-  if (A.flags[s] & POINT) return 0.f;
-  if ((B.flags[u] & POINT) && (A.flags[s] & FINITE)) return self_area(A, s);
-  return overlap_area(A, s, B, u);
-}
-
-// Float entry: a block computes a 32 × 32 tile of out[b] with 256 threads;
-// lane = column, warp w = rows w, w + 8, w + 16, w + 24.
+// Float entry: one pair a thread.  A block computes an 8 × 32 tile of
+// out[b] with 256 threads; warp = row, lane = column.
 __global__ void __launch_bounds__(THREADS)
 overlap_bev_kernel(const float* __restrict__ a, long long a_batch, long long a_row,
                    const float* __restrict__ b, long long b_batch, long long b_row,
                    float* __restrict__ out, int N, int M) {
-  __shared__ BoxTile<TILE> A, B;
+  __shared__ BoxTile<FROWS> A;
+  __shared__ BoxTile<32> B;
   const int bi = blockIdx.z;
-  const int row0 = blockIdx.y * TILE, col0 = blockIdx.x * TILE;
+  const int row0 = blockIdx.y * FROWS, col0 = blockIdx.x * 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  if (tid < TILE && row0 + tid < N)
+  if (tid < FROWS && row0 + tid < N)
     load_box(A, tid, a + bi * a_batch + (row0 + tid) * a_row, true);
-  else if (tid >= TILE && tid < 2 * TILE && col0 + tid - TILE < M)
-    load_box(B, tid - TILE, b + bi * b_batch + (col0 + tid - TILE) * b_row, true);
+  else if (tid >= 32 && tid < 64 && col0 + lane < M)
+    load_box(B, lane, b + bi * b_batch + (col0 + lane) * b_row, true);
   __syncthreads();
-  const int j = col0 + lane;
-  if (j >= M) return;
-#pragma unroll 1
-  for (int r = warp; r < TILE; r += THREADS / 32) {
-    const int i = row0 + r;
-    if (i >= N) break;
-    out[((long long)bi * N + i) * M + j] =
-        apart(A, r, B, lane) ? 0.f : pair_overlap(A, r, B, lane);
-  }
+  const int i = row0 + warp, j = col0 + lane;
+  if (i < N && j < M)
+    out[((long long)bi * N + i) * M + j] = overlap_area(A, warp, B, lane);
 }
 
 // Mask entry: a block takes rows row0 .. row0 + 31 (row tile blockIdx.y)
@@ -331,7 +297,7 @@ nms_mask_kernel(const float* __restrict__ boxes, long long batch_stride,
 #pragma unroll 1
   for (int e = tid; e < n; e += THREADS) {
     const int r = list[e] >> 8, u = list[e] & 255;
-    const float ov = pair_overlap(R, r, C, u);
+    const float ov = overlap_area(R, r, C, u);
     float den = sub(add(R.area[r], C.area[u]), ov);
     den = den < EPS ? EPS : den;         // torch.clamp(min=1e-8): NaN stays NaN
     if (__fdiv_rn(ov, den) > thresh)
@@ -362,7 +328,7 @@ int overlap_bev_launch(const float* a, long long a_batch, long long a_row,
                        const float* b, long long b_batch, long long b_row,
                        float* out, int B, int N, int M, void* stream) {
   if (B == 0 || N == 0 || M == 0) return 0;
-  dim3 grid((M + TILE - 1) / TILE, (N + TILE - 1) / TILE, B);
+  dim3 grid((M + 31) / 32, (N + FROWS - 1) / FROWS, B);
   overlap_bev_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       a, a_batch, a_row, b, b_batch, b_row, out, N, M);
   return static_cast<int>(cudaGetLastError());

@@ -156,25 +156,33 @@ def _bounds(cor):
             cor[..., 4:].min(-1).values, cor[..., 4:].max(-1).values)
 
 
-@pytest.mark.parametrize('reach', [100.0, 'limit'])
+@pytest.mark.parametrize('reach', [100.0, 'limit', 'long'])
 def test_separated_bounds_give_exactly_zero_overlap(reach):
     """10⁴ random pairs whose corner bounds are just over the kernel's
     MARGIN apart (along x or y, either side, the other axis overlapping),
-    centres up to ±100 m and up to the kernel's own position limit, sizes
-    from its MIN_SIDE up: the plain clip gives exactly 0.0 both ways round.
-    A degenerate B is exempt from the skip: it returns area(A)."""
+    with sides drawn log-uniformly over the kernel's MIN_SIDE to MAX_SIDE and
+    centres up to ±100 m or up to its MAX_POS; 'long' takes sides from half
+    MAX_SIDE up and centres within 60 m of MAX_POS, where the rounding of the
+    corners is largest.  Every pair the kernel would skip (bounds apart, both
+    boxes inside its size and position limits) gives exactly 0.0 by the
+    plain clip, both ways round.  A degenerate B is exempt from the skip: it
+    returns area(A)."""
     margin = _kernel_constant('MARGIN')
-    min_side, max_pos = _kernel_constant('MIN_SIDE'), _kernel_constant('MAX_POS')
-    reach = max_pos - 12.0 if reach == 'limit' else reach
+    min_side, max_side = _kernel_constant('MIN_SIDE'), _kernel_constant('MAX_SIDE')
+    max_pos = _kernel_constant('MAX_POS')
     n = 10_000
     rng = np.random.RandomState(5)
     a = np.zeros((n, 7), np.float32)
     b = np.zeros((n, 7), np.float32)
+    low = max_side / 2 if reach == 'long' else min_side
     for box in (a, b):
-        box[:, 3:5] = np.exp(rng.uniform(np.log(min_side), np.log(10.0), (n, 2)))
+        box[:, 3:5] = np.exp(rng.uniform(np.log(low), np.log(max_side), (n, 2)))
         box[:, 5] = 1.0
         box[:, 6] = rng.uniform(-np.pi, np.pi, n)
-    a[:, 0:2] = rng.uniform(-reach, reach, (n, 2))
+    if reach == 'long':
+        a[:, 0:2] = rng.choice([-1, 1], (n, 2)) * rng.uniform(max_pos - 60, max_pos, (n, 2))
+    else:
+        a[:, 0:2] = rng.uniform(-1, 1, (n, 2)) * (max_pos if reach == 'limit' else reach)
     ac = cuda_overlap.corners_cat(_t(a))
     b0 = cuda_overlap.corners_cat(_t(b))          # B's corners about (0, 0)
     ax0, ax1, ay0, ay1 = (v.numpy() for v in _bounds(ac))
@@ -188,10 +196,16 @@ def test_separated_bounds_give_exactly_zero_overlap(reach):
         side == 3, ay0 - gap - by1, ay0 + along * (ay1 - ay0)))
     bc = cuda_overlap.corners_cat(_t(b))
     bx0, bx1, by0, by1 = (v.numpy() for v in _bounds(bc))
+
+    def far_ok(box):
+        return ((np.abs(box[:, :2]) <= max_pos).all(1)
+                & ((box[:, 3:5] >= min_side) & (box[:, 3:5] <= max_side)).all(1))
     apart = ((ax0 - bx1 > margin) | (bx0 - ax1 > margin)
              | (ay0 - by1 > margin) | (by0 - ay1 > margin))
+    skip = apart & far_ok(a) & far_ok(b)
     assert apart.mean() > 0.99                    # f32 rounding of the shift
-    ta, tb = _t(a[apart])[:, None], _t(b[apart])[:, None]
+    assert skip.mean() > (0.3 if reach == 'long' else 0.9)
+    ta, tb = _t(a[skip])[:, None], _t(b[skip])[:, None]
     assert np.all(cuda_overlap.overlap_bev_plain(ta, tb).numpy() == 0.0)
     assert np.all(cuda_overlap.overlap_bev_plain(tb, ta).numpy() == 0.0)
     degenerate = tb.clone()
@@ -203,10 +217,10 @@ def test_separated_bounds_give_exactly_zero_overlap(reach):
 
 
 def test_point_boxes_take_the_exact_shortcuts():
-    """The kernel's two shortcuts for point boxes (dx = dy = 0, as the
-    zero-padded rows are), on the plain clip: a point A gives exactly 0
-    against any B, and a point B gives exactly A's own shoelace area, summed
-    in the clip's order."""
+    """Point boxes (dx = dy = 0, as the zero-padded gt rows of the recall
+    record are), on the plain clip, which the float entry runs for every
+    pair: a point A gives exactly 0 against any B, and a point B gives
+    exactly A's own shoelace area, summed in the clip's order."""
     rng = np.random.RandomState(9)
     a = np.zeros((500, 7), np.float32)
     a[:, :2] = rng.uniform(-100, 100, (500, 2))
