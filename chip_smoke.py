@@ -31,9 +31,16 @@ Run from the root of a checkout.  It
      CUDA events (a kernel shorter than its call's host time by replaying a
      CUDA graph of calls); the NMS mask also at its worst case (every box at
      one point) and on pairs that nearly touch;
-  6. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
+  6. drives SECOND's train step (``make_train_step``) at full width, batch
+     8, on the train split: launches per step (12 gather-GEMM forward, 11
+     dgrad, 12 wgrad), ms/step and samples/s, the stages, a profiled step,
+     the kernel path against the plain path (loss terms and every
+     parameter's gradient, bf16 and f32), and the dgrad and wgrad against
+     their plain versions at every layer's inputs, with their timings;
+  7. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
      the CPU path (which the CPU tests hold against the JAX reference),
-     predictions and recall record.
+     predictions and recall record, and a reduced SECOND train step (loss
+     terms, gradients, updated parameters, BN statistics).
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -49,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import re
 import subprocess
 import sys
@@ -57,6 +65,10 @@ import time
 import numpy as np
 import torch
 
+# cuBLAS keeps to one order of summation under torch's deterministic
+# algorithms (the train phase's kernel-vs-plain check) only with this set
+# before its first call
+os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
 MEM_BW = 3.35e12                     # H100 SXM HBM3 bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}   # dense FLOP/s
 OVERLAP_OPS_PER_PAIR = 440           # f32 ops of the 8-slot clip, per pair
@@ -84,6 +96,30 @@ E2E_TOL = {'encoded_spconv_features': 1e-3, 'spatial_features_2d': 5e-3,
 # readings (1.3e-3, 1.9e-4, 2.1e-5, 1.1e-7, 2.4e-7 in this order; PERF.md).
 POINT_TOL = {'point_features_before_fusion': 5e-3, 'point_features': 8e-4,
              'point_cls_preds': 1e-4, 'rcnn_cls': 1e-6, 'rcnn_reg': 1e-6}
+# train step, kernel path vs plain path (both on the card, one step from the
+# seeded weights and the first batch, with torch's deterministic algorithms
+# on, each path run twice and its own spread printed): each loss term |diff|/|ref|; each
+# parameter's gradient ||diff||/||ref||, the largest ('grad') and the median
+# over the parameters, and the least cosine of the two gradients ('cos': a
+# zero or sign-flipped gradient fails it).
+# bf16 (the config): the two paths feed the kernels the same operands and
+# differ in f32 summation order, which each layer's bf16 cast turns into
+# other bf16 values, forward and backward.  This randomly initialised model
+# carries rounding differences into its gradients some thousand-fold, most
+# in the BatchNorm biases (sums over every voxel or pixel that nearly
+# cancel): in bf16 the gradients lie tens of per cent apart in norm, so the
+# bf16 gate is the cosine and the median, not the largest norm.  The CPU
+# tests find the same bf16 spread between the JAX and the port's gradients
+# and an f64 step; each kernel is held tightly at its own inputs below.
+# Readings on an H100 80GB HBM3 at 700 W (PERF.md, Findings), each path's
+# own spread 0: bf16 loss terms 8.2e-4, median 0.221, least cosine 0.930
+# (largest 0.368); f32 loss terms 1.1e-7, largest 5.0e-3, median 1.7e-3.
+# Limits are 3.4-4x them (for the cosine, 3.6x its distance from 1), but
+# the f32 losses' 1e-6: they read 0 to three rounding steps of the sum,
+# below which no multiple means much.
+TRAIN_TOL = {'bf16': {'loss': 3e-3, 'cos': 0.75, 'median': 0.75},
+             'f32': {'loss': 1e-6, 'grad': 2e-2, 'median': 6e-3}}
+TRAIN_LOSSES = ('rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss')
 SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
                  'conv3.0', 'conv3.1', 'conv3.2', 'conv4.0', 'conv4.1',
                  'conv4.2', 'conv_out']
@@ -129,20 +165,28 @@ def graph_time_ms(fn, iters=20, replays=5):
 @contextlib.contextmanager
 def plain_versions():
     """Route the model's kernel calls to the plain PyTorch versions (on the
-    card) — the comparison baseline; the port itself has no such switch."""
-    from crb_active_3ddet_torch.models.backbones_3d import spconv_backbone
-    from crb_active_3ddet_torch.ops import cuda_fps, cuda_overlap, iou3d, nms, pointnet2
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
-    saved = (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
+    card) — the comparison baseline; the port itself has no such switch.
+    The sparse conv's autograd Function looks its three wrappers up at call
+    time, so the backward goes plain too."""
+    from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap, iou3d,
+                                            nms, pointnet2)
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import (
+        gather_gemm_dgrad_plain, gather_gemm_wgrad_plain, subm_conv3d_gather)
+    saved = (cuda_kernels.sparse_conv_gather_gemm, cuda_kernels.gather_gemm_dgrad,
+             cuda_kernels.gather_gemm_wgrad, iou3d.boxes_overlap_bev_cuda,
              nms.nms_mask, pointnet2.farthest_point_sample_cuda)
-    spconv_backbone.sparse_conv_gather_gemm = subm_conv3d_gather
+    cuda_kernels.sparse_conv_gather_gemm = subm_conv3d_gather
+    cuda_kernels.gather_gemm_dgrad = (lambda dout, rbk, inv, w, v_in:
+                                      gather_gemm_dgrad_plain(dout, rbk, w, v_in))
+    cuda_kernels.gather_gemm_wgrad = gather_gemm_wgrad_plain
     iou3d.boxes_overlap_bev_cuda = cuda_overlap.overlap_bev_plain
     nms.nms_mask = cuda_overlap.nms_mask_plain
     pointnet2.farthest_point_sample_cuda = cuda_fps.fps_plain
     try:
         yield
     finally:
-        (spconv_backbone.sparse_conv_gather_gemm, iou3d.boxes_overlap_bev_cuda,
+        (cuda_kernels.sparse_conv_gather_gemm, cuda_kernels.gather_gemm_dgrad,
+         cuda_kernels.gather_gemm_wgrad, iou3d.boxes_overlap_bev_cuda,
          nms.nms_mask, pointnet2.farthest_point_sample_cuda) = saved
 
 
@@ -196,7 +240,7 @@ def stage_ms(model, dataset, batch, post_cfg, num_class, iters=3):
 
 
 def profile_step(step, batch, rows=10):
-    """Trace one warm eval step with torch.profiler and print its summary."""
+    """Trace one warm step with torch.profiler and print its summary."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -215,7 +259,8 @@ def profile_step(step, batch, rows=10):
     ours = {}
     for e in events:
         name = next((k for k in ('gather_mma_kernel', 'gather_fma_kernel',
-                                 'pack_weights_kernel', 'fps_kernel',
+                                 'pack_weights_kernel', 'wgrad_partial_kernel',
+                                 'sum_slices_kernel', 'fps_kernel',
                                  'overlap_bev_kernel', 'nms_mask_kernel')
                      if k in e.key), None)
         if name and e.device_type == DeviceType.CUDA:
@@ -887,6 +932,339 @@ def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
     return results
 
 
+def train_stage_ms(model, optimizer, dataset, batch, iters=3):
+    """Host-clock time of each stage of one train step, synchronised at the
+    stage boundaries: voxelize, forward (training mode, with the target
+    assignment), loss, backward, optimizer (clip + AdamW)."""
+    from crb_active_3ddet_torch.runtime.train import prepare_device_batch
+    totals = {}
+
+    def timed(name, fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        totals[name] = totals.get(name, 0.0) + (time.perf_counter() - t) * 1e3 / iters
+        return out
+
+    model.train()
+    for _ in range(iters):
+        vox = timed('voxelize', prepare_device_batch, batch, dataset.voxel_cfg,
+                    dataset.grid_size, dataset.point_cloud_range, dataset.voxel_size)
+        out = timed('forward', model, vox)
+        loss, _ = timed('loss', model.compute_loss, out)
+        optimizer.zero_grad()
+        timed('backward', loss.backward)
+        timed('optimizer', optimizer.step)
+    return totals
+
+
+def grads_of(model, vox):
+    """Forward in training mode, loss and backward from the model's present
+    weights: (loss terms, {parameter: gradient})."""
+    model.train()
+    for p in model.parameters():
+        p.grad = None
+    loss, tb = model.compute_loss(model(vox))
+    loss.backward()
+    return ({k: tb[k].detach() for k in TRAIN_LOSSES},
+            {n: p.grad.clone() for n, p in model.named_parameters()})
+
+
+def _apart(a, b):
+    """Per parameter of two gradient dicts: (||a - b|| / ||b||, cosine)."""
+    return {n: (((a[n] - b[n]).norm() / b[n].norm()).item(),
+                torch.nn.functional.cosine_similarity(a[n].flatten(), b[n].flatten(),
+                                                      dim=0, eps=1e-30).item())
+            for n in b}
+
+
+def check_train_kernel_path(model, vox, mode):
+    """One train step's loss and gradients from the same weights and batch,
+    on the kernel path and on the plain path, both on the card, each run
+    twice (the caller turns torch's deterministic algorithms on; the
+    hand-written kernels sum in a fixed order already); ``mode`` 'bf16' as
+    configured, 'f32' with USE_BF16 off in both backbones."""
+    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
+    saved = [c.get('USE_BF16', False) for c in cfgs]
+    for c in cfgs:
+        c['USE_BF16'] = mode == 'bf16'
+    (tb, grads), (_, grads_again) = grads_of(model, vox), grads_of(model, vox)
+    with plain_versions():
+        (tb_ref, grads_ref), (_, grads_ref_again) = grads_of(model, vox), grads_of(model, vox)
+    for c, v in zip(cfgs, saved):
+        c['USE_BF16'] = v
+    for path, again in (('kernel', _apart(grads_again, grads)),
+                        ('plain', _apart(grads_ref_again, grads_ref))):
+        spread = sorted(e for e, _ in again.values())
+        log(f'train {path} path run twice, {mode}: gradients ||diff||/||ref|| largest '
+            f'{spread[-1]:.3e}, median {spread[len(spread) // 2]:.3e}')
+    tol = TRAIN_TOL[mode]
+    loss_err = {k: (abs(tb[k] - tb_ref[k]) / tb_ref[k].abs()).item() for k in TRAIN_LOSSES}
+    apart = _apart(grads, grads_ref)
+    worst = sorted(apart.items(), key=lambda kv: -kv[1][0])
+    median = sorted(e for e, _ in apart.values())[len(apart) // 2]
+    least_cos = min(apart.items(), key=lambda kv: kv[1][1])
+    log(f'train kernel path vs plain, {mode}: loss terms |diff|/|ref| '
+        + ', '.join(f'{k} {v:.3e}' for k, v in loss_err.items())
+        + f" (tol {tol['loss']:.0e}); gradients ||diff||/||ref||, largest: "
+        + ', '.join(f'{n} {e:.3e}' for n, (e, _) in worst[:4])
+        + f" (tol {tol.get('grad', 'none')}); median {median:.3e} (tol "
+        f"{tol['median']:.2g}); least cosine {least_cos[1][1]:.6f} ({least_cos[0]}; "
+        f"tol {tol.get('cos', 'none')})")
+    log(f'train kernel path vs plain, {mode}, per sparse layer weight gradient: '
+        + ', '.join(f'{n.split(".", 1)[1][:-9]} {e:.2e}' for n, (e, _) in apart.items()
+                    if n.startswith('backbone_3d') and n.endswith('.0.weight')))
+    if not max(loss_err.values()) <= tol['loss']:
+        raise RuntimeError(f'train step {mode}: loss terms differ kernel vs plain: '
+                           f'{loss_err}')
+    if not (worst[0][1][0] <= tol.get('grad', float('inf')) and median <= tol['median']
+            and least_cos[1][1] >= tol.get('cos', -1.0)):
+        raise RuntimeError(f'train step {mode}: gradient of {worst[0][0]} differs '
+                           f'kernel vs plain by {worst[0][1][0]:.3e}, median {median:.3e}, '
+                           f'least cosine {least_cos[1][1]:.6f} ({least_cos[0]})')
+
+
+def time_dgrad(name, args, n_launch):
+    """Hold the dgrad (K2 over the inverse rulebook) against its plain
+    version at one layer's backward inputs (error over the sum of the
+    products' magnitudes, as the wgrad's), check equal bits on a second
+    run; time both and the matmul yardstick over the materialised inverse
+    gather."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
+    dout, rbk, inv, w, v_in = args
+    got = cuda_kernels.gather_gemm_dgrad(*args)
+    ref = gather_gemm_dgrad_plain(dout, rbk, w, v_in)
+    scale = gather_gemm_dgrad_plain(dout.abs(), rbk, w.abs(), v_in)
+    err = ((got - ref).abs() / (scale + 1e-30)).max().item()
+    if not err <= 1e-5:
+        raise RuntimeError(f'{name}: max err {err} of the products\' magnitude > 1e-5')
+    ref_max, ref_median = ref.abs().max().item(), ref.abs().median().item()
+    if not torch.equal(got, cuda_kernels.gather_gemm_dgrad(*args)):
+        raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    k, cin, cout = w.shape
+    ms = graph_time_ms(lambda: cuda_kernels.gather_gemm_dgrad(*args))
+    plain_ms = cuda_time_ms(lambda: gather_gemm_dgrad_plain(dout, rbk, w, v_in),
+                            warmup=1, iters=3)
+    dc = dout.to(w.dtype)
+    gi = (dc[torch.clamp(inv, min=0).long()] * (inv >= 0)[..., None]).reshape(v_in, k * cout)
+    wt = w.transpose(1, 2).reshape(k * cout, cin).contiguous()
+    lib_ms = graph_time_ms(lambda: torch.matmul(gi, wt))
+    nnz = int((inv >= 0).sum())
+    nbytes = dout.numel() * 4 + inv.numel() * 4 + w.numel() * w.element_size() + v_in * cin * 4
+    entry = _entry(name, 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
+                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
+                   plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[w.dtype], lib_ms)
+    log(f'{name}: V_in {v_in} K {k} {cout}->{cin} nnz {nnz}: |ref| max {ref_max:.3e}, '
+        f'median {ref_median:.3e}; err {err:.2e} of the products\' magnitude (tol 1e-5), '
+        f'equal bits on a second run; call {ms:.4f} ms on the card (graph '
+        f'replay: cast of dout, W transposed, pack, kernel), plain {plain_ms:.4f} ms, '
+        f'matmul yardstick {lib_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
+        f'({entry["bound_by"]})')
+    return entry
+
+
+def time_wgrad(name, args, n_launch):
+    """Hold the wgrad kernel against its plain version at one layer's
+    backward inputs (error over the sum of the products' magnitudes, which
+    bounds an f32 sum's rounding), check equal bits on a second run; time
+    both and the matmul yardstick over the materialised gather."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
+    feats, rbk, dout = args
+    got = cuda_kernels.gather_gemm_wgrad(*args)
+    ref = gather_gemm_wgrad_plain(feats, rbk, dout)
+    scale = gather_gemm_wgrad_plain(feats.abs(), rbk, dout.abs())
+    err = ((got - ref).abs() / (scale + 1e-30)).max().item()
+    if not err <= 1e-5:
+        raise RuntimeError(f'{name}: max err {err} of the products\' magnitude > 1e-5')
+    if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*args)):
+        raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    k = rbk.shape[1]
+    v_in, cin = feats.shape
+    cout = dout.shape[1]
+    ms = graph_time_ms(lambda: cuda_kernels.gather_gemm_wgrad(*args))
+    plain_ms = cuda_time_ms(lambda: gather_gemm_wgrad_plain(feats, rbk, dout),
+                            warmup=1, iters=3)
+    g = (feats.float()[torch.clamp(rbk, min=0).long()]
+         * (rbk >= 0)[..., None]).reshape(rbk.shape[0], k * cin)
+    lib_ms = graph_time_ms(lambda: torch.matmul(g.t(), dout))
+    nnz = int((rbk >= 0).sum())
+    nbytes = (feats.numel() * feats.element_size() + rbk.numel() * 4 + dout.numel() * 4
+              + k * cin * cout * 4)
+    entry = _entry(name, 'crb_active_3ddet_torch/csrc/gather_gemm_wgrad.cu',
+                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
+                   plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[torch.float32], lib_ms)
+    log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}x{cout} nnz {nnz}: err {err:.2e} of '
+        f'the products\' magnitude (tol 1e-5), equal bits on a second run; call '
+        f'{ms:.4f} ms on the card (graph replay: partial sums + slice sum), plain '
+        f'{plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, bound '
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]})')
+    return entry
+
+
+def build_train(cfg, batch_size, device, seed):
+    """Train split loader (seeded shuffle and augmentation), seeded model,
+    AdamW on the config's one-cycle schedule, the train step."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, init_weights
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import init_train_state, make_train_step
+    dataset, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
+                                          workers=0, training=True)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cpu')
+    init_weights(model, torch.Generator().manual_seed(seed))
+    model = model.to(device)
+    total = int(cfg.OPTIMIZATION.NUM_EPOCHS) * len(loader)
+    optimizer, schedule = build_optimizer(cfg.OPTIMIZATION, total, model.parameters())
+    state = init_train_state(model, optimizer)
+    return dataset, loader, state, make_train_step(model, optimizer, dataset), schedule
+
+
+def first_batch(loader):
+    torch.manual_seed(0)
+    np.random.seed(0)
+    return next(iter(loader))
+
+
+def drive_train(dev, n_iter=5):
+    """SECOND's train step at full width, batch 8: counters to 0, one step,
+    counters read (12 K2 forward, 11 dgrad, 12 wgrad launches); outputs
+    checked; step time, stages, profile; kernel path vs plain path; dgrad
+    and wgrad against their plain versions at every layer's inputs."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
+                                                      prepare_device_batch)
+    cfg = load_config(SECOND_CFG)
+    log(f'==== {cfg.MODEL.NAME} train step: {SECOND_CFG}, train split, batch {BATCH} ====')
+    dataset, loader, state, step, schedule = build_train(cfg, BATCH, dev, seed=0)
+    model = state.model
+    host = first_batch(loader)
+    batch = host_to_device_batch(host, dev)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    dcalls, wcalls = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cuda_kernels.launches = cuda_kernels.dgrad_launches = cuda_kernels.wgrad_launches = 0
+    with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls,
+                   lambda: cuda_kernels.dgrad_launches), \
+            recording(cuda_kernels, 'gather_gemm_wgrad', wcalls,
+                      lambda: cuda_kernels.wgrad_launches):
+        state, metrics = step(state, batch)
+    torch.cuda.synchronize()
+    counts = {'gather_gemm': cuda_kernels.launches,
+              'gather_gemm_dgrad': cuda_kernels.dgrad_launches,
+              'gather_gemm_wgrad': cuda_kernels.wgrad_launches}
+    log(f'train step launches: {counts}; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    expected = {'gather_gemm': len(SPARSE_LAYERS),
+                'gather_gemm_dgrad': len(SPARSE_LAYERS) - 1,
+                'gather_gemm_wgrad': len(SPARSE_LAYERS)}
+    if counts != expected:
+        raise RuntimeError(f'train step launches {counts}, expected {expected}')
+    if [n for _, n, _ in dcalls] != [1] * len(dcalls) or \
+            [n for _, n, _ in wcalls] != [1] * len(wcalls):
+        raise RuntimeError('a dgrad or wgrad call did not launch its kernel exactly once')
+    values = {k: v.item() for k, v in metrics.items()}
+    if not all(np.isfinite(v) and v > 0 for v in values.values()):
+        raise RuntimeError(f'train step losses {values}')
+    for n, p in model.named_parameters():
+        if p.grad is None or not torch.isfinite(p.grad).all():
+            raise RuntimeError(f'train step: no or non-finite gradient for {n}')
+        if torch.equal(p, before[n]):
+            raise RuntimeError(f'train step: {n} did not move')
+    moved = [k for k in before if k.endswith('running_var')
+             and not torch.equal(model.state_dict()[k], before[k])]
+    if len(moved) != sum(1 for k in before if k.endswith('running_var')):
+        raise RuntimeError('train step: not every BatchNorm updated its running variance')
+    log('train step 1: ' + ', '.join(f'{k} {v:.4f}' for k, v in values.items())
+        + f'; lr {schedule(0):.3e}; every parameter moved, {len(moved)} BN running '
+        'statistics updated')
+
+    for _ in range(2):                                  # warm-up
+        step(state, batch)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n_iter):
+        _, m = step(state, batch)
+    m['loss'].item()
+    step_s = (time.perf_counter() - t) / n_iter
+    log(f'SECONDNet train step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
+        f'{BATCH / step_s:.2f} samples/s; loss after {state.step} steps '
+        f"{m['loss'].item():.4f}")
+    stages = train_stage_ms(model, state.optimizer, dataset, batch)
+    log('SECONDNet train step stages (ms, synchronised): ' + ', '.join(
+        f'{k} {v:.2f}' for k, v in stages.items()) + f'; sum {sum(stages.values()):.2f}')
+    profile_step(lambda b: step(state, b), batch)
+
+    # kernel path vs plain path from the seeded weights and with every op
+    # deterministic, so that the readings repeat between runs (the steps
+    # above leave weights that do not)
+    model.load_state_dict(before)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    vox = prepare_device_batch(batch, dataset.voxel_cfg, dataset.grid_size,
+                               dataset.point_cloud_range, dataset.voxel_size)
+    check_train_kernel_path(model, vox, 'bf16')
+    check_train_kernel_path(model, vox, 'f32')
+    torch.use_deterministic_algorithms(False)
+    # dgrad runs from the last layer back (conv_out first, conv1.0 last);
+    # wgrad likewise, conv_input last
+    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
+    results = [time_dgrad(f'train.gather_gemm_dgrad[{lname}]', args, n)
+               for lname, (args, n, _) in zip(dnames, dcalls)]
+    results += [time_wgrad(f'train.gather_gemm_wgrad[{lname}]', args, n)
+                for lname, (args, n, _) in zip(wnames, wcalls)]
+    for lname, (args, _, _) in zip(wnames, wcalls):
+        if args[0].shape[1] != dict(zip(SPARSE_LAYERS, (4, 16, 16, 32, 32, 32, 64, 64, 64,
+                                                         64, 64, 64)))[lname]:
+            raise RuntimeError(f'wgrad call order: {lname} has Cin {args[0].shape[1]}')
+    return results
+
+
+def check_reduced_train(dev):
+    """Reduced SECOND in f32, one train step from the same weights and
+    batch on the card and on the CPU: loss terms (rtol 1e-5), gradients
+    (||diff|| <= 1e-4 ||ref|| + 1e-7), updated parameters (1e-6 where the
+    clipped |g| >= 1e-5, else 2 lr) and BN running statistics (1e-5)."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
+    small = reduced_cfg(load_config(SECOND_CFG))
+    out = []
+    for d in (dev, torch.device('cpu')):
+        _, loader, state, step, schedule = build_train(small, 2, d, seed=1)
+        state, m = step(state, host_to_device_batch(first_batch(loader), d))
+        out.append(({k: m[k].item() for k in TRAIN_LOSSES},
+                    {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                    {k: v.cpu() for k, v in state.model.state_dict().items()}))
+    (lg, gg, sg), (lc, gc, sc) = out
+    for k in TRAIN_LOSSES:
+        if not abs(lg[k] - lc[k]) <= 1e-5 * abs(lc[k]):
+            raise RuntimeError(f'reduced SECOND train f32: {k} {lg[k]} card vs {lc[k]} CPU')
+    gerr = max(((gg[n] - gc[n]).norm() / (gc[n].norm() + 1e-30)).item() for n in gc)
+    for n in gc:
+        if not (gg[n] - gc[n]).norm() <= 1e-4 * gc[n].norm() + 1e-7:
+            raise RuntimeError(f'reduced SECOND train f32: gradient of {n} card vs CPU')
+    lr, loose, bn = schedule(0), 0, 0.0      # the step clipped the gradients in place
+    for k, v in sc.items():
+        d = (sg[k] - v).abs()
+        if k.endswith(('running_mean', 'running_var')):
+            bn = max(bn, d.max().item())
+            if not d.max() <= 1e-5:
+                raise RuntimeError(f'reduced SECOND train f32: {k} card vs CPU')
+        elif k in gc:
+            firm = gc[k].abs() >= 1e-5
+            if not (d[firm] <= 1e-6).all() or not (d <= 2 * lr + 1e-7).all():
+                raise RuntimeError(f'reduced SECOND train f32: updated {k} card vs CPU')
+            loose += int((~firm & (d > 1e-6)).sum())
+    log(f'reduced SECONDNet train f32 card vs CPU: losses '
+        + ', '.join(f'{k} {lg[k]:.6f} / {lc[k]:.6f}' for k in TRAIN_LOSSES)
+        + f'; largest gradient ||diff||/||ref|| {gerr:.2e} (tol 1e-4); BN statistics '
+        f'max diff {bn:.2e} (tol 1e-5); {loose} updated entries with clipped |g| < 1e-5 '
+        f'differ by more than 1e-6 (within 2 lr)')
+
+
 def ablate_gather_gemm(dev):
     """Time the gather-GEMM (bf16, graph replay) at the inputs of each sparse
     conv layer of the SECOND step, as built and with parts compiled out."""
@@ -941,7 +1319,8 @@ def main():
         return 0
 
     t0 = time.perf_counter()
-    built = cuda_build.build_all(['gather_gemm', 'overlap_bev', 'fps'])
+    built = cuda_build.build_all(['gather_gemm', 'gather_gemm_wgrad', 'overlap_bev',
+                                  'fps'])
     log(f'kernel build: {time.perf_counter() - t0:.1f} s wall, per source '
         + ', '.join(f'{k} {v:.1f} s' for k, v in built.items()))
     for name, (_, report) in cuda_build.BUILD_LOG.items():
@@ -952,9 +1331,11 @@ def main():
     results = drive_path(SECOND_CFG, dev, '', ['nms'], ['recall'], n_iter=5)
     results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.', ['proposal_nms', 'nms'],
                           ['recall'], n_iter=5)
+    results += drive_train(dev)
     mask_stress(dev)
     check_reduced(SECOND_CFG, dev)
     check_reduced(PVRCNN_CFG, dev)
+    check_reduced_train(dev)
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

@@ -52,6 +52,10 @@
 //   * every output element is summed by one thread in ascending offset order:
 //     no atomics, the same bits on every run.
 //
+// The backward's dgrad runs this same kernel: dfeat[i] = sum_k dout[inv[i, k]]
+// @ W[k]^T over the inverse rulebook (ops/sparse/rulebook.py), so its Cin is
+// the forward's Cout, up to 128 (conv_out); the wgrad is gather_gemm_wgrad.cu.
+//
 // f32: CUDA cores in full f32 (a TF32 product would lose the 1e-4 agreement
 // of the f32 models with the CPU path)
 //   * a block of 256 threads owns 64 rows x TN columns (TN = min(Cout, 64));
@@ -287,7 +291,10 @@ cudaError_t launch_mma(const __nv_bfloat16* feat, const int* rb, const __nv_bflo
       w, static_cast<uint2*>(wpack), num_k, cout);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  const int nt = cout >= 64 ? 8 : cout / 8;
+  // at Cin 128 (the dgrad of conv_out, over its Cout) a warp's A fragments
+  // take 64 registers, twice with the prefetch: half the n-tiles a block
+  // keeps the accumulators at 32
+  const int nt = cout >= 64 ? (CIN >= 128 ? 4 : 8) : cout / 8;
   dim3 grid((v_out + MMA_WARPS * WARP_ROWS - 1) / (MMA_WARPS * WARP_ROWS), cout / (8 * nt));
   const int threads = MMA_WARPS * 32;
   const uint4* wp = static_cast<const uint4*>(wpack);
@@ -315,9 +322,10 @@ gather_fma_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
                   int v_out, int num_k, int cout) {
   constexpr int RSTEP = FMA_THREADS / TN;  // rows between one thread's outputs
   constexpr int NPT = TILE_V / RSTEP;      // outputs per thread
+  constexpr int CC = CIN < 64 ? CIN : 64;  // input columns staged at a time
   __shared__ int rb_s[TILE_V * MAX_K];     // the tile's (64, K) rulebook block
-  __shared__ float f_s[TILE_V][CIN + 1];   // +1: rows fall in distinct banks
-  __shared__ float w_s[CIN][TN];
+  __shared__ float f_s[TILE_V][CC + 1];    // +1: rows fall in distinct banks
+  __shared__ float w_s[CC][TN];
   __shared__ unsigned mask_s;              // bit k: offset k hits in this tile
 
   const int v0 = blockIdx.x * TILE_V;
@@ -346,26 +354,30 @@ gather_fma_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
 #pragma unroll
   for (int i = 0; i < NPT; ++i) acc[i] = 0.f;
 
+  // per offset, the columns in chunks of CC (one chunk up to Cin 64; the
+  // chunks keep Cin 128, the dgrad of conv_out, in the same shared memory)
   for (unsigned todo = mask_s; todo; todo &= todo - 1) {
     const int k = __ffs(todo) - 1;
-    for (int idx = tid; idx < CIN * TN; idx += FMA_THREADS) {
-      const int c = idx / TN, n = idx % TN;
-      w_s[c][n] = w[((size_t)k * CIN + c) * cout + n0 + n];
-    }
-    for (int idx = tid; idx < TILE_V * CIN; idx += FMA_THREADS) {
-      const int r = idx / CIN, c = idx % CIN;
-      const int src = rb_s[r * num_k + k];
-      f_s[r][c] = src >= 0 ? feat[(size_t)src * CIN + c] : 0.f;
-    }
-    __syncthreads();
+    for (int c0 = 0; c0 < CIN; c0 += CC) {
+      for (int idx = tid; idx < CC * TN; idx += FMA_THREADS) {
+        const int c = idx / TN, n = idx % TN;
+        w_s[c][n] = w[((size_t)k * CIN + c0 + c) * cout + n0 + n];
+      }
+      for (int idx = tid; idx < TILE_V * CC; idx += FMA_THREADS) {
+        const int r = idx / CC, c = idx % CC;
+        const int src = rb_s[r * num_k + k];
+        f_s[r][c] = src >= 0 ? feat[(size_t)src * CIN + c0 + c] : 0.f;
+      }
+      __syncthreads();
 #pragma unroll
-    for (int c = 0; c < CIN; ++c) {
-      const float wv = w_s[c][col];
+      for (int c = 0; c < CC; ++c) {
+        const float wv = w_s[c][col];
 #pragma unroll
-      for (int i = 0; i < NPT; ++i)
-        acc[i] = fmaf(f_s[row0 + i * RSTEP][c], wv, acc[i]);
+        for (int i = 0; i < NPT; ++i)
+          acc[i] = fmaf(f_s[row0 + i * RSTEP][c], wv, acc[i]);
+      }
+      __syncthreads();
     }
-    __syncthreads();
   }
 #pragma unroll
   for (int i = 0; i < NPT; ++i) {
@@ -399,6 +411,7 @@ cudaError_t launch_fma(const float* f, const int* rb, const float* ww, float* ou
     case 16: return launch_fma_cin<16>(f, rb, ww, out, v_out, num_k, cout, stream);
     case 32: return launch_fma_cin<32>(f, rb, ww, out, v_out, num_k, cout, stream);
     case 64: return launch_fma_cin<64>(f, rb, ww, out, v_out, num_k, cout, stream);
+    case 128: return launch_fma_cin<128>(f, rb, ww, out, v_out, num_k, cout, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -409,7 +422,7 @@ extern "C" {
 
 // feat (V_in, cin), w (num_k, cin, cout): both f32 (is_bf16 = 0) or both
 // bf16 (is_bf16 = 1); rb (v_out, num_k) int32, num_k <= 32; out (v_out, cout)
-// f32.  cin in {4, 8, 16, 32, 64}; cout in {16, 32} or a multiple of 64.
+// f32.  cin in {4, 8, 16, 32, 64, 128}; cout in {16, 32} or a multiple of 64.
 // bf16 runs on tensor cores and needs wpack, scratch of (num_k rounded up to a
 // multiple of 4) * cin * cout bf16 values; feat, rb and wpack must then be
 // 16-byte aligned.  f32 runs on CUDA cores; wpack is not read.
@@ -436,6 +449,7 @@ int gather_gemm_launch(const void* feat, const int* rb, const void* w, void* wpa
     case 16: e = launch_mma<16>(f, rb, ww, wpack, out, v_out, num_k, cout, s); break;
     case 32: e = launch_mma<32>(f, rb, ww, wpack, out, v_out, num_k, cout, s); break;
     case 64: e = launch_mma<64>(f, rb, ww, wpack, out, v_out, num_k, cout, s); break;
+    case 128: e = launch_mma<128>(f, rb, ww, wpack, out, v_out, num_k, cout, s); break;
     default: e = cudaErrorInvalidValue;
   }
   return static_cast<int>(e);

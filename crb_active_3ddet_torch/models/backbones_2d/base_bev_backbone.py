@@ -4,8 +4,9 @@
 
 The module structure and names are OpenPCDet's (``blocks.{i}`` =
 ZeroPad2d, Conv2d, BN, ReLU, [Conv2d, BN, ReLU]×n; ``deblocks.{i}`` =
-ConvTranspose2d, BN, ReLU), BN eps 1e-3.  These are plain dense convolutions
-(left to cuDNN on the card, as the JAX package leaves them to XLA).  With
+ConvTranspose2d, BN, ReLU), BN eps 1e-3 with Flax's training statistics.
+These are plain dense convolutions (left to cuDNN on the card, as the JAX
+package leaves them to XLA).  With
 ``USE_BF16`` each convolution runs in bf16 and BN stays f32.  Input and output
 are channels-last (B, H, W, C), like the JAX module.
 """
@@ -17,8 +18,36 @@ import torch.nn.functional as F
 from torch import nn
 
 
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (eps 1e-3, momentum 0.01) whose training step is
+    Flax's ``nn.BatchNorm`` (``use_fast_variance``): the biased variance
+    ``max(E[x²] − E[x]², 0)`` both normalises and enters the running
+    variance, as ``0.99·old + 0.01·new`` (torch's own would enter the
+    unbiased one).  Eval is torch's, over the running statistics."""
+
+    KEEP = 0.99
+
+    def __init__(self, channels):
+        super().__init__(channels, eps=1e-3, momentum=0.01)
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        red = (0, 2, 3)
+        mean = x.mean(red)
+        var = torch.clamp((x * x).mean(red) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.copy_(self.KEEP * self.running_mean
+                                    + (1 - self.KEEP) * mean)
+            self.running_var.copy_(self.KEEP * self.running_var
+                                   + (1 - self.KEEP) * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+
+
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.01)
+    return FlaxBatchNorm2d(c)
 
 
 def run_sequential(seq, x, cdt):

@@ -8,7 +8,8 @@ Sparse tensors are fixed-capacity batched (features (B, V, C), coords
 (V, 27) taps, once per stage, and the strided rulebook from the downsample
 sort.  Every layer then runs the hand-written gather-GEMM kernel
 (``ops/cuda_kernels.py``) over one flat (B·V_out, K) rulebook whose entries
-are offset by b·V_in.  Module names follow OpenPCDet
+are offset by b·V_in.  When a gradient is wanted, each rulebook's inverse is
+built once too, for the backward's input gradient.  Module names follow OpenPCDet
 (``conv_input.0.weight``, ``conv2.0.1.running_mean``, …); a sparse conv
 weight is kept as (K, Cin, Cout), the kernel's layout.
 """
@@ -20,25 +21,40 @@ import math
 import torch
 from torch import nn
 
-from ...ops.cuda_kernels import sparse_conv_gather_gemm
+from ...ops.cuda_kernels import SparseConvGatherGemm
 from ...ops.sparse import rulebook as rb
 from ...ops.sparse.sparse_ops import sparse_tensor_to_dense
 
 
 class MaskedBatchNorm(nn.BatchNorm1d):
     """BatchNorm over the valid rows of a padded (..., C) tensor (eps 1e-3,
-    momentum 0.01 like spconv's BatchNorm1d).  Eval only: it normalises with
-    the running statistics; the masked batch statistics of training come
-    with the train step."""
+    momentum 0.01 like spconv's BatchNorm1d), as the JAX package's
+    ``MaskedBatchNorm`` (``spconv_backbone.py:29-54``).  Training: the mean
+    and the biased variance over the valid rows of the whole batch (their
+    count clipped to 1), and the running statistics become ``0.99·old +
+    0.01·new``; eval: the running statistics."""
+
+    KEEP = 0.99              # Flax's momentum: the share of the old statistic
 
     def __init__(self, channels):
         super().__init__(channels, eps=1e-3, momentum=0.01)
 
-    def forward(self, x):
+    def forward(self, x, valid):
         if self.training:
-            raise NotImplementedError('MaskedBatchNorm runs in eval mode only')
-        inv = torch.rsqrt(self.running_var + self.eps)
-        return (x - self.running_mean) * inv * self.weight + self.bias
+            red = tuple(range(x.ndim - 1))
+            rows = valid[..., None]
+            n = torch.clamp(valid.sum(), min=1).to(x.dtype)
+            mean = torch.where(rows, x, 0.0).sum(red) / n
+            var = torch.where(rows, (x - mean) ** 2, 0.0).sum(red) / n
+            with torch.no_grad():
+                self.running_mean.copy_(self.KEEP * self.running_mean
+                                        + (1 - self.KEEP) * mean)
+                self.running_var.copy_(self.KEEP * self.running_var
+                                       + (1 - self.KEEP) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        return (x - mean) * inv * self.weight + self.bias
 
 
 class SparseConv3d(nn.Module):
@@ -64,16 +80,17 @@ class SparseConvLayer(nn.Sequential):
                                       stride, padding, subm),
                          MaskedBatchNorm(out_channels), nn.ReLU())
 
-    def forward(self, feats, rulebook, out_valid, compute_dtype):
-        """feats (B, V_in, Cin); rulebook (B·V_out, K) flat int32;
-        out_valid (B, V_out) → (B, V_out, Cout) f32, zero at invalid rows."""
+    def forward(self, feats, rulebook, out_valid, compute_dtype, inverse=None):
+        """feats (B, V_in, Cin); rulebook (B·V_out, K) flat int32 and, when a
+        gradient is wanted, its (B·V_in, K) inverse; out_valid (B, V_out) →
+        (B, V_out, Cout) f32, zero at invalid rows."""
         b, v, cin = feats.shape
         w = self[0].weight
-        out = sparse_conv_gather_gemm(
+        out = SparseConvGatherGemm.apply(
             feats.to(compute_dtype).reshape(b * v, cin).contiguous(),
-            rulebook, w.to(compute_dtype).contiguous())
+            w.to(compute_dtype).contiguous(), rulebook, inverse)
         out = out.reshape(b, out_valid.shape[1], w.shape[2])
-        out = torch.relu(self[1](out))
+        out = torch.relu(self[1](out, out_valid))
         return torch.where(out_valid[..., None], out, torch.zeros_like(out))
 
 
@@ -130,13 +147,21 @@ class VoxelBackBone8x(nn.Module):
         cap = feats.shape[1]
         fracs = tuple(cfg.get('VOXEL_CAPS', (1.0, 1.0, 1.0, 1.0)))
         caps = [max(16, int(cap * f) if f <= 1.0 else int(f)) for f in fracs]
+        backward = torch.is_grad_enabled()
+
+        def inverse(rbk, feats):
+            """The flat rulebook's inverse, once a rulebook, for the
+            backward (nothing without a gradient)."""
+            return (rb.inverse_rulebook(rbk, feats.shape[0] * feats.shape[1])
+                    if backward else None)
 
         def subm_stage(feats, layers, coords, valid, grid):
             rbk = rb.unpack_window_rulebook(
                 rb.subm_rulebook_window(coords, valid, grid))
             rbk = flat_rulebook(rbk, coords.shape[1])
+            inv = inverse(rbk, feats)
             for layer in layers:
-                feats = layer(feats, rbk, valid, cdt)
+                feats = layer(feats, rbk, valid, cdt, inv)
             return feats
 
         def down(feats, layer, coords, valid, grid, max_out):
@@ -144,8 +169,8 @@ class VoxelBackBone8x(nn.Module):
             out_coords, out_valid, rbk = rb.downsample_rulebook(
                 coords, valid, grid, conv.kernel_size, conv.stride,
                 conv.padding, max_out)
-            feats = layer(feats, flat_rulebook(rbk, coords.shape[1]),
-                          out_valid, cdt)
+            rbk = flat_rulebook(rbk, coords.shape[1])
+            feats = layer(feats, rbk, out_valid, cdt, inverse(rbk, feats))
             out_grid = rb.conv_out_grid(grid, conv.kernel_size, conv.stride,
                                         conv.padding)
             return feats, out_coords, out_valid, out_grid

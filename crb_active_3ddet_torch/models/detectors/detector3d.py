@@ -3,7 +3,8 @@
 ``detector3d_template.py:24-53``, ``second_net.py:9-34``, ``pv_rcnn.py:9-43``):
 vfe → backbone_3d → map_to_bev → [pfe] → backbone_2d → dense_head →
 [point_head → roi_head]; the bracketed modules are built when the config
-names them.
+names them.  ``compute_loss`` is the training loss of the anchor head
+(``detector3d.py:154-218``); the other heads' losses are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..backbones_2d.map_to_bev import build_map_to_bev
 from ..backbones_3d.pfe import build_pfe
 from ..backbones_3d.spconv_backbone import SparseConv3d, build_backbone_3d
 from ..backbones_3d.vfe import build_vfe
+from ..dense_heads import anchor_head_single as ahs
 from ..dense_heads.anchor_head_single import build_dense_head
 from ..point_heads.point_head_simple import build_point_head
 from ..roi_heads.pvrcnn_head import build_roi_head
@@ -42,7 +44,8 @@ class Detector3D(nn.Module):
             model_cfg['BACKBONE_2D'], self.map_to_bev.num_bev_features)
         self.dense_head = build_dense_head(
             model_cfg['DENSE_HEAD'], self.backbone_2d.num_bev_features,
-            num_class, class_names, grid_size, point_cloud_range)
+            num_class, class_names, grid_size, point_cloud_range,
+            predict_boxes_when_training=model_cfg.get('ROI_HEAD', None) is not None)
         topology = ['vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d',
                     'dense_head']
         if model_cfg.get('PFE', None) is not None:
@@ -71,6 +74,18 @@ class Detector3D(nn.Module):
         for name in self.module_topology:
             batch_dict = getattr(self, name)(batch_dict)
         return batch_dict
+
+    def compute_loss(self, batch_dict, reduce: bool = True):
+        """Training loss over the forward's output (training mode): the
+        anchor head's rpn loss, as the JAX ``compute_loss`` gives SECOND.
+        Returns (loss, {term: value}); ``reduce=False`` keeps one loss a
+        frame."""
+        others = [m for m in ('POINT_HEAD', 'ROI_HEAD')
+                  if self.model_cfg.get(m, None) is not None]
+        if others:
+            raise NotImplementedError(f'the losses of {others} are not ported yet')
+        loss, tb = ahs.get_loss(batch_dict, self.dense_head, reduce=reduce)
+        return loss, {**tb, 'loss': loss}
 
 
 def init_weights(model, generator: torch.Generator):

@@ -1,15 +1,28 @@
-"""Sparse-conv gather-GEMM: wrapper of the CUDA kernel ``csrc/gather_gemm.cu``.
+"""Sparse-conv gather-GEMM and its backward: wrappers of the CUDA kernels
+``csrc/gather_gemm.cu`` and ``csrc/gather_gemm_wgrad.cu``.
 
 Counterpart of ``crb_active_3ddet_tpu/ops/pallas_kernels.py:60
 sparse_conv_gather_gemm``: ``out[v] = Σ_k feat[rulebook[v, k]] @ W[k]`` with
 −1 meaning no neighbour, accumulated in f32.  Every sparse conv layer of
-``VoxelBackBone8x`` runs it.
+``VoxelBackBone8x`` runs it through the ``SparseConvGatherGemm`` autograd
+Function, whose backward computes what XLA's autodiff of the JAX package's
+gather + dot computes:
+  * dgrad ``dfeat[i] = Σ_k dout[inv[i, k]] @ W[k]ᵀ``: the forward kernel over
+    the inverse rulebook (``ops/sparse/rulebook.py``) with per-offset
+    transposed weights;
+  * wgrad ``dW[k] = Σ_{v: rb[v, k] ≥ 0} feat[rb[v, k]]ᵀ dout[v]``: its own
+    kernel, f32 on CUDA cores, deterministic.
+bf16: the forward and the dgrad run on tensor cores (``mma.sync``), the dgrad
+with ``dout`` rounded to bf16 for them, as its plain version does (the JAX
+VJP keeps it f32 and rounds each tap's product to bf16 instead); the wgrad
+widens the bf16 features to f32 (exact).  Gradients come back in their inputs' dtypes, so a bf16 ``dW``
+is rounded to bf16 as the JAX VJP's is.  f32 runs on CUDA cores in full f32
+throughout.
 
-On CUDA tensors the wrapper launches the kernel (or raises); on CPU tensors
-it runs the plain version, ``ops.sparse.sparse_ops.subm_conv3d_gather``.
-bf16 operands run on tensor cores (``mma.sync``), f32 operands on CUDA cores
-in full f32; both skip the offsets without a hit.
-``launches`` counts the wrapper's calls that reached the card.
+On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
+it runs the plain version (``ops/sparse/sparse_ops.py``).  ``launches``,
+``dgrad_launches`` and ``wgrad_launches`` count the wrappers' calls that
+reached the card.
 """
 
 from __future__ import annotations
@@ -19,16 +32,26 @@ import ctypes
 import torch
 
 from . import cuda_build
-from .sparse.sparse_ops import subm_conv3d_gather
+from .sparse.sparse_ops import (gather_gemm_dgrad_plain,
+                                gather_gemm_wgrad_plain, subm_conv3d_gather)
 
 launches = 0
+dgrad_launches = 0
+wgrad_launches = 0
 
 _SIG = {'gather_gemm_launch': [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
                                ctypes.c_void_p]}
-SUPPORTED_CIN = (4, 8, 16, 32, 64)
+_WSIG = {'gather_gemm_wgrad_launch': [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_void_p],
+         'gather_gemm_wgrad_slices': [ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_void_p]}
+SUPPORTED_CIN = (4, 8, 16, 32, 64, 128)
 MAX_K = 32               # offsets a rulebook row may hold (the kernel's mask)
 
 
@@ -40,13 +63,100 @@ def sparse_conv_gather_gemm(features, rulebook, weights):
     """features (V_in, Cin) f32 or bf16; rulebook (V_out, K) int32 (−1 =
     none, else a row of ``features``); weights (K, Cin, Cout) of the
     features' dtype.  Returns (V_out, Cout) float32."""
+    global launches
     if features.device.type == 'cpu':
         return subm_conv3d_gather(features, rulebook, weights)
-    return _launch(features, rulebook, weights)
+    out = _launch(features, rulebook, weights)
+    launches += 1
+    return out
+
+
+def gather_gemm_dgrad(dout, rulebook, inverse, weights, v_in):
+    """Input gradient of ``sparse_conv_gather_gemm``: dout (V_out, Cout) f32,
+    the forward's rulebook (V_out, K) and its inverse (v_in, K) int32,
+    weights (K, Cin, Cout).  Returns (v_in, Cin) float32.  On the card, the
+    forward kernel over ``inverse`` with W[k]ᵀ, in the weights' dtype."""
+    global dgrad_launches
+    if dout.device.type == 'cpu':
+        return gather_gemm_dgrad_plain(dout, rulebook, weights, v_in)
+    if inverse is None or tuple(inverse.shape) != (v_in, rulebook.shape[1]):
+        raise ValueError('gather-GEMM dgrad: needs the (V_in, K) inverse rulebook')
+    out = _launch(dout.to(weights.dtype).contiguous(), inverse,
+                  weights.transpose(1, 2).contiguous())
+    dgrad_launches += 1
+    return out
+
+
+def gather_gemm_wgrad(features, rulebook, dout):
+    """Weight gradient of ``sparse_conv_gather_gemm``: features (V_in, Cin)
+    f32 or bf16, rulebook (V_out, K) int32, dout (V_out, Cout) f32.  Returns
+    (K, Cin, Cout) float32."""
+    global wgrad_launches
+    if features.device.type == 'cpu':
+        return gather_gemm_wgrad_plain(features, rulebook, dout)
+    v_out, k = rulebook.shape
+    cin, cout = features.shape[1], dout.shape[1]
+    dev = features.device
+    if rulebook.device != dev or dout.device != dev:
+        raise ValueError('gather-GEMM wgrad: all tensors must be on one CUDA device')
+    if features.dtype not in (torch.float32, torch.bfloat16) \
+            or dout.dtype != torch.float32:
+        raise TypeError('gather-GEMM wgrad: features f32 or bf16 and dout f32, '
+                        f'got {features.dtype}, {dout.dtype}')
+    if rulebook.dtype != torch.int32:
+        raise TypeError(f'gather-GEMM wgrad: rulebook must be int32, got {rulebook.dtype}')
+    if features.ndim != 2 or dout.shape[0] != v_out:
+        raise ValueError(f'gather-GEMM wgrad: shapes {tuple(features.shape)}, '
+                         f'{tuple(rulebook.shape)}, {tuple(dout.shape)}')
+    if cin not in SUPPORTED_CIN or not supported_cout(cout) or not 1 <= k <= MAX_K:
+        raise ValueError(f'gather-GEMM wgrad: K={k}, Cin={cin}, Cout={cout} not supported')
+    if not (features.is_contiguous() and rulebook.is_contiguous()
+            and dout.is_contiguous()):
+        raise ValueError('gather-GEMM wgrad: inputs must be contiguous')
+    lib = cuda_build.load_library('gather_gemm_wgrad', _WSIG)
+    cut = (ctypes.c_int * 2)()
+    lib.gather_gemm_wgrad_slices(v_out, k, cout, cut)
+    partial = torch.empty((cut[0], k, cin, cout), dtype=torch.float32, device=dev)
+    dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.gather_gemm_wgrad_launch(
+            features.data_ptr(), rulebook.data_ptr(), dout.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout,
+            int(features.dtype == torch.bfloat16), stream)
+    cuda_build.check(lib, 'gather_gemm_wgrad', err)
+    wgrad_launches += 1
+    return dw
+
+
+class SparseConvGatherGemm(torch.autograd.Function):
+    """``sparse_conv_gather_gemm`` with its backward: dgrad through the
+    forward kernel over the inverse rulebook (skipped when the features need
+    no gradient, as at ``conv_input``, whose input comes from a VFE without
+    parameters), wgrad through its own kernel.  The wrappers are looked up at
+    call time.  ``apply(features, weights, rulebook, inverse)``; ``inverse``
+    may be None when no input gradient will be asked for (eval)."""
+
+    @staticmethod
+    def forward(ctx, features, weights, rulebook, inverse):
+        ctx.save_for_backward(features, weights, rulebook, inverse)
+        return sparse_conv_gather_gemm(features, rulebook, weights)
+
+    @staticmethod
+    def backward(ctx, dout):
+        features, weights, rulebook, inverse = ctx.saved_tensors
+        dout = dout.contiguous()
+        dfeat = dw = None
+        if ctx.needs_input_grad[0]:
+            dfeat = gather_gemm_dgrad(dout, rulebook, inverse, weights,
+                                      features.shape[0]).to(features.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = gather_gemm_wgrad(features, rulebook, dout).to(weights.dtype)
+        return dfeat, dw, None, None
+
 
 
 def _launch(features, rulebook, weights):
-    global launches
     v_out, k = rulebook.shape
     cin = features.shape[1]
     cout = weights.shape[2]
@@ -89,5 +199,4 @@ def _launch(features, rulebook, weights):
             None if wpack is None else wpack.data_ptr(), out.data_ptr(),
             v_out, k, cin, cout, int(bf16), stream)
     cuda_build.check(lib, 'gather_gemm', err)
-    launches += 1
     return out

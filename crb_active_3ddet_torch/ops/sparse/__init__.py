@@ -6,5 +6,8 @@ layer is one gather-GEMM over fixed-capacity padded voxel sets.
 """
 
 from .rulebook import (conv_out_grid, downsample_rulebook,  # noqa: F401
-                       subm_rulebook_window, unpack_window_rulebook)
-from .sparse_ops import sparse_tensor_to_dense, subm_conv3d_gather  # noqa: F401
+                       inverse_rulebook, subm_rulebook_window,
+                       unpack_window_rulebook)
+from .sparse_ops import (gather_gemm_dgrad_plain,  # noqa: F401
+                         gather_gemm_wgrad_plain, sparse_tensor_to_dense,
+                         subm_conv3d_gather)

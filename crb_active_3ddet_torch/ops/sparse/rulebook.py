@@ -3,8 +3,9 @@
 Port of the parts of ``crb_active_3ddet_tpu/ops/sparse/rulebook.py`` that the
 SECOND backbone runs: the windowed sort-join submanifold rulebook
 (``subm_rulebook_window`` :383, ``unpack_window_rulebook`` :391), the
-sort-based strided rulebook (``downsample_rulebook`` :548) and
-``conv_out_grid`` (:117).  They replace spconv's GPU hash tables
+sort-based strided rulebook (``downsample_rulebook`` :548),
+``conv_out_grid`` (:117) and ``inverse_rulebook`` (:707), which the
+backward's input gradient runs over.  They replace spconv's GPU hash tables
 (``pcdet/utils/spconv_utils.py``) with sorts over voxel cell ids.
 
 Conventions: coords are (V, 3) integer (z, y, x) with a validity mask; a
@@ -185,3 +186,25 @@ def downsample_rulebook(in_coords, in_valid, grid, kernel_size, stride,
                                      torch.full_like(slot, max_out * kt)), i_e)
     return (out_coords.to(torch.int32), out_valid,
             rulebook[:, :max_out * kt].reshape(b, max_out, kt).to(torch.int32))
+
+
+def inverse_rulebook(rulebook, v_in: int):
+    """Invert a rulebook: (V_out, K) with entry [o, k] = input row i (or −1)
+    → (v_in, K) int32 with entry [i, k] = o, or −1.
+
+    Port of the JAX ``inverse_rulebook`` for any rulebook, subm or strided,
+    here over the flat (B·V_out, K) rulebook of a layer.  The o is unique for
+    each (i, k): the output o = (i + p − k)/s that offset k of input i feeds
+    is unique.  One scatter; as in the JAX version, each −1 entry goes to a
+    distinct row past the end (here one of V_out·K slots that are cut off),
+    so no two writes meet."""
+    v_out, k = rulebook.shape
+    dev = rulebook.device
+    o = torch.arange(v_out, dtype=torch.int32, device=dev)[:, None].expand(v_out, k)
+    slot = torch.arange(v_out * k, dtype=torch.int64, device=dev).view(v_out, k)
+    flat = torch.where(rulebook >= 0,
+                       rulebook.to(torch.int64) * k + torch.arange(k, device=dev),
+                       v_in * k + slot)
+    inv = torch.full((v_in * k + v_out * k,), -1, dtype=torch.int32, device=dev)
+    inv.scatter_(0, flat.reshape(-1), o.reshape(-1))
+    return inv[:v_in * k].view(v_in, k)

@@ -22,10 +22,10 @@ def make_eval_step(model, dataset, post_cfg, num_class):
     grid_size = tuple(int(g) for g in dataset.grid_size)
     pcr = tuple(float(x) for x in dataset.point_cloud_range)
     vs = tuple(float(v) for v in dataset.voxel_size)
-    model.eval()
 
     @torch.no_grad()
     def eval_step(host_batch):
+        model.eval()            # the model may have trained since
         batch = prepare_device_batch(host_batch, voxel_cfg, grid_size, pcr, vs)
         out = model(batch)
         preds = pp.post_processing(out, post_cfg, num_class=num_class)

@@ -1,12 +1,21 @@
-"""Batch preparation shared by the train and eval steps (torch).
+"""Training loop (torch). Port of ``crb_active_3ddet_tpu/runtime/train.py``
+(reference ``tools/train_utils/train_utils.py``): ``prepare_device_batch``
+and ``host_to_device_batch`` (shared with the eval step: the host numpy batch
+goes to the device and every frame is voxelized there), the train step, the
+train state and ``train_one_epoch``.
 
-Port of ``prepare_device_batch`` and ``host_to_device_batch`` from
-``crb_active_3ddet_tpu/runtime/train.py:39-78``: the host numpy batch goes to
-the device and every frame is voxelized there (``ops/voxelize.py``).  The
-train step itself comes with the next slice of the port.
+The step computes what the JAX ``make_train_step`` computes: the forward in
+training mode (BatchNorm on batch statistics, running statistics updated as
+Flax does), ``compute_loss``, the gradients (the sparse convs' backward runs
+the hand-written kernels, ``ops/cuda_kernels.py``), the global-norm clip and
+the optimizer update on its schedule (``runtime/optimization.py``).  The
+model and optimizer are updated in place; the step's losses stay on the
+device.  Single device: the JAX step's ``mesh`` form is not ported yet.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -60,3 +69,52 @@ def host_to_device_batch(batch, device='cuda'):
     keep = ('points', 'num_points', 'gt_boxes') + _CAMERA_KEYS
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
             for k in keep if k in batch}
+
+
+@dataclass
+class TrainState:
+    """The port's counterpart of the JAX ``TrainState``: parameters and
+    batch statistics live in ``model``, the optax state in ``optimizer``."""
+    model: torch.nn.Module
+    optimizer: object
+    step: int = 0
+
+
+def init_train_state(model, optimizer):
+    """A train state over a built model (its weights already set, e.g. by
+    ``init_weights`` or a transfer) and its optimizer."""
+    return TrainState(model=model, optimizer=optimizer, step=0)
+
+
+def make_train_step(model, optimizer, dataset):
+    """Returns ``train_step(state, device_batch) -> (state, metrics)``;
+    ``metrics`` holds the loss and its scalar terms as device tensors.  The
+    JAX step's dropout key has no counterpart yet: SECOND draws none."""
+    voxel_cfg = dataset.voxel_cfg
+    grid_size = tuple(int(g) for g in dataset.grid_size)
+    pcr = tuple(float(x) for x in dataset.point_cloud_range)
+    vs = tuple(float(v) for v in dataset.voxel_size)
+
+    def train_step(state, device_batch):
+        model.train()
+        batch = prepare_device_batch(device_batch, voxel_cfg, grid_size, pcr, vs)
+        out = model(batch)
+        loss, tb = model.compute_loss(out)
+        optimizer.zero_grad()
+        loss.backward()
+        optimizer.step()
+        state.step += 1
+        metrics = {k: v.detach() for k, v in tb.items()
+                   if isinstance(v, torch.Tensor) and v.ndim == 0}
+        return state, metrics
+
+    return train_step
+
+
+def train_one_epoch(state, train_step, loader, device='cuda'):
+    """One pass over ``loader`` (parity ``train_utils.train_one_epoch``):
+    each host batch to ``device``, one step.  The losses stay on the device
+    and are read once, at the end.  Returns (state, mean loss)."""
+    losses = [train_step(state, host_to_device_batch(batch, device))[1]['loss']
+              for batch in loader]
+    return state, float(torch.stack(losses).mean()) if losses else float('nan')

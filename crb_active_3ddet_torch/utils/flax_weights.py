@@ -18,6 +18,12 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     radius loop (``Dense_0, Dense_1`` branch 0, ``Dense_2, Dense_3`` branch
     1); ``SA_x_conv{i}`` become ``SA_layers.{k}`` in FEATURES_SOURCE order.
     The shared FC's input stays grid-major, as in the JAX package.
+
+``optax_to_optimizer_state`` moves the optimizer state of a JAX
+``TrainState`` (Adam's ``mu``/``nu``/``count`` and the schedule's count)
+into the port's ``Optimizer`` (torch Adam's ``exp_avg``/``exp_avg_sq``/``step``)
+under the same name map, so that both packages can continue from one
+mid-schedule state.
 """
 
 from __future__ import annotations
@@ -164,3 +170,40 @@ def flax_to_state_dict(params, batch_stats, model_cfg=None):
         sd[f'dense_head.{name}.weight'] = conv2d_from_flax(conv['kernel'])
         sd[f'dense_head.{name}.bias'] = conv['bias']
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def _leaves_of(tree, want):
+    """The named tuples of an optax state tree (named tuples, tuples,
+    lists) whose fields include every name in ``want``, in order."""
+    found = []
+    if set(want) <= set(getattr(tree, '_fields', ())):
+        found.append(tree)
+    elif isinstance(tree, (tuple, list)):
+        for t in tree:
+            found += _leaves_of(t, want)
+    return found
+
+
+def optax_to_optimizer_state(opt_state, batch_stats, optimizer, model,
+                             model_cfg=None):
+    """The numpy optax state of ``optax.chain(clip_by_global_norm,
+    adamw(schedule))`` (or adam) → a ``state_dict`` for the port's
+    ``runtime.optimization.Optimizer`` over ``model.parameters()``.  ``mu``
+    and ``nu`` go through the same layout map as the parameters (their
+    batch statistics are taken from ``batch_stats``, only for the map) and
+    become torch Adam's ``exp_avg`` and ``exp_avg_sq``; Adam's count, which
+    equals the schedule's, becomes each parameter's ``step`` and the
+    schedule's ``count``."""
+    adam, = _leaves_of(opt_state, ('mu', 'nu', 'count'))
+    counts = {int(np.asarray(t.count)) for t in _leaves_of(opt_state, ('count',))}
+    if len(counts) != 1:
+        raise ValueError(f'Adam and schedule counts differ: {sorted(counts)}')
+    count = counts.pop()
+    mu = flax_to_state_dict(adam.mu, batch_stats, model_cfg)
+    nu = flax_to_state_dict(adam.nu, batch_stats, model_cfg)
+    dev = next(model.parameters()).device
+    state = {i: {'step': torch.tensor(float(count)), 'exp_avg': mu[n].to(dev),
+                 'exp_avg_sq': nu[n].to(dev)}
+             for i, (n, _) in enumerate(model.named_parameters())}
+    groups = optimizer.inner.state_dict()['param_groups']
+    return {'count': count, 'inner': {'state': state, 'param_groups': groups}}

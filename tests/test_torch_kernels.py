@@ -470,3 +470,144 @@ def test_fps_kernel_refuses_too_many_points(cuda_device):
     with pytest.raises(ValueError, match='at most'):
         cuda_fps.farthest_point_sample_cuda(
             p, torch.ones(1, n, dtype=torch.bool, device=cuda_device), 8)
+
+
+# ---- the gather-GEMM's backward on the card (skipped without one) ----
+
+def _backward_case(name):
+    """A layer's backward inputs at the edges of the kernels' tiling: a
+    rulebook in which each (input, offset) feeds at most one output (as
+    every real rulebook, so that its inverse exists), the inverse, features,
+    weights and an f32 output gradient.  'k3_cout128' is conv_out
+    (K = 3, 64 -> 128: the dgrad's Cin is 128)."""
+    from crb_active_3ddet_torch.ops.sparse.rulebook import inverse_rulebook
+    v_in, v_out, k, c_in, c_out, hit = {
+        'random': (300, 200, 27, 16, 32, 0.3), 'cin4': (90, 70, 27, 4, 16, 0.3),
+        'ragged': (150, 201, 27, 32, 64, 0.05), 'wide': (130, 100, 27, 64, 64, 0.5),
+        'k3_cout128': (120, 77, 3, 64, 128, 0.7), 'all_missing': (40, 70, 27, 32, 32, 0.0),
+        'single_hit': (40, 100, 27, 16, 16, 0.0)}[name]
+    rng = np.random.RandomState(13)
+    rb = np.stack([np.resize(rng.permutation(v_in), v_out) for _ in range(k)], 1)
+    rb[np.arange(v_out) >= v_in] = -1            # keep (input, offset) unique
+    rb[rng.rand(v_out, k) >= hit] = -1
+    if name == 'single_hit':
+        rb[77, 13] = 5
+    rb = rb.astype(np.int32)
+    feats = rng.randn(v_in, c_in).astype(np.float32)
+    w = (rng.randn(k, c_in, c_out) * 0.1).astype(np.float32)
+    dout = rng.randn(v_out, c_out).astype(np.float32)
+    inv = inverse_rulebook(_t(rb), v_in)
+    return feats, _t(rb), inv, w, dout
+
+
+BACKWARD_CASES = ['random', 'cin4', 'ragged', 'wide', 'k3_cout128', 'all_missing',
+                  'single_hit']
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', [n for n in BACKWARD_CASES if n != 'cin4'])
+def test_gather_gemm_dgrad_kernel_matches_plain(cuda_device, dtype, name):
+    """dgrad: the forward kernel over the inverse rulebook with W[k]ᵀ.
+    Tolerance 1e-4·(1 + max|ref|): the plain version rounds the output
+    gradient to the weights' dtype as the kernel does, so only the f32
+    summation order differs."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
+    feats, rb, inv, w, dout = _backward_case(name)
+    r, iv = rb.to(cuda_device), inv.to(cuda_device)
+    ww = _t(w).to(cuda_device, dtype)
+    d = _t(dout).to(cuda_device)
+    n0 = cuda_kernels.dgrad_launches
+    got = cuda_kernels.gather_gemm_dgrad(d, r, iv, ww, len(feats))
+    torch.cuda.synchronize()
+    assert cuda_kernels.dgrad_launches == n0 + 1
+    assert got.shape == (len(feats), w.shape[1]) and got.dtype == torch.float32
+    ref = gather_gemm_dgrad_plain(d, r, ww, len(feats))
+    torch.testing.assert_close(got, ref, atol=ATOL * (1 + ref.abs().max().item()),
+                               rtol=0)
+    assert torch.all(got[(iv < 0).all(1)] == 0)
+    assert torch.equal(got, cuda_kernels.gather_gemm_dgrad(d, r, iv, ww, len(feats)))
+    if name == 'single_hit':
+        torch.testing.assert_close(got[5], ref[5], atol=1e-6, rtol=0)
+        assert int((got.abs().sum(1) > 0).sum()) == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize('name', BACKWARD_CASES)
+def test_gather_gemm_wgrad_kernel_matches_plain(cuda_device, dtype, name):
+    """wgrad: f32 products of the (widened) features and the output
+    gradient; error within 1e-5 of the sum of the products' magnitudes,
+    equal bits on a second run."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
+    feats, rb, _, w, dout = _backward_case(name)
+    f = _t(feats).to(cuda_device, dtype)
+    r = rb.to(cuda_device)
+    d = _t(dout).to(cuda_device)
+    n0 = cuda_kernels.wgrad_launches
+    got = cuda_kernels.gather_gemm_wgrad(f, r, d)
+    torch.cuda.synchronize()
+    assert cuda_kernels.wgrad_launches == n0 + 1
+    assert got.shape == w.shape and got.dtype == torch.float32
+    ref = gather_gemm_wgrad_plain(f, r, d)
+    scale = gather_gemm_wgrad_plain(f.abs(), r, d.abs())
+    assert torch.all((got - ref).abs() <= 1e-5 * scale + 1e-30)
+    assert torch.equal(got, cuda_kernels.gather_gemm_wgrad(f, r, d))
+    if name == 'all_missing':
+        assert torch.all(got == 0)
+    if name == 'single_hit':
+        torch.testing.assert_close(got[13], torch.outer(f[5].float(), d[77]),
+                                   atol=1e-6, rtol=0)
+
+
+@pytest.mark.cuda
+def test_gather_gemm_backward_kernels_refuse_what_they_do_not_take(cuda_device):
+    feats, rb, inv, w, dout = _backward_case('random')
+    f = _t(feats).to(cuda_device)
+    r, iv = rb.to(cuda_device), inv.to(cuda_device)
+    ww, d = _t(w).to(cuda_device), _t(dout).to(cuda_device)
+    with pytest.raises(TypeError):          # features must be f32 or bf16
+        cuda_kernels.gather_gemm_wgrad(f.half(), r, d)
+    with pytest.raises(TypeError):          # the output gradient must be f32
+        cuda_kernels.gather_gemm_wgrad(f, r, d.double())
+    with pytest.raises(TypeError):
+        cuda_kernels.gather_gemm_wgrad(f, r.long(), d)
+    with pytest.raises(ValueError):         # one device
+        cuda_kernels.gather_gemm_wgrad(f, r.cpu(), d)
+    with pytest.raises(ValueError, match='not supported'):      # Cin 24
+        cuda_kernels.gather_gemm_wgrad(torch.zeros(len(feats), 24, device=cuda_device),
+                                       r, d)
+    with pytest.raises(ValueError, match='not supported'):      # Cout 48
+        cuda_kernels.gather_gemm_wgrad(f, r, d[:, :24].contiguous())
+    with pytest.raises(ValueError, match='inverse'):
+        cuda_kernels.gather_gemm_dgrad(d, r, None, ww, len(feats))
+    with pytest.raises(ValueError, match='not supported'):      # dgrad Cout 4
+        cuda_kernels.gather_gemm_dgrad(d, r, iv, ww[:, :4].contiguous(), len(feats))
+    with pytest.raises(ValueError):
+        cuda_kernels.gather_gemm_dgrad(d, r, iv.cpu(), ww, len(feats))
+
+
+@pytest.mark.cuda
+def test_sparse_conv_function_on_the_card(cuda_device):
+    """SparseConvGatherGemm: gradients of both inputs through the kernels,
+    bf16, against the plain versions' gradients on the same card."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import (
+        gather_gemm_dgrad_plain, gather_gemm_wgrad_plain)
+    feats, rb, inv, w, dout = _backward_case('wide')
+    f = _t(feats).to(cuda_device, torch.bfloat16).requires_grad_()
+    ww = _t(w).to(cuda_device, torch.bfloat16).requires_grad_()
+    r, iv, d = rb.to(cuda_device), inv.to(cuda_device), _t(dout).to(cuda_device)
+    counts = (cuda_kernels.launches, cuda_kernels.dgrad_launches,
+              cuda_kernels.wgrad_launches)
+    cuda_kernels.SparseConvGatherGemm.apply(f, ww, r, iv).backward(d)
+    torch.cuda.synchronize()
+    assert (cuda_kernels.launches, cuda_kernels.dgrad_launches,
+            cuda_kernels.wgrad_launches) == tuple(c + 1 for c in counts)
+    assert f.grad.dtype == ww.grad.dtype == torch.bfloat16
+    ref_f = gather_gemm_dgrad_plain(d, r, ww.detach(), len(feats))
+    ref_w = gather_gemm_wgrad_plain(f.detach(), r, d)
+    # the Function rounds each gradient to its input's dtype once
+    torch.testing.assert_close(f.grad.float(), ref_f, rtol=2 ** -7,
+                               atol=ATOL * (1 + ref_f.abs().max().item()))
+    torch.testing.assert_close(ww.grad.float(), ref_w, rtol=2 ** -7,
+                               atol=ATOL * (1 + ref_w.abs().max().item()))
