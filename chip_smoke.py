@@ -36,7 +36,9 @@ Run from the root of a checkout.  It
      dgrad, 12 wgrad), ms/step and samples/s, the stages, a profiled step,
      the kernel path against the plain path (loss terms and every
      parameter's gradient, bf16 and f32), and the dgrad and wgrad against
-     their plain versions at every layer's inputs, with their timings;
+     their plain versions at every layer's inputs, with their timings (the
+     wgrad on the route the step ran, tensor cores in bf16, and on its f32
+     route with the same numbers);
   7. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
      the CPU path (which the CPU tests hold against the JAX reference),
      predictions and recall record, and a reduced SECOND train step (loss
@@ -50,11 +52,17 @@ instead times, at each sparse conv layer of the SECOND step, measurement
 builds of the gather-GEMM with its row gather, its weight reads or both
 compiled out: where that kernel's time goes, on a machine without a profiler
 for single kernels.
+
+    python3 chip_smoke.py --ablate-wgrad
+
+likewise times the bf16 weight gradient's tensor-core kernel at each layer
+of the SECOND train step with its row gather, its mmas or both compiled out.
 """
 
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import re
@@ -178,7 +186,8 @@ def plain_versions():
     cuda_kernels.sparse_conv_gather_gemm = subm_conv3d_gather
     cuda_kernels.gather_gemm_dgrad = (lambda dout, rbk, inv, w, v_in:
                                       gather_gemm_dgrad_plain(dout, rbk, w, v_in))
-    cuda_kernels.gather_gemm_wgrad = gather_gemm_wgrad_plain
+    cuda_kernels.gather_gemm_wgrad = (lambda feats, rbk, dout, rbk_t=None:
+                                      gather_gemm_wgrad_plain(feats, rbk, dout))
     iou3d.boxes_overlap_bev_cuda = cuda_overlap.overlap_bev_plain
     nms.nms_mask = cuda_overlap.nms_mask_plain
     pointnet2.farthest_point_sample_cuda = cuda_fps.fps_plain
@@ -260,6 +269,7 @@ def profile_step(step, batch, rows=10):
     for e in events:
         name = next((k for k in ('gather_mma_kernel', 'gather_fma_kernel',
                                  'pack_weights_kernel', 'wgrad_partial_kernel',
+                                 'wgrad_mma_kernel',
                                  'sum_slices_kernel', 'fps_kernel',
                                  'overlap_bev_kernel', 'nms_mask_kernel')
                      if k in e.key), None)
@@ -1068,19 +1078,29 @@ def time_dgrad(name, args, n_launch):
 def time_wgrad(name, args, n_launch):
     """Hold the wgrad kernel against its plain version at one layer's
     backward inputs (error over the sum of the products' magnitudes, which
-    bounds an f32 sum's rounding), check equal bits on a second run; time
-    both and the matmul yardstick over the materialised gather."""
+    bounds an f32 sum's rounding), check equal bits on a second run, on the
+    route the step ran (bf16: tensor cores) and on the f32 route with the
+    same numbers; time the step's route, the plain version, the
+    matmul yardstick over the materialised gather and the transpose of the
+    rulebook that the tensor-core route reads.  ``bound_ms`` counts the
+    route's own arithmetic (three bf16 products at the bf16 peak on tensor
+    cores), ``bound_f32_ms`` the f32 products at the f32 peak."""
     from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
-    feats, rbk, dout = args
-    got = cuda_kernels.gather_gemm_wgrad(*args)
-    ref = gather_gemm_wgrad_plain(feats, rbk, dout)
-    scale = gather_gemm_wgrad_plain(feats.abs(), rbk, dout.abs())
-    err = ((got - ref).abs() / (scale + 1e-30)).max().item()
-    if not err <= 1e-5:
-        raise RuntimeError(f'{name}: max err {err} of the products\' magnitude > 1e-5')
-    if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*args)):
-        raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    feats, rbk, dout = args[:3]
+    route = cuda_kernels.wgrad_route(feats.dtype)
+    errs = {}
+    for r, xa in ((route, args), ('f32', (feats.float(), rbk, dout))):
+        got = cuda_kernels.gather_gemm_wgrad(*xa)
+        ref = gather_gemm_wgrad_plain(xa[0], rbk, dout)
+        scale = gather_gemm_wgrad_plain(xa[0].abs(), rbk, dout.abs())
+        err = ((got - ref).abs() / (scale + 1e-30)).max().item()
+        if not err <= 1e-5:
+            raise RuntimeError(f'{name} ({r}): max err {err} of the products\' magnitude > 1e-5')
+        if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*xa)):
+            raise RuntimeError(f'{name} ({r}): two runs on the same inputs differ')
+        errs[r] = err
     k = rbk.shape[1]
     v_in, cin = feats.shape
     cout = dout.shape[1]
@@ -1090,17 +1110,27 @@ def time_wgrad(name, args, n_launch):
     g = (feats.float()[torch.clamp(rbk, min=0).long()]
          * (rbk >= 0)[..., None]).reshape(rbk.shape[0], k * cin)
     lib_ms = graph_time_ms(lambda: torch.matmul(g.t(), dout))
+    t_ms = graph_time_ms(lambda: transpose_rulebook(rbk))
     nnz = int((rbk >= 0).sum())
     nbytes = (feats.numel() * feats.element_size() + rbk.numel() * 4 + dout.numel() * 4
               + k * cin * cout * 4)
+    products = 2 * nnz * cin * cout
+    if route == 'mma':
+        ops, peak = 3 * products, PEAK[torch.bfloat16]
+    else:
+        ops, peak = products, PEAK[torch.float32]
     entry = _entry(name, 'crb_active_3ddet_torch/csrc/gather_gemm_wgrad.cu',
-                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
-                   plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[torch.float32], lib_ms)
-    log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}x{cout} nnz {nnz}: err {err:.2e} of '
-        f'the products\' magnitude (tol 1e-5), equal bits on a second run; call '
+                   'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, errs[route],
+                   ms, plain_ms, nbytes, ops, peak, lib_ms)
+    entry['path'] = route
+    entry['bound_f32_ms'] = max(nbytes / MEM_BW, products / PEAK[torch.float32]) * 1e3
+    log(f'{name}: route {route}, V_out {rbk.shape[0]} K {k} {cin}x{cout} nnz {nnz}: err '
+        + ', '.join(f'{r} {e:.2e}' for r, e in errs.items())
+        + ' of the products\' magnitude (tol 1e-5), equal bits on a second run; call '
         f'{ms:.4f} ms on the card (graph replay: partial sums + slice sum), plain '
         f'{plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, bound '
-        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]})')
+        f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}, the route\'s arithmetic), f32 bound '
+        f'{entry["bound_f32_ms"]:.4f} ms; rulebook transpose {t_ms:.4f} ms')
     return entry
 
 
@@ -1301,6 +1331,40 @@ def ablate_gather_gemm(dev):
                         for tag, lib in libs.items()))
 
 
+def ablate_wgrad(dev):
+    """Time the bf16 wgrad (graph replay of the launch, slice sum included)
+    at the inputs of each sparse conv layer of the SECOND train step, as
+    built and with its row gather, its mmas or both compiled out."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.ops import cuda_build, cuda_kernels
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
+    _, loader, state, step, _ = build_train(load_config(SECOND_CFG), BATCH, dev, seed=0)
+    wcalls = []
+    with recording(cuda_kernels, 'gather_gemm_wgrad', wcalls):
+        step(state, host_to_device_batch(first_batch(loader), dev))
+    torch.cuda.synchronize()
+    libs = cuda_build.build_variants('gather_gemm_wgrad', {
+        'as built': [], 'no gather': ['-DGW_ABLATE_GATHER'], 'no mma': ['-DGW_ABLATE_MMA'],
+        'neither': ['-DGW_ABLATE_GATHER', '-DGW_ABLATE_MMA']}, cuda_kernels._WSIG)
+    for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], wcalls):
+        feats, rbk, dout, rbt = args
+        (v_out, k), cin, cout = rbk.shape, feats.shape[1], dout.shape[1]
+        cut = (ctypes.c_int * 2)()
+        libs['as built'].gather_gemm_wgrad_slices(v_out, k, cin, cout, 1, cut)
+        partial = torch.empty((cut[0], k, cin, cout), dtype=torch.float32, device=dev)
+        dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+
+        def launch(lib):
+            cuda_build.check(lib, 'gather_gemm_wgrad', lib.gather_gemm_wgrad_launch(
+                feats.data_ptr(), rbk.data_ptr(), rbt.data_ptr(), dout.data_ptr(),
+                partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, 1,
+                torch.cuda.current_stream().cuda_stream))
+        log(f'gather_gemm_wgrad[{lname}] {cin}x{cout} nnz {int((rbk >= 0).sum())} slices '
+            f'{cut[0]}, ms on the card (graph replay): '
+            + ', '.join(f'{tag} {graph_time_ms(lambda: launch(lib)):.4f}'
+                        for tag, lib in libs.items()))
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1316,6 +1380,9 @@ def main():
     log(f'card: {smi}')
     if sys.argv[1:] == ['--ablate-k2']:
         ablate_gather_gemm(dev)
+        return 0
+    if sys.argv[1:] == ['--ablate-wgrad']:
+        ablate_wgrad(dev)
         return 0
 
     t0 = time.perf_counter()

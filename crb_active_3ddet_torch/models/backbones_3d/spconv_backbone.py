@@ -9,9 +9,10 @@ Sparse tensors are fixed-capacity batched (features (B, V, C), coords
 sort.  Every layer then runs the hand-written gather-GEMM kernel
 (``ops/cuda_kernels.py``) over one flat (B·V_out, K) rulebook whose entries
 are offset by b·V_in.  When a gradient is wanted, each rulebook's inverse is
-built once too, for the backward's input gradient.  Module names follow OpenPCDet
-(``conv_input.0.weight``, ``conv2.0.1.running_mean``, …); a sparse conv
-weight is kept as (K, Cin, Cout), the kernel's layout.
+built once too, for the backward's input gradient, and in bf16 its (K,
+B·V_out) transpose, for the weight gradient's tensor-core kernel.  Module
+names follow OpenPCDet (``conv_input.0.weight``, ``conv2.0.1.running_mean``,
+…); a sparse conv weight is kept as (K, Cin, Cout), the kernel's layout.
 """
 
 from __future__ import annotations
@@ -80,15 +81,16 @@ class SparseConvLayer(nn.Sequential):
                                       stride, padding, subm),
                          MaskedBatchNorm(out_channels), nn.ReLU())
 
-    def forward(self, feats, rulebook, out_valid, compute_dtype, inverse=None):
+    def forward(self, feats, rulebook, out_valid, compute_dtype, for_grad=(None, None)):
         """feats (B, V_in, Cin); rulebook (B·V_out, K) flat int32 and, when a
-        gradient is wanted, its (B·V_in, K) inverse; out_valid (B, V_out) →
+        gradient is wanted, ``for_grad`` = its (B·V_in, K) inverse and its
+        (K, B·V_out) transpose (None in f32); out_valid (B, V_out) →
         (B, V_out, Cout) f32, zero at invalid rows."""
         b, v, cin = feats.shape
         w = self[0].weight
         out = SparseConvGatherGemm.apply(
             feats.to(compute_dtype).reshape(b * v, cin).contiguous(),
-            w.to(compute_dtype).contiguous(), rulebook, inverse)
+            w.to(compute_dtype).contiguous(), rulebook, *for_grad)
         out = out.reshape(b, out_valid.shape[1], w.shape[2])
         out = torch.relu(self[1](out, out_valid))
         return torch.where(out_valid[..., None], out, torch.zeros_like(out))
@@ -149,19 +151,21 @@ class VoxelBackBone8x(nn.Module):
         caps = [max(16, int(cap * f) if f <= 1.0 else int(f)) for f in fracs]
         backward = torch.is_grad_enabled()
 
-        def inverse(rbk, feats):
-            """The flat rulebook's inverse, once a rulebook, for the
-            backward (nothing without a gradient)."""
-            return (rb.inverse_rulebook(rbk, feats.shape[0] * feats.shape[1])
-                    if backward else None)
+        def for_backward(rbk, feats):
+            """The flat rulebook's inverse and, in bf16, its transpose, once
+            a rulebook, for the backward (nothing without a gradient)."""
+            if not backward:
+                return None, None
+            return (rb.inverse_rulebook(rbk, feats.shape[0] * feats.shape[1]),
+                    rb.transpose_rulebook(rbk) if cdt == torch.bfloat16 else None)
 
         def subm_stage(feats, layers, coords, valid, grid):
             rbk = rb.unpack_window_rulebook(
                 rb.subm_rulebook_window(coords, valid, grid))
             rbk = flat_rulebook(rbk, coords.shape[1])
-            inv = inverse(rbk, feats)
+            aux = for_backward(rbk, feats)
             for layer in layers:
-                feats = layer(feats, rbk, valid, cdt, inv)
+                feats = layer(feats, rbk, valid, cdt, aux)
             return feats
 
         def down(feats, layer, coords, valid, grid, max_out):
@@ -170,7 +174,7 @@ class VoxelBackBone8x(nn.Module):
                 coords, valid, grid, conv.kernel_size, conv.stride,
                 conv.padding, max_out)
             rbk = flat_rulebook(rbk, coords.shape[1])
-            feats = layer(feats, rbk, out_valid, cdt, inverse(rbk, feats))
+            feats = layer(feats, rbk, out_valid, cdt, for_backward(rbk, feats))
             out_grid = rb.conv_out_grid(grid, conv.kernel_size, conv.stride,
                                         conv.padding)
             return feats, out_coords, out_valid, out_grid

@@ -11,12 +11,15 @@ gather + dot computes:
     the inverse rulebook (``ops/sparse/rulebook.py``) with per-offset
     transposed weights;
   * wgrad ``dW[k] = Σ_{v: rb[v, k] ≥ 0} feat[rb[v, k]]ᵀ dout[v]``: its own
-    kernel, f32 on CUDA cores, deterministic.
+    kernel, deterministic.
 bf16: the forward and the dgrad run on tensor cores (``mma.sync``), the dgrad
 with ``dout`` rounded to bf16 for them, as its plain version does (the JAX
-VJP keeps it f32 and rounds each tap's product to bf16 instead); the wgrad
-widens the bf16 features to f32 (exact).  Gradients come back in their inputs' dtypes, so a bf16 ``dW``
-is rounded to bf16 as the JAX VJP's is.  f32 runs on CUDA cores in full f32
+VJP keeps it f32 and rounds each tap's product to bf16 instead).  The wgrad
+runs on tensor cores too: the f32 ``dout`` enters as three bf16 terms that
+sum to it, so its products are the f32 products; it reads the rulebook
+transposed (``transpose_rulebook``, built once per rulebook by the
+backbone).  Gradients come back in their inputs' dtypes, so a bf16 ``dW`` is
+rounded to bf16 as the JAX VJP's is.  f32 runs on CUDA cores in full f32
 throughout.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
@@ -32,6 +35,7 @@ import ctypes
 import torch
 
 from . import cuda_build
+from .sparse.rulebook import transpose_rulebook
 from .sparse.sparse_ops import (gather_gemm_dgrad_plain,
                                 gather_gemm_wgrad_plain, subm_conv3d_gather)
 
@@ -46,17 +50,23 @@ _SIG = {'gather_gemm_launch': [ctypes.c_void_p, ctypes.c_void_p,
                                ctypes.c_void_p]}
 _WSIG = {'gather_gemm_wgrad_launch': [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_void_p,
-                                      ctypes.c_void_p, ctypes.c_int,
+                                      ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_int, ctypes.c_void_p],
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p],
          'gather_gemm_wgrad_slices': [ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_void_p]}
+                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 SUPPORTED_CIN = (4, 8, 16, 32, 64, 128)
 MAX_K = 32               # offsets a rulebook row may hold (the kernel's mask)
 
 
 def supported_cout(cout):
     return cout in (16, 32) or (cout > 0 and cout % 64 == 0)
+
+
+def wgrad_route(dtype):
+    """Which kernel of ``csrc/gather_gemm_wgrad.cu`` a wgrad call runs:
+    'mma' (tensor cores, bf16 features) or 'fma' (CUDA cores, f32)."""
+    return 'mma' if dtype == torch.bfloat16 else 'fma'
 
 
 def sparse_conv_gather_gemm(features, rulebook, weights):
@@ -87,10 +97,12 @@ def gather_gemm_dgrad(dout, rulebook, inverse, weights, v_in):
     return out
 
 
-def gather_gemm_wgrad(features, rulebook, dout):
+def gather_gemm_wgrad(features, rulebook, dout, rulebook_t=None):
     """Weight gradient of ``sparse_conv_gather_gemm``: features (V_in, Cin)
-    f32 or bf16, rulebook (V_out, K) int32, dout (V_out, Cout) f32.  Returns
-    (K, Cin, Cout) float32."""
+    f32 or bf16, rulebook (V_out, K) int32, dout (V_out, Cout) f32, and
+    optionally the rulebook transposed, (K, V_out) (``transpose_rulebook``;
+    the tensor-core route reads it, and transposes the rulebook itself when
+    it is not given).  Returns (K, Cin, Cout) float32."""
     global wgrad_launches
     if features.device.type == 'cpu':
         return gather_gemm_wgrad_plain(features, rulebook, dout)
@@ -113,17 +125,29 @@ def gather_gemm_wgrad(features, rulebook, dout):
     if not (features.is_contiguous() and rulebook.is_contiguous()
             and dout.is_contiguous()):
         raise ValueError('gather-GEMM wgrad: inputs must be contiguous')
+    mma = wgrad_route(features.dtype) == 'mma'
+    if mma:
+        if rulebook_t is None:
+            rulebook_t = transpose_rulebook(rulebook)
+        if rulebook_t.device != dev or rulebook_t.dtype != torch.int32 \
+                or tuple(rulebook_t.shape) != (k, v_out) or not rulebook_t.is_contiguous():
+            raise ValueError('gather-GEMM wgrad: the transposed rulebook must be a '
+                             f'contiguous ({k}, {v_out}) int32 tensor on {dev}')
+        if features.data_ptr() % 16 or dout.data_ptr() % 16 or rulebook_t.data_ptr() % 16:
+            raise ValueError('gather-GEMM wgrad: features, dout and the transposed '
+                             'rulebook must be 16-byte aligned')
     lib = cuda_build.load_library('gather_gemm_wgrad', _WSIG)
+    bf16 = int(features.dtype == torch.bfloat16)
     cut = (ctypes.c_int * 2)()
-    lib.gather_gemm_wgrad_slices(v_out, k, cout, cut)
+    lib.gather_gemm_wgrad_slices(v_out, k, cin, cout, bf16, cut)
     partial = torch.empty((cut[0], k, cin, cout), dtype=torch.float32, device=dev)
     dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_gemm_wgrad_launch(
-            features.data_ptr(), rulebook.data_ptr(), dout.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout,
-            int(features.dtype == torch.bfloat16), stream)
+            features.data_ptr(), rulebook.data_ptr(),
+            rulebook_t.data_ptr() if mma else None, dout.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, bf16, stream)
     cuda_build.check(lib, 'gather_gemm_wgrad', err)
     wgrad_launches += 1
     return dw
@@ -134,26 +158,27 @@ class SparseConvGatherGemm(torch.autograd.Function):
     forward kernel over the inverse rulebook (skipped when the features need
     no gradient, as at ``conv_input``, whose input comes from a VFE without
     parameters), wgrad through its own kernel.  The wrappers are looked up at
-    call time.  ``apply(features, weights, rulebook, inverse)``; ``inverse``
-    may be None when no input gradient will be asked for (eval)."""
+    call time.  ``apply(features, weights, rulebook, inverse, rulebook_t)``;
+    ``inverse`` and ``rulebook_t`` (the rulebook transposed, for the bf16
+    wgrad) may be None when no gradient will be asked for (eval)."""
 
     @staticmethod
-    def forward(ctx, features, weights, rulebook, inverse):
-        ctx.save_for_backward(features, weights, rulebook, inverse)
+    def forward(ctx, features, weights, rulebook, inverse, rulebook_t=None):
+        ctx.save_for_backward(features, weights, rulebook, inverse, rulebook_t)
         return sparse_conv_gather_gemm(features, rulebook, weights)
 
     @staticmethod
     def backward(ctx, dout):
-        features, weights, rulebook, inverse = ctx.saved_tensors
+        features, weights, rulebook, inverse, rulebook_t = ctx.saved_tensors
         dout = dout.contiguous()
         dfeat = dw = None
         if ctx.needs_input_grad[0]:
             dfeat = gather_gemm_dgrad(dout, rulebook, inverse, weights,
                                       features.shape[0]).to(features.dtype)
         if ctx.needs_input_grad[1]:
-            dw = gather_gemm_wgrad(features, rulebook, dout).to(weights.dtype)
-        return dfeat, dw, None, None
-
+            dw = gather_gemm_wgrad(features, rulebook, dout,
+                                   rulebook_t).to(weights.dtype)
+        return dfeat, dw, None, None, None
 
 
 def _launch(features, rulebook, weights):

@@ -208,3 +208,11 @@ def inverse_rulebook(rulebook, v_in: int):
     inv = torch.full((v_in * k + v_out * k,), -1, dtype=torch.int32, device=dev)
     inv.scatter_(0, flat.reshape(-1), o.reshape(-1))
     return inv[:v_in * k].view(v_in, k)
+
+
+def transpose_rulebook(rulebook):
+    """(V_out, K) rulebook → (K, V_out) int32, contiguous: the layout in which
+    the bf16 weight-gradient kernel (``ops/cuda_kernels.py``) reads one
+    offset's column coalesced.  Built once per rulebook, beside its inverse,
+    when a gradient is wanted."""
+    return rulebook.t().contiguous()

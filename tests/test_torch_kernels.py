@@ -479,29 +479,43 @@ def _backward_case(name):
     rulebook in which each (input, offset) feeds at most one output (as
     every real rulebook, so that its inverse exists), the inverse, features,
     weights and an f32 output gradient.  'k3_cout128' is conv_out
-    (K = 3, 64 -> 128: the dgrad's Cin is 128)."""
+    (K = 3, 64 -> 128: the dgrad's Cin is 128).  The SECOND backbone's
+    (Cin, Cout, K) are cin4 (conv_input), c16_16 (conv1), random (conv2.0),
+    c32_32 (conv2), ragged (conv3.0), wide (conv3, conv4) and k3_cout128
+    (conv_out); 'large' cuts its rows into many slices of two scan rounds
+    each, 'dense' fills every slice's hit list; 'empty_column' has an offset
+    without a hit; 'tiny_dout' and 'huge_dout' are 'single_hit' with the
+    output gradient scaled to ~1e-30 and ~1e30."""
     from crb_active_3ddet_torch.ops.sparse.rulebook import inverse_rulebook
     v_in, v_out, k, c_in, c_out, hit = {
         'random': (300, 200, 27, 16, 32, 0.3), 'cin4': (90, 70, 27, 4, 16, 0.3),
         'ragged': (150, 201, 27, 32, 64, 0.05), 'wide': (130, 100, 27, 64, 64, 0.5),
         'k3_cout128': (120, 77, 3, 64, 128, 0.7), 'all_missing': (40, 70, 27, 32, 32, 0.0),
-        'single_hit': (40, 100, 27, 16, 16, 0.0)}[name]
+        'single_hit': (40, 100, 27, 16, 16, 0.0), 'c16_16': (300, 251, 27, 16, 16, 0.3),
+        'c32_32': (260, 173, 27, 32, 32, 0.3), 'large': (40000, 50000, 27, 32, 32, 0.1),
+        'dense': (50000, 50000, 27, 16, 16, 1.0), 'empty_column': (300, 200, 27, 32, 64, 0.3),
+        'tiny_dout': (40, 100, 27, 16, 16, 0.0), 'huge_dout': (40, 100, 27, 16, 16, 0.0)}[name]
     rng = np.random.RandomState(13)
     rb = np.stack([np.resize(rng.permutation(v_in), v_out) for _ in range(k)], 1)
     rb[np.arange(v_out) >= v_in] = -1            # keep (input, offset) unique
     rb[rng.rand(v_out, k) >= hit] = -1
-    if name == 'single_hit':
+    if name in ('single_hit', 'tiny_dout', 'huge_dout'):
         rb[77, 13] = 5
+    if name == 'empty_column':
+        rb[:, 5] = -1
     rb = rb.astype(np.int32)
     feats = rng.randn(v_in, c_in).astype(np.float32)
     w = (rng.randn(k, c_in, c_out) * 0.1).astype(np.float32)
     dout = rng.randn(v_out, c_out).astype(np.float32)
+    dout *= {'tiny_dout': 1e-30, 'huge_dout': 1e30}.get(name, 1.0)
     inv = inverse_rulebook(_t(rb), v_in)
     return feats, _t(rb), inv, w, dout
 
 
 BACKWARD_CASES = ['random', 'cin4', 'ragged', 'wide', 'k3_cout128', 'all_missing',
                   'single_hit']
+WGRAD_CASES = BACKWARD_CASES + ['c16_16', 'c32_32', 'large', 'dense', 'empty_column',
+                                'tiny_dout', 'huge_dout']
 
 
 @pytest.mark.cuda
@@ -534,11 +548,14 @@ def test_gather_gemm_dgrad_kernel_matches_plain(cuda_device, dtype, name):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize('name', BACKWARD_CASES)
+@pytest.mark.parametrize('name', WGRAD_CASES)
 def test_gather_gemm_wgrad_kernel_matches_plain(cuda_device, dtype, name):
-    """wgrad: f32 products of the (widened) features and the output
-    gradient; error within 1e-5 of the sum of the products' magnitudes,
-    equal bits on a second run."""
+    """wgrad, both routes: bf16 features on tensor cores with the output
+    gradient as three bf16 terms (Cin 4 staged into 16 channels), f32 on
+    CUDA cores; error within 1e-5 of the sum of the products' magnitudes, equal
+    bits on a second run; the bf16 route the same with the transposed
+    rulebook given or built by the wrapper."""
+    from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
     feats, rb, _, w, dout = _backward_case(name)
     f = _t(feats).to(cuda_device, dtype)
@@ -553,11 +570,20 @@ def test_gather_gemm_wgrad_kernel_matches_plain(cuda_device, dtype, name):
     scale = gather_gemm_wgrad_plain(f.abs(), r, d.abs())
     assert torch.all((got - ref).abs() <= 1e-5 * scale + 1e-30)
     assert torch.equal(got, cuda_kernels.gather_gemm_wgrad(f, r, d))
+    assert torch.equal(got, cuda_kernels.gather_gemm_wgrad(f, r, d, transpose_rulebook(r)))
     if name == 'all_missing':
         assert torch.all(got == 0)
+    if name == 'empty_column':
+        per_offset = got.abs().sum((1, 2))
+        assert per_offset[5] == 0 and torch.all(per_offset[torch.arange(len(got)) != 5] > 0)
     if name == 'single_hit':
         torch.testing.assert_close(got[13], torch.outer(f[5].float(), d[77]),
                                    atol=1e-6, rtol=0)
+    if name in ('single_hit', 'tiny_dout', 'huge_dout'):
+        # one product an entry: the f32 product, to its own rounding
+        torch.testing.assert_close(got[13], torch.outer(f[5].float(), d[77]),
+                                   atol=0, rtol=1e-6)
+        assert int((got != 0).sum()) == int((torch.outer(f[5], d[77]) != 0).sum())
 
 
 @pytest.mark.cuda
@@ -579,6 +605,8 @@ def test_gather_gemm_backward_kernels_refuse_what_they_do_not_take(cuda_device):
                                        r, d)
     with pytest.raises(ValueError, match='not supported'):      # Cout 48
         cuda_kernels.gather_gemm_wgrad(f, r, d[:, :24].contiguous())
+    with pytest.raises(ValueError, match='transposed'):     # (V_out, K), not (K, V_out)
+        cuda_kernels.gather_gemm_wgrad(f.bfloat16(), r, d, r)
     with pytest.raises(ValueError, match='inverse'):
         cuda_kernels.gather_gemm_dgrad(d, r, None, ww, len(feats))
     with pytest.raises(ValueError, match='not supported'):      # dgrad Cout 4
