@@ -31,18 +31,23 @@ Run from the root of a checkout.  It
      CUDA events (a kernel shorter than its call's host time by replaying a
      CUDA graph of calls); the NMS mask also at its worst case (every box at
      one point) and on pairs that nearly touch;
-  6. drives SECOND's train step (``make_train_step``) at full width, batch
-     8, on the train split: launches per step (12 gather-GEMM forward, 11
-     dgrad, 12 wgrad), ms/step and samples/s, the stages, a profiled step,
-     the kernel path against the plain path (loss terms and every
-     parameter's gradient, bf16 and f32), and the dgrad and wgrad against
-     their plain versions at every layer's inputs, with their timings (the
-     wgrad on the route the step ran, tensor cores in bf16, and on its f32
-     route with the same numbers);
+  6. drives the train step (``make_train_step``) of SECOND and then of
+     PV-RCNN at full width, batch 8, on the train split (PV-RCNN's drawing
+     its RoI sample and Dropout masks from a CUDA generator): launches per
+     step (12 gather-GEMM forward, 11 dgrad, 12 wgrad; PV-RCNN also 1 FPS,
+     1 NMS mask at the TRAIN proposal NMS and 1 float overlap in the
+     proposal targets' 3D IoU), ms/step and samples/s, the stages, a
+     profiled step, the kernel path against the plain path (loss terms and
+     every parameter's gradient, bf16 and f32; PV-RCNN's from one common
+     set of RoI targets), and every kernel of the step against its plain
+     version at the step's inputs, with their timings (the wgrad on the
+     route the step ran, tensor cores in bf16, and on its f32 route with
+     the same numbers);
   7. runs a reduced SECOND and a reduced PV-RCNN in f32 on the card against
      the CPU path (which the CPU tests hold against the JAX reference),
-     predictions and recall record, and a reduced SECOND train step (loss
-     terms, gradients, updated parameters, BN statistics).
+     predictions and recall record, and a reduced train step of each (loss
+     terms, gradients, updated parameters, BN statistics; PV-RCNN's from
+     one set of RoI targets, without Dropout).
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -127,7 +132,24 @@ POINT_TOL = {'point_features_before_fusion': 5e-3, 'point_features': 8e-4,
 # below which no multiple means much.
 TRAIN_TOL = {'bf16': {'loss': 3e-3, 'cos': 0.75, 'median': 0.75},
              'f32': {'loss': 1e-6, 'grad': 2e-2, 'median': 6e-3}}
-TRAIN_LOSSES = ('rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss')
+# PV-RCNN's train step, kernel path vs plain path from one common set of RoI
+# targets and equal Dropout masks, as above.  Its point branch and RoI-grid
+# pool take a max over each group, and a summation-order difference flips
+# the argmax of near-tied slots, which moves the gradients behind those
+# max-pools (the CPU tests find up to 1e-2 in norm between the JAX and the
+# port's f32 gradients there, for the same reason).  Readings on an H100
+# 80GB HBM3 at 700 W (PERF.md, Findings; two runs, each path's own spread
+# 0): bf16 loss terms 8.2e-4, median 5.2e-2 and 7.4e-2, least cosine 0.933
+# (largest 0.36); f32 loss terms 3.7e-7 and 4.5e-7, largest 5.0e-3, median
+# 3.7e-4 and 4.3e-4, largest behind the max-pools 4.5e-3.  Limits 3-4x the
+# larger reading (the cosine's, 3.7x its distance from 1).
+PVRCNN_TRAIN_TOL = {'bf16': {'loss': 3e-3, 'cos': 0.75, 'median': 0.25},
+                    'f32': {'loss': 1.5e-6, 'grad': 2e-2, 'median': 1.5e-3}}
+RPN_LOSSES = ('rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss')
+TWO_STAGE_LOSSES = RPN_LOSSES + ('point_loss', 'rcnn_loss_cls', 'rcnn_loss_reg',
+                                 'rcnn_loss')
+# parameters whose gradient reaches them through a grouped max-pool
+BEHIND_MAX_POOL = ('backbone_3d.', 'pfe.', 'point_head.', 'roi_head.roi_grid_pool_layer.')
 SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
                  'conv3.0', 'conv3.1', 'conv3.2', 'conv4.0', 'conv4.1',
                  'conv4.2', 'conv_out']
@@ -326,6 +348,9 @@ def reduced_cfg(cfg):
         r.SHARED_FC, r.CLS_FC, r.REG_FC = [64, 64], [32, 32], [32, 32]
         r.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE = 256
         r.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 32
+        r.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = r.NMS_CONFIG.TRAIN.MATRIX_CAP = 256
+        r.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 64
+        r.TARGET_CONFIG.ROI_PER_IMAGE = 32
         r.ROI_GRID_POOL.GRID_SIZE = 4
         r.ROI_GRID_POOL.MLPS, r.ROI_GRID_POOL.NSAMPLE = [[16, 16], [16, 16]], [8, 8]
     return cfg
@@ -942,7 +967,7 @@ def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
     return results
 
 
-def train_stage_ms(model, optimizer, dataset, batch, iters=3):
+def train_stage_ms(model, optimizer, dataset, batch, generator=None, iters=3):
     """Host-clock time of each stage of one train step, synchronised at the
     stage boundaries: voxelize, forward (training mode, with the target
     assignment), loss, backward, optimizer (clip + AdamW)."""
@@ -961,7 +986,7 @@ def train_stage_ms(model, optimizer, dataset, batch, iters=3):
     for _ in range(iters):
         vox = timed('voxelize', prepare_device_batch, batch, dataset.voxel_cfg,
                     dataset.grid_size, dataset.point_cloud_range, dataset.voxel_size)
-        out = timed('forward', model, vox)
+        out = timed('forward', model, vox, generator)
         loss, _ = timed('loss', model.compute_loss, out)
         optimizer.zero_grad()
         timed('backward', loss.backward)
@@ -969,32 +994,44 @@ def train_stage_ms(model, optimizer, dataset, batch, iters=3):
     return totals
 
 
+def train_losses(model):
+    return TWO_STAGE_LOSSES if hasattr(model, 'roi_head') else RPN_LOSSES
+
+
 def grads_of(model, vox):
     """Forward in training mode, loss and backward from the model's present
-    weights: (loss terms, {parameter: gradient})."""
+    weights, the Dropout masks drawn from a generator of seed 1 on the
+    model's device (the same masks on every call): (loss terms,
+    {parameter: gradient})."""
     model.train()
     for p in model.parameters():
         p.grad = None
-    loss, tb = model.compute_loss(model(vox))
+    gen = torch.Generator(device=model.device).manual_seed(1)
+    loss, tb = model.compute_loss(model(vox, gen))
     loss.backward()
-    return ({k: tb[k].detach() for k in TRAIN_LOSSES},
+    return ({k: tb[k].detach() for k in train_losses(model)},
             {n: p.grad.clone() for n, p in model.named_parameters()})
 
 
 def _apart(a, b):
-    """Per parameter of two gradient dicts: (||a - b|| / ||b||, cosine)."""
-    return {n: (((a[n] - b[n]).norm() / b[n].norm()).item(),
-                torch.nn.functional.cosine_similarity(a[n].flatten(), b[n].flatten(),
-                                                      dim=0, eps=1e-30).item())
-            for n in b}
+    """Per parameter of two gradient dicts: (||a - b|| / ||b||, cosine); two
+    zero gradients are (0, 1)."""
+    def one(x, y):
+        if not (x.any() or y.any()):
+            return 0.0, 1.0
+        return (((x - y).norm() / y.norm()).item(),
+                torch.nn.functional.cosine_similarity(x.flatten(), y.flatten(), dim=0,
+                                                      eps=1e-30).item())
+    return {n: one(a[n], b[n]) for n in b}
 
 
-def check_train_kernel_path(model, vox, mode):
+def check_train_kernel_path(model, vox, mode, tols):
     """One train step's loss and gradients from the same weights and batch,
     on the kernel path and on the plain path, both on the card, each run
     twice (the caller turns torch's deterministic algorithms on; the
     hand-written kernels sum in a fixed order already); ``mode`` 'bf16' as
-    configured, 'f32' with USE_BF16 off in both backbones."""
+    configured, 'f32' with USE_BF16 off in both backbones; ``tols`` the
+    limits by mode."""
     cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
     saved = [c.get('USE_BF16', False) for c in cfgs]
     for c in cfgs:
@@ -1009,8 +1046,9 @@ def check_train_kernel_path(model, vox, mode):
         spread = sorted(e for e, _ in again.values())
         log(f'train {path} path run twice, {mode}: gradients ||diff||/||ref|| largest '
             f'{spread[-1]:.3e}, median {spread[len(spread) // 2]:.3e}')
-    tol = TRAIN_TOL[mode]
-    loss_err = {k: (abs(tb[k] - tb_ref[k]) / tb_ref[k].abs()).item() for k in TRAIN_LOSSES}
+    tol = tols[mode]
+    loss_err = {k: (abs(tb[k] - tb_ref[k]) / tb_ref[k].abs().clamp(min=1e-30)).item()
+                for k in train_losses(model)}
     apart = _apart(grads, grads_ref)
     worst = sorted(apart.items(), key=lambda kv: -kv[1][0])
     median = sorted(e for e, _ in apart.values())[len(apart) // 2]
@@ -1025,6 +1063,13 @@ def check_train_kernel_path(model, vox, mode):
     log(f'train kernel path vs plain, {mode}, per sparse layer weight gradient: '
         + ', '.join(f'{n.split(".", 1)[1][:-9]} {e:.2e}' for n, (e, _) in apart.items()
                     if n.startswith('backbone_3d') and n.endswith('.0.weight')))
+    if hasattr(model, 'roi_head'):
+        ahead = sorted(e for n, (e, _) in apart.items() if not n.startswith(BEHIND_MAX_POOL))
+        behind = sorted(e for n, (e, _) in apart.items() if n.startswith(BEHIND_MAX_POOL))
+        log(f'train kernel path vs plain, {mode}, gradients ||diff||/||ref|| ahead of the '
+            f'grouped max-pools: largest {ahead[-1]:.3e}, median {ahead[len(ahead) // 2]:.3e} '
+            f'({len(ahead)} parameters); behind them: largest {behind[-1]:.3e}, median '
+            f'{behind[len(behind) // 2]:.3e} ({len(behind)})')
     if not max(loss_err.values()) <= tol['loss']:
         raise RuntimeError(f'train step {mode}: loss terms differ kernel vs plain: '
                            f'{loss_err}')
@@ -1134,9 +1179,10 @@ def time_wgrad(name, args, n_launch):
     return entry
 
 
-def build_train(cfg, batch_size, device, seed):
-    """Train split loader (seeded shuffle and augmentation), seeded model,
-    AdamW on the config's one-cycle schedule, the train step."""
+def build_train(cfg, batch_size, device, seed, box_std=None):
+    """Train split loader (seeded shuffle and augmentation), seeded model
+    (``init_weights``, ``box_std`` the box layer's), AdamW on the config's
+    one-cycle schedule, the train step."""
     from crb_active_3ddet_torch.datasets import build_dataloader
     from crb_active_3ddet_torch.models.detectors import build_detector, init_weights
     from crb_active_3ddet_torch.runtime.optimization import build_optimizer
@@ -1144,7 +1190,7 @@ def build_train(cfg, batch_size, device, seed):
     dataset, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size,
                                           workers=0, training=True)
     model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cpu')
-    init_weights(model, torch.Generator().manual_seed(seed))
+    init_weights(model, torch.Generator().manual_seed(seed), box_std)
     model = model.to(device)
     total = int(cfg.OPTIMIZATION.NUM_EPOCHS) * len(loader)
     optimizer, schedule = build_optimizer(cfg.OPTIMIZATION, total, model.parameters())
@@ -1158,141 +1204,307 @@ def first_batch(loader):
     return next(iter(loader))
 
 
-def drive_train(dev, n_iter=5):
-    """SECOND's train step at full width, batch 8: counters to 0, one step,
-    counters read (12 K2 forward, 11 dgrad, 12 wgrad launches); outputs
-    checked; step time, stages, profile; kernel path vs plain path; dgrad
-    and wgrad against their plain versions at every layer's inputs."""
+def common_targets(model, vox, seed):
+    """One set of RoI targets for running two paths or two devices from it:
+    the TRAIN proposals of one forward of ``model``, the first max(8, P/16)
+    of each frame replaced by jittered copies of the frame's gt boxes (so
+    that the sample holds foreground), sampled by the RoI head's
+    ``assign_targets`` with a generator of ``seed`` on the model's device.
+    The model's weights and statistics are left as they were."""
+    from crb_active_3ddet_torch.models.roi_heads import roi_head_template as rht
+    from crb_active_3ddet_torch.utils.common import take_rows
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    dev, cfg = model.device, model.roi_head.model_cfg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model.train()
+    with torch.no_grad():
+        out = model(vox, gen)
+        props = rht.proposal_layer({k: out[k] for k in ('batch_box_preds',
+                                                        'batch_cls_preds')},
+                                   cfg['NMS_CONFIG']['TRAIN'])
+        gt = vox['gt_boxes']                        # valid rows first, then zeros
+        b, p = props['roi_valid'].shape
+        k = max(8, p // 16)
+        n_gt = torch.clamp((gt.abs().sum(-1) > 0).sum(-1, keepdim=True), min=1)
+        copies = take_rows(gt, (torch.rand(b, k, generator=gen, device=dev)
+                                * n_gt).long()).clone()
+        size = copies[..., 3:6]
+        copies[..., :3] += (torch.rand(b, k, 3, generator=gen, device=dev) - 0.5) * 0.1 * size
+        copies[..., 6] += (torch.rand(b, k, generator=gen, device=dev) - 0.5) * 0.2
+        props['rois'][:, :k] = copies[..., :7]
+        props['roi_labels'][:, :k] = copies[..., 7].long()
+        props['roi_scores'][:, :k] = 0.0
+        props['roi_valid'][:, :k] = True
+        targets = rht.assign_targets({**props, 'gt_boxes': gt}, cfg['TARGET_CONFIG'], gen)
+    model.load_state_dict(before)
+    return targets
+
+
+def drive_train(dev, cfg_file, prefix, tols, box_std=None, n_iter=5):
+    """One detector's train step at full width, batch 8: counters to 0, one
+    step, counters read (12 K2 forward, 11 dgrad, 12 wgrad launches; a
+    two-stage model also 1 FPS, 1 NMS mask and 1 float overlap); outputs
+    checked; step time, stages, profile; kernel path vs plain path (a
+    two-stage model's from one common set of RoI targets); every kernel of
+    the step against its plain version at the step's inputs.  Returns the
+    kernels' JSON entries."""
+    import warnings
     from crb_active_3ddet_torch.config import load_config
-    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap, iou3d,
+                                            nms, pointnet2)
     from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
                                                       prepare_device_batch)
-    cfg = load_config(SECOND_CFG)
-    log(f'==== {cfg.MODEL.NAME} train step: {SECOND_CFG}, train split, batch {BATCH} ====')
-    dataset, loader, state, step, schedule = build_train(cfg, BATCH, dev, seed=0)
+    cfg = load_config(cfg_file)
+    name = cfg.MODEL.NAME
+    log(f'==== {name} train step: {cfg_file}, train split, batch {BATCH} ====')
+    dataset, loader, state, step, schedule = build_train(cfg, BATCH, dev, seed=0,
+                                                         box_std=box_std)
     model = state.model
+    two_stage = hasattr(model, 'roi_head')
+    # the RoI sample and the Dropout masks are drawn on the card
+    gen = torch.Generator(device=dev).manual_seed(0) if two_stage else None
     host = first_batch(loader)
     batch = host_to_device_batch(host, dev)
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    dcalls, wcalls = [], []
+    captured, launched = [], []
+    dcalls, wcalls, mask_calls, fixpoint_calls, overlap_calls, fps_calls = [], [], [], [], [], []
+    layers = [m for m in model.backbone_3d.modules() if type(m).__name__ == 'SparseConvLayer']
+    hooks = [m.register_forward_pre_hook(lambda mod, args: captured.append(
+        (mod, args[0].detach(), args[1], cuda_kernels.launches))) for m in layers]
+    hooks += [m.register_forward_hook(lambda mod, args, out: launched.append(
+        cuda_kernels.launches - captured[len(launched)][3])) for m in layers]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     cuda_kernels.launches = cuda_kernels.dgrad_launches = cuda_kernels.wgrad_launches = 0
+    cuda_overlap.launches = cuda_overlap.mask_launches = cuda_fps.launches = 0
     with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls,
                    lambda: cuda_kernels.dgrad_launches), \
             recording(cuda_kernels, 'gather_gemm_wgrad', wcalls,
-                      lambda: cuda_kernels.wgrad_launches):
-        state, metrics = step(state, batch)
+                      lambda: cuda_kernels.wgrad_launches), \
+            recording(iou3d, 'boxes_overlap_bev_cuda', overlap_calls,
+                      lambda: cuda_overlap.launches), \
+            recording(nms, 'nms_mask', mask_calls, lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', fixpoint_calls), \
+            recording(pointnet2, 'farthest_point_sample_cuda', fps_calls,
+                      lambda: cuda_fps.launches):
+        state, metrics = step(state, batch, gen)
     torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
     counts = {'gather_gemm': cuda_kernels.launches,
               'gather_gemm_dgrad': cuda_kernels.dgrad_launches,
-              'gather_gemm_wgrad': cuda_kernels.wgrad_launches}
-    log(f'train step launches: {counts}; peak device memory '
+              'gather_gemm_wgrad': cuda_kernels.wgrad_launches,
+              'fps': cuda_fps.launches, 'nms_mask': cuda_overlap.mask_launches,
+              'overlap_bev': cuda_overlap.launches}
+    log(f'{name} train step launches: {counts}; peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    one = 1 if two_stage else 0
     expected = {'gather_gemm': len(SPARSE_LAYERS),
                 'gather_gemm_dgrad': len(SPARSE_LAYERS) - 1,
-                'gather_gemm_wgrad': len(SPARSE_LAYERS)}
+                'gather_gemm_wgrad': len(SPARSE_LAYERS),
+                'fps': one, 'nms_mask': one, 'overlap_bev': one}
     if counts != expected:
-        raise RuntimeError(f'train step launches {counts}, expected {expected}')
-    if [n for _, n, _ in dcalls] != [1] * len(dcalls) or \
-            [n for _, n, _ in wcalls] != [1] * len(wcalls):
-        raise RuntimeError('a dgrad or wgrad call did not launch its kernel exactly once')
+        raise RuntimeError(f'{name} train step launches {counts}, expected {expected}')
+    if launched != [1] * len(SPARSE_LAYERS) or any(
+            [n for _, n, _ in calls] != [1] * len(calls)
+            for calls in (dcalls, wcalls, mask_calls, overlap_calls, fps_calls)):
+        raise RuntimeError(f'{name}: a kernel call did not launch its kernel exactly once')
     values = {k: v.item() for k, v in metrics.items()}
-    if not all(np.isfinite(v) and v > 0 for v in values.values()):
-        raise RuntimeError(f'train step losses {values}')
+    # the RoI sample of random weights may hold no foreground slot, and
+    # then the box regression has nothing to regress
+    if not all(np.isfinite(v) and (v > 0 or (k == 'rcnn_loss_reg' and v == 0))
+               for k, v in values.items()):
+        raise RuntimeError(f'{name} train step losses {values}')
     for n, p in model.named_parameters():
         if p.grad is None or not torch.isfinite(p.grad).all():
-            raise RuntimeError(f'train step: no or non-finite gradient for {n}')
+            raise RuntimeError(f'{name} train step: no or non-finite gradient for {n}')
         if torch.equal(p, before[n]):
-            raise RuntimeError(f'train step: {n} did not move')
+            raise RuntimeError(f'{name} train step: {n} did not move')
     moved = [k for k in before if k.endswith('running_var')
              and not torch.equal(model.state_dict()[k], before[k])]
     if len(moved) != sum(1 for k in before if k.endswith('running_var')):
-        raise RuntimeError('train step: not every BatchNorm updated its running variance')
-    log('train step 1: ' + ', '.join(f'{k} {v:.4f}' for k, v in values.items())
+        raise RuntimeError(f'{name} train step: not every BatchNorm updated its running '
+                           'variance')
+    log(f'{name} train step 1: ' + ', '.join(f'{k} {v:.4f}' for k, v in values.items())
         + f'; lr {schedule(0):.3e}; every parameter moved, {len(moved)} BN running '
         'statistics updated')
 
     for _ in range(2):                                  # warm-up
-        step(state, batch)
+        step(state, batch, gen)
     torch.cuda.synchronize()
     t = time.perf_counter()
     for _ in range(n_iter):
-        _, m = step(state, batch)
+        _, m = step(state, batch, gen)
     m['loss'].item()
     step_s = (time.perf_counter() - t) / n_iter
-    log(f'SECONDNet train step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
+    log(f'{name} train step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
         f'{BATCH / step_s:.2f} samples/s; loss after {state.step} steps '
         f"{m['loss'].item():.4f}")
-    stages = train_stage_ms(model, state.optimizer, dataset, batch)
-    log('SECONDNet train step stages (ms, synchronised): ' + ', '.join(
+    stages = train_stage_ms(model, state.optimizer, dataset, batch, gen)
+    log(f'{name} train step stages (ms, synchronised): ' + ', '.join(
         f'{k} {v:.2f}' for k, v in stages.items()) + f'; sum {sum(stages.values()):.2f}')
-    profile_step(lambda b: step(state, b), batch)
+    profile_step(lambda b: step(state, b, gen), batch)
 
     # kernel path vs plain path from the seeded weights and with every op
     # deterministic, so that the readings repeat between runs (the steps
-    # above leave weights that do not)
+    # above leave weights that do not); a two-stage model from one common
+    # set of RoI targets, since the proposal NMS of random weights can pick
+    # other RoIs on the two paths
     model.load_state_dict(before)
-    torch.use_deterministic_algorithms(True, warn_only=True)
     vox = prepare_device_batch(batch, dataset.voxel_cfg, dataset.grid_size,
                                dataset.point_cloud_range, dataset.voxel_size)
-    check_train_kernel_path(model, vox, 'bf16')
-    check_train_kernel_path(model, vox, 'f32')
+    if two_stage:
+        targets = common_targets(model, vox, seed=2)
+        vox = {**vox, 'rois': targets['rois'], 'roi_targets_dict': targets}
+        labels = targets['rcnn_cls_labels']
+        log(f'{name} common RoI targets: {tuple(targets["rois"].shape)}, fg slots a frame '
+            f'{targets["reg_valid_mask"].sum(-1).tolist()}, cls labels 1 / soft / 0: '
+            f'{int((labels == 1).sum())} / {int(((labels > 0) & (labels < 1)).sum())} / '
+            f'{int((labels == 0).sum())}')
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter('always')
+        check_train_kernel_path(model, vox, 'bf16', tols)
+        check_train_kernel_path(model, vox, 'f32', tols)
     torch.use_deterministic_algorithms(False)
-    # dgrad runs from the last layer back (conv_out first, conv1.0 last);
-    # wgrad likewise, conv_input last
+    ops = sorted({str(w.message).split(' does not have')[0] for w in caught
+                  if 'deterministic' in str(w.message)})
+    log(f'{name} ops without a deterministic implementation (warned): {ops or "none"}')
+    model.load_state_dict(before)
+
+    # K2 forward at each layer's inputs; dgrad runs from the last layer back
+    # (conv_out first, conv1.0 last); wgrad likewise, conv_input last
+    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n)
+               for lname, (layer, feats, rbk, _), n in zip(SPARSE_LAYERS, captured, launched)]
     dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
-    results = [time_dgrad(f'train.gather_gemm_dgrad[{lname}]', args, n)
-               for lname, (args, n, _) in zip(dnames, dcalls)]
-    results += [time_wgrad(f'train.gather_gemm_wgrad[{lname}]', args, n)
+    results += [time_dgrad(f'{prefix}gather_gemm_dgrad[{lname}]', args, n)
+                for lname, (args, n, _) in zip(dnames, dcalls)]
+    results += [time_wgrad(f'{prefix}gather_gemm_wgrad[{lname}]', args, n)
                 for lname, (args, n, _) in zip(wnames, wcalls)]
     for lname, (args, _, _) in zip(wnames, wcalls):
         if args[0].shape[1] != dict(zip(SPARSE_LAYERS, (4, 16, 16, 32, 32, 32, 64, 64, 64,
                                                          64, 64, 64)))[lname]:
             raise RuntimeError(f'wgrad call order: {lname} has Cin {args[0].shape[1]}')
+    if two_stage:
+        ((boxes, alive, thresh), n, words), (_, _, (_, rounds)) = mask_calls[0], \
+            fixpoint_calls[0]
+        if not torch.equal(cuda_overlap.nms_mask(boxes, alive, thresh), words):
+            raise RuntimeError("nms_mask train proposal_nms: a second call differs from "
+                               "the step's")
+        results.append(time_mask(f'{prefix}nms_mask[proposal_nms]', boxes, alive, thresh,
+                                 n, rounds, f'{name} train proposal_nms'))
+        (a, b), n, _ = overlap_calls[0]
+        results.append(time_overlap(f'{prefix}overlap_bev[roi_targets]', a, b, n,
+                                    f'{name} train roi_targets'))
+        (points, valid, k), n, _ = fps_calls[0]
+        results.append(time_fps(f'{prefix}fps', points, valid, k, n))
     return results
 
 
-def check_reduced_train(dev):
-    """Reduced SECOND in f32, one train step from the same weights and
+# The reduced PV-RCNN f32 train step, card vs CPU: a summation-order
+# difference flips the argmax of near-tied slots of the grouped max-pools,
+# which moves the gradients behind them.  Readings on an H100 80GB HBM3 at
+# 700 W (PERF.md, Findings; two runs): 9.01e-5 and 8.73e-5.  Limit 4.4x the
+# larger.
+REDUCED_BEHIND_TOL = 4e-4
+# An updated entry whose two gradients (both |g| >= 1e-5) differ in sign
+# moves up to 2 lr apart; such entries may lie only behind the max-pools, at
+# most this share of their entries, each |g| within this share of its
+# parameter's largest |g| (the CPU tests' JAX-vs-port readings: 61 and 298
+# of 737 121 entries, each within 1.05e-3).
+SIGN_FLIPS = {'share': 2e-3, 'size': 5e-3}
+
+
+def check_reduced_train(dev, cfg_file, box_std=None):
+    """Reduced model in f32, one train step from the same weights and
     batch on the card and on the CPU: loss terms (rtol 1e-5), gradients
     (||diff|| <= 1e-4 ||ref|| + 1e-7), updated parameters (1e-6 where the
-    clipped |g| >= 1e-5, else 2 lr) and BN running statistics (1e-5)."""
+    clipped |g| >= 1e-5, else 2 lr) and BN running statistics (1e-5).
+    PV-RCNN without Dropout and from RoI targets drawn on the CPU
+    (``common_targets``; a CUDA generator draws other numbers), given to
+    the train step as ``rois`` and ``roi_targets_dict``; behind its grouped
+    max-pools the gradients within ``REDUCED_BEHIND_TOL``; the updated
+    parameters within 1e-5 where both clipped |g| >= 1e-5 with one sign
+    (its LR is 0.01), the entries of opposite signs held to
+    ``SIGN_FLIPS``."""
     from crb_active_3ddet_torch.config import load_config
-    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
-    small = reduced_cfg(load_config(SECOND_CFG))
-    out = []
-    for d in (dev, torch.device('cpu')):
-        _, loader, state, step, schedule = build_train(small, 2, d, seed=1)
-        state, m = step(state, host_to_device_batch(first_batch(loader), d))
-        out.append(({k: m[k].item() for k in TRAIN_LOSSES},
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
+                                                      prepare_device_batch)
+    small = reduced_cfg(load_config(cfg_file))
+    name = small.MODEL.NAME
+    two_stage = small.MODEL.get('ROI_HEAD', None) is not None
+    if two_stage:
+        small.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    keys, out, targets = RPN_LOSSES, [], None
+    for d in (torch.device('cpu'), dev):
+        dataset, loader, state, step, schedule = build_train(small, 2, d, seed=1,
+                                                             box_std=box_std)
+        batch = host_to_device_batch(first_batch(loader), d)
+        if two_stage:
+            keys = train_losses(state.model)
+            if targets is None:                          # on the CPU, first
+                targets = common_targets(state.model, prepare_device_batch(
+                    batch, dataset.voxel_cfg, dataset.grid_size,
+                    dataset.point_cloud_range, dataset.voxel_size), seed=2)
+            given = {k: v.to(d) for k, v in targets.items()}
+            batch = {**batch, 'rois': given['rois'], 'roi_targets_dict': given}
+        state, m = step(state, batch)
+        out.append(({k: m[k].item() for k in keys},
                     {n: p.grad.cpu() for n, p in state.model.named_parameters()},
                     {k: v.cpu() for k, v in state.model.state_dict().items()}))
-    (lg, gg, sg), (lc, gc, sc) = out
-    for k in TRAIN_LOSSES:
+    (lc, gc, sc), (lg, gg, sg) = out
+    for k in keys:
         if not abs(lg[k] - lc[k]) <= 1e-5 * abs(lc[k]):
-            raise RuntimeError(f'reduced SECOND train f32: {k} {lg[k]} card vs {lc[k]} CPU')
-    gerr = max(((gg[n] - gc[n]).norm() / (gc[n].norm() + 1e-30)).item() for n in gc)
+            raise RuntimeError(f'reduced {name} train f32: {k} {lg[k]} card vs {lc[k]} CPU')
+    behind = BEHIND_MAX_POOL if two_stage else ()
+    gerr = {n: ((gg[n] - gc[n]).norm() / (gc[n].norm() + 1e-30)).item() for n in gc}
     for n in gc:
-        if not (gg[n] - gc[n]).norm() <= 1e-4 * gc[n].norm() + 1e-7:
-            raise RuntimeError(f'reduced SECOND train f32: gradient of {n} card vs CPU')
+        tol = REDUCED_BEHIND_TOL if n.startswith(behind) else 1e-4
+        if not (gg[n] - gc[n]).norm() <= tol * gc[n].norm() + 1e-7:
+            raise RuntimeError(f'reduced {name} train f32: gradient of {n} card vs CPU '
+                               f'{gerr[n]:.3e}')
+    atol = 1e-5 if two_stage else 1e-6
     lr, loose, bn = schedule(0), 0, 0.0      # the step clipped the gradients in place
+    flips, flip_size, n_behind = 0, 0.0, 0
     for k, v in sc.items():
         d = (sg[k] - v).abs()
         if k.endswith(('running_mean', 'running_var')):
             bn = max(bn, d.max().item())
             if not d.max() <= 1e-5:
-                raise RuntimeError(f'reduced SECOND train f32: {k} card vs CPU')
+                raise RuntimeError(f'reduced {name} train f32: {k} card vs CPU')
         elif k in gc:
             firm = gc[k].abs() >= 1e-5
-            if not (d[firm] <= 1e-6).all() or not (d <= 2 * lr + 1e-7).all():
-                raise RuntimeError(f'reduced SECOND train f32: updated {k} card vs CPU')
-            loose += int((~firm & (d > 1e-6)).sum())
-    log(f'reduced SECONDNet train f32 card vs CPU: losses '
-        + ', '.join(f'{k} {lg[k]:.6f} / {lc[k]:.6f}' for k in TRAIN_LOSSES)
-        + f'; largest gradient ||diff||/||ref|| {gerr:.2e} (tol 1e-4); BN statistics '
-        f'max diff {bn:.2e} (tol 1e-5); {loose} updated entries with clipped |g| < 1e-5 '
-        f'differ by more than 1e-6 (within 2 lr)')
+            if two_stage:
+                firm &= gg[k].abs() >= 1e-5
+                flip = firm & (gg[k].sign() != gc[k].sign())
+                firm &= ~flip
+                if flip.any():
+                    size = (torch.maximum(gc[k].abs(), gg[k].abs())[flip].max()
+                            / gc[k].abs().max()).item()
+                    flip_size = max(flip_size, size)
+                    if not k.startswith(behind) or size > SIGN_FLIPS['size']:
+                        raise RuntimeError(f'reduced {name} train f32: gradient of {k} card '
+                                           f'vs CPU of opposite signs, |g| up to {size:.2e} '
+                                           'of its largest')
+                flips += int(flip.sum())
+                n_behind += v.numel() if k.startswith(behind) else 0
+            if not (d[firm] <= atol).all() or not (d <= 2 * lr + 1e-7).all():
+                raise RuntimeError(f'reduced {name} train f32: updated {k} card vs CPU')
+            loose += int((~firm & (d > atol)).sum())
+    if flips > SIGN_FLIPS['share'] * n_behind:
+        raise RuntimeError(f'reduced {name} train f32: {flips} gradient entries of opposite '
+                           f'signs card vs CPU, of {n_behind} behind the max-pools')
+    ahead = [e for n, e in gerr.items() if not n.startswith(behind)]
+    behind_err = [e for n, e in gerr.items() if n.startswith(behind)]
+    log(f'reduced {name} train f32 card vs CPU: losses '
+        + ', '.join(f'{k} {lg[k]:.6f} / {lc[k]:.6f}' for k in keys)
+        + f'; largest gradient ||diff||/||ref|| {max(ahead):.2e} (tol 1e-4)'
+        + (f', behind the grouped max-pools {max(behind_err):.2e} (tol '
+           f'{REDUCED_BEHIND_TOL:.0e}); {flips} entries of {n_behind} behind them '
+           f'with gradients of opposite signs, |g| up to {flip_size:.2e} of their '
+           'parameter\'s largest' if behind_err else '')
+        + f'; BN statistics max diff {bn:.2e} (tol 1e-5); {loose} updated entries not '
+        f'held to {atol:.0e} differ by more than it (within 2 lr)')
 
 
 def ablate_gather_gemm(dev):
@@ -1398,11 +1610,14 @@ def main():
     results = drive_path(SECOND_CFG, dev, '', ['nms'], ['recall'], n_iter=5)
     results += drive_path(PVRCNN_CFG, dev, 'pvrcnn.', ['proposal_nms', 'nms'],
                           ['recall'], n_iter=5)
-    results += drive_train(dev)
+    results += drive_train(dev, SECOND_CFG, 'train.', TRAIN_TOL)
+    # PV-RCNN trains from the JAX package's box layer init (init_weights)
+    results += drive_train(dev, PVRCNN_CFG, 'pvrcnn_train.', PVRCNN_TRAIN_TOL, box_std=0.001)
     mask_stress(dev)
     check_reduced(SECOND_CFG, dev)
     check_reduced(PVRCNN_CFG, dev)
-    check_reduced_train(dev)
+    check_reduced_train(dev, SECOND_CFG)
+    check_reduced_train(dev, PVRCNN_CFG, box_std=0.001)
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

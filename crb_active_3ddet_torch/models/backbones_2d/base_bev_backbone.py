@@ -17,15 +17,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..flax_layers import flax_batch_norm
+
 
 class FlaxBatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (eps 1e-3, momentum 0.01) whose training step is
-    Flax's ``nn.BatchNorm`` (``use_fast_variance``): the biased variance
-    ``max(E[x²] − E[x]², 0)`` both normalises and enters the running
-    variance, as ``0.99·old + 0.01·new`` (torch's own would enter the
-    unbiased one).  Eval is torch's, over the running statistics."""
-
-    KEEP = 0.99
+    Flax's ``nn.BatchNorm`` (``models/flax_layers.flax_batch_norm`` over
+    the NCHW channel axis).  Eval is torch's, over the running statistics."""
 
     def __init__(self, channels):
         super().__init__(channels, eps=1e-3, momentum=0.01)
@@ -33,17 +31,7 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x):
         if not self.training:
             return super().forward(x)
-        red = (0, 2, 3)
-        mean = x.mean(red)
-        var = torch.clamp((x * x).mean(red) - mean * mean, min=0.0)
-        with torch.no_grad():
-            self.running_mean.copy_(self.KEEP * self.running_mean
-                                    + (1 - self.KEEP) * mean)
-            self.running_var.copy_(self.KEEP * self.running_var
-                                   + (1 - self.KEEP) * var)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
+        return flax_batch_norm(x, self, channel_dim=1)
 
 
 def _bn(c):

@@ -8,8 +8,10 @@ and parameters carry OpenPCDet's names and shapes (``SA_rawpoints.mlps.0.0``
 is a bias-free 1×1 Conv2d, ``.1`` its BatchNorm2d; ``SA_layers.{k}`` in
 FEATURES_SOURCE order; ``vsa_point_feature_fusion.{0,1}``).  The tensors stay
 channels-last as in the JAX package, so a 1×1 conv is applied as a linear map
-over the last dim.  Eval only: BatchNorm uses its running statistics.
-``SAMPLE_METHOD: FPS`` only; the SPC sampling and the vector-pool aggregation
+over the last dim.  In training every BatchNorm takes Flax's batch
+statistics over all leading axes (``models/flax_layers.py``), with no mask,
+as the JAX modules' plain ``nn.BatchNorm``: zeroed empty groups and invalid
+keypoints count in the mean.  ``SAMPLE_METHOD: FPS`` only; the SPC sampling and the vector-pool aggregation
 of PV-RCNN++ are not ported yet.
 """
 
@@ -21,6 +23,7 @@ from torch import nn
 
 from ...ops import pointnet2 as pn2
 from ...utils.common import get_voxel_centers
+from ..flax_layers import flax_batch_norm, flax_dropout
 
 _BN_EPS = 1e-3
 
@@ -47,23 +50,30 @@ def pointwise_stack(channels, conv, norm, dropout_after=(), dp_ratio=0.0,
     return nn.Sequential(*layers)
 
 
-def run_pointwise(stack, x, taps=None):
+def run_pointwise(stack, x, taps=None, generator=None):
     """Apply a ``pointwise_stack`` to a channels-last tensor (..., C).  Each
-    ReLU output is appended to ``taps`` when a list is given."""
+    ReLU output is appended to ``taps`` when a list is given.  A BatchNorm
+    in training mode takes Flax's batch statistics over all leading axes; a
+    Dropout entry in training mode is Flax's, its mask drawn from
+    ``generator`` (it raises without one when p > 0), and the identity in
+    eval mode.  A caller that wants live Dropout beside eval-mode
+    BatchNorms (MC dropout) puts only the Dropout entries in training
+    mode."""
     for m in stack:
         if isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d)):
             x = F.linear(x, m.weight.flatten(1), m.bias)
         elif isinstance(m, nn.modules.batchnorm._BatchNorm):
             if m.training:
-                raise NotImplementedError('the point branch runs in eval mode only')
-            inv = torch.rsqrt(m.running_var + m.eps)
-            x = (x - m.running_mean) * (inv * m.weight) + m.bias
+                x = flax_batch_norm(x, m)
+            else:
+                inv = torch.rsqrt(m.running_var + m.eps)
+                x = (x - m.running_mean) * (inv * m.weight) + m.bias
         elif isinstance(m, nn.ReLU):
             x = torch.relu(x)
             if taps is not None:
                 taps.append(x)
-        else:
-            x = m(x)                      # Dropout: identity in eval mode
+        else:                                           # nn.Dropout
+            x = flax_dropout(x, m.p, m.training, generator)
     return x
 
 

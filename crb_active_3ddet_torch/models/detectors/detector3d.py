@@ -3,8 +3,11 @@
 ``detector3d_template.py:24-53``, ``second_net.py:9-34``, ``pv_rcnn.py:9-43``):
 vfe → backbone_3d → map_to_bev → [pfe] → backbone_2d → dense_head →
 [point_head → roi_head]; the bracketed modules are built when the config
-names them.  ``compute_loss`` is the training loss of the anchor head
-(``detector3d.py:154-218``); the other heads' losses are not ported yet.
+names them.  ``compute_loss`` is the training loss (``detector3d.py:
+154-218``): the anchor head's, plus the point head's and the RoI head's
+when the forward made their targets.  The modules that draw random numbers
+in training (PV-RCNN's RoI head: the RoI sample and its Dropout) take the
+``torch.Generator`` that ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -22,10 +25,13 @@ from ..backbones_3d.spconv_backbone import SparseConv3d, build_backbone_3d
 from ..backbones_3d.vfe import build_vfe
 from ..dense_heads import anchor_head_single as ahs
 from ..dense_heads.anchor_head_single import build_dense_head
+from ..point_heads import point_head_simple as phs
 from ..point_heads.point_head_simple import build_point_head
+from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
 
 _PORTED = {'SECONDNet', 'PVRCNN'}
+_DRAWS = ('roi_head',)          # modules whose training forward draws
 
 
 class Detector3D(nn.Module):
@@ -69,32 +75,54 @@ class Detector3D(nn.Module):
     def device(self):
         return self.dense_head.conv_cls.weight.device
 
-    def forward(self, batch_dict):
+    def forward(self, batch_dict, generator=None):
+        """``generator`` (a ``torch.Generator`` on the model's device) feeds
+        the modules that draw in training; such a module raises without
+        one."""
         batch_dict = dict(batch_dict)       # never mutate the caller's dict
         for name in self.module_topology:
-            batch_dict = getattr(self, name)(batch_dict)
+            module = getattr(self, name)
+            batch_dict = module(batch_dict, generator) if name in _DRAWS \
+                else module(batch_dict)
         return batch_dict
 
     def compute_loss(self, batch_dict, reduce: bool = True):
-        """Training loss over the forward's output (training mode): the
-        anchor head's rpn loss, as the JAX ``compute_loss`` gives SECOND.
-        Returns (loss, {term: value}); ``reduce=False`` keeps one loss a
-        frame."""
-        others = [m for m in ('POINT_HEAD', 'ROI_HEAD')
-                  if self.model_cfg.get(m, None) is not None]
-        if others:
-            raise NotImplementedError(f'the losses of {others} are not ported yet')
+        """Training loss over the forward's output (training mode), as the
+        JAX ``compute_loss``: the anchor head's rpn loss, plus point_loss
+        when the point head assigned its targets and the rcnn loss when the
+        RoI head did.  Returns (loss, {term: value}); ``reduce=False`` keeps
+        one loss a frame."""
         loss, tb = ahs.get_loss(batch_dict, self.dense_head, reduce=reduce)
+        if 'point_cls_labels' in batch_dict:
+            lw = self.model_cfg['POINT_HEAD']['LOSS_CONFIG']['LOSS_WEIGHTS']
+            point_loss = phs.get_point_loss(batch_dict, lw, reduce=reduce)
+            loss = loss + point_loss
+            tb['point_loss'] = point_loss
+        if 'roi_targets' in batch_dict:
+            rcnn_loss, rcnn_tb = rht.get_rcnn_loss(
+                batch_dict['roi_targets'], self.model_cfg['ROI_HEAD']['LOSS_CONFIG'],
+                reduce=reduce)
+            loss = loss + rcnn_loss
+            tb.update(rcnn_tb)
+            tb['rcnn_loss'] = rcnn_loss
         return loss, {**tb, 'loss': loss}
 
 
-def init_weights(model, generator: torch.Generator):
+def init_weights(model, generator: torch.Generator, box_std=None):
     """Seeded random weights: normal(0, 1/√fan_in) for every weight, small
     normal biases and BN affine terms, positive running variances.  The
     anchor head keeps its focal-loss prior on the cls bias.  Fan-in: a sparse
     conv weight is (K, Cin, Cout); every other weight (Conv2d, Conv1d,
-    ConvTranspose2d as laid out, Linear) has its outputs first."""
+    ConvTranspose2d as laid out, Linear) has its outputs first.
+
+    ``box_std`` given, the anchor head's box layer weight is then drawn
+    again, normal(0, box_std), as the JAX package and OpenPCDet draw
+    ``conv_box`` (std 0.001).  A two-stage model trains from it: at
+    1/√fan_in its decoded proposals reach 1e26 m and overflow the RoI head's
+    decode and corner loss.  The default keeps the weights from which the
+    SECOND and eval readings of ``chip_smoke.py`` were recorded."""
     cls_bias = model.dense_head.conv_cls.bias
+    box_weight = model.dense_head.conv_box.weight
     sparse = {id(m.weight) for m in model.modules() if isinstance(m, SparseConv3d)}
     with torch.no_grad():
         for name, p in model.named_parameters():
@@ -115,6 +143,8 @@ def init_weights(model, generator: torch.Generator):
                 buf.copy_(0.05 * torch.randn(buf.shape, generator=generator))
             elif name.endswith('running_var'):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=generator))
+        if box_std is not None:       # drawn last: the other weights stay as without it
+            box_weight.copy_(box_std * torch.randn(box_weight.shape, generator=generator))
     return model
 
 

@@ -1,15 +1,19 @@
-"""PV-RCNN RoI head (torch), eval mode: port of
+"""PV-RCNN RoI head (torch): port of
 ``crb_active_3ddet_tpu/models/roi_heads/pvrcnn_head.py`` (reference
-``pcdet/models/roi_heads/pvrcnn_head.py``): RoI-grid pooling over the
-keypoint features, the shared FC tower, the cls/reg heads and the box decode.
+``pcdet/models/roi_heads/pvrcnn_head.py``): the proposal layer, in training
+the proposal targets, RoI-grid pooling over the keypoint features, the
+shared FC tower with its Dropout, the cls/reg heads and, in eval, the box
+decode.
 
 Module names and layouts are OpenPCDet's (``roi_grid_pool_layer``,
 ``shared_fc_layer``, ``cls_layers``, ``reg_layers``: Conv1d(k=1) + BatchNorm1d
 stacks with Dropout entries), with one difference kept from the JAX package:
 the shared FC reads the pooled grid flattened grid-major, (B·R, G³·C), where
-OpenPCDet flattens channel-major.  The MC-dropout rounds, the LossNet taps and
-the shared-feature export of the pool scorers call ``tower`` again and are
-not ported yet; neither are target assignment and the losses.
+OpenPCDet flattens channel-major.  The training forward draws the RoI
+sample and the Dropout masks from the ``torch.Generator`` it is given.  The
+MC-dropout rounds, the LossNet taps and the shared-feature export of the
+pool scorers call ``tower`` again and are not ported yet; a training config
+with a LossNet raises.
 """
 
 from __future__ import annotations
@@ -86,25 +90,47 @@ class PVRCNNHead(nn.Module):
             grid_pts, grid_valid, point_features)               # (B, R·G³, C)
         return pooled.reshape(b * r, -1)
 
-    def tower(self, pooled):
+    def tower(self, pooled, generator=None):
         """(B·R, G³·C) → shared features, rcnn_cls, rcnn_reg and the shared
         layers' activations.  Dropout entries follow the modules' own mode
-        (identity in eval), so a pool scorer can call this again with them
-        live."""
+        (identity in eval) and draw from ``generator`` when live, so a pool
+        scorer can call this again with only them in training mode."""
         latents = []
-        shared = run_pointwise(self.shared_fc_layer, pooled, taps=latents)
-        return (shared, run_pointwise(self.cls_layers, shared),
-                run_pointwise(self.reg_layers, shared), latents)
+        shared = run_pointwise(self.shared_fc_layer, pooled, taps=latents,
+                               generator=generator)
+        return (shared, run_pointwise(self.cls_layers, shared, generator=generator),
+                run_pointwise(self.reg_layers, shared, generator=generator), latents)
 
-    def forward(self, batch_dict):
-        if self.training:
-            raise NotImplementedError('PVRCNNHead runs in eval mode only')
+    def forward(self, batch_dict, generator=None):
+        """Eval: proposals (NMS_CONFIG.TEST) unless ``rois`` are given, the
+        tower, the decoded boxes.  Training: proposals (NMS_CONFIG.TRAIN),
+        the targets sampled with ``generator`` and the tower on the sampled
+        RoIs with live Dropout; or, given ``rois`` and their
+        ``roi_targets_dict``, the tower on those.  ``roi_targets`` then
+        carries the targets with rcnn_cls and rcnn_reg."""
+        cfg = self.model_cfg
+        if self.training and cfg.get('LOSS_NET', None):
+            raise NotImplementedError('the LossNet of the llal strategy is not ported yet')
         if 'rois' not in batch_dict:
             batch_dict = rht.proposal_layer(
-                batch_dict, self.model_cfg['NMS_CONFIG']['TEST'])
-        _, rcnn_cls, rcnn_reg, _ = self.tower(self.roi_grid_pool(batch_dict))
+                batch_dict, cfg['NMS_CONFIG']['TRAIN' if self.training else 'TEST'])
+            if self.training:
+                targets = rht.assign_targets(batch_dict, cfg['TARGET_CONFIG'],
+                                             generator)
+                batch_dict['rois'] = targets['rois']
+                batch_dict['roi_labels'] = targets['roi_labels']
+                batch_dict['roi_valid'] = torch.ones(targets['rois'].shape[:2],
+                                                     dtype=torch.bool,
+                                                     device=targets['rois'].device)
+        elif self.training:
+            targets = batch_dict['roi_targets_dict']
+        _, rcnn_cls, rcnn_reg, _ = self.tower(self.roi_grid_pool(batch_dict), generator)
         batch_dict['rcnn_cls'] = rcnn_cls
         batch_dict['rcnn_reg'] = rcnn_reg
+        if self.training:
+            batch_dict['roi_targets'] = {**targets, 'rcnn_cls': rcnn_cls,
+                                         'rcnn_reg': rcnn_reg}
+            return batch_dict
         batch_cls, batch_box = rht.generate_predicted_boxes(
             batch_dict['rois'], rcnn_cls, rcnn_reg)
         batch_dict['batch_cls_preds'] = batch_cls

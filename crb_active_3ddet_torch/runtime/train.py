@@ -31,7 +31,9 @@ def prepare_device_batch(batch, voxel_cfg, grid_size, point_cloud_range,
                          voxel_size):
     """Device tensors → the model's input dict, with per-frame voxelization
     on the tensors' device.  Camera-only models carry no points/voxel_cfg —
-    image keys pass through."""
+    image keys pass through, and so do given ``rois`` with their
+    ``roi_targets_dict`` (the two-stage heads' branch for precomputed RoI
+    targets)."""
     out = {}
     if 'points' in batch and voxel_cfg is not None:
         points = batch['points']            # (B, N, C)
@@ -57,8 +59,9 @@ def prepare_device_batch(batch, voxel_cfg, grid_size, point_cloud_range,
         if k in batch:
             out[k] = batch[k]
             out.setdefault('batch_size', batch[k].shape[0])
-    if 'gt_boxes' in batch:
-        out['gt_boxes'] = batch['gt_boxes']
+    for k in ('gt_boxes', 'rois', 'roi_targets_dict'):
+        if k in batch:
+            out[k] = batch[k]
     return out
 
 
@@ -87,18 +90,21 @@ def init_train_state(model, optimizer):
 
 
 def make_train_step(model, optimizer, dataset):
-    """Returns ``train_step(state, device_batch) -> (state, metrics)``;
-    ``metrics`` holds the loss and its scalar terms as device tensors.  The
-    JAX step's dropout key has no counterpart yet: SECOND draws none."""
+    """Returns ``train_step(state, device_batch, generator=None) -> (state,
+    metrics)``; ``metrics`` holds the loss and its scalar terms as device
+    tensors.  ``generator`` stands where the JAX step takes its dropout key:
+    a ``torch.Generator`` on the model's device (a CUDA generator on the
+    card), from which PV-RCNN's RoI sampler and Dropout draw; SECOND draws
+    nothing and needs none."""
     voxel_cfg = dataset.voxel_cfg
     grid_size = tuple(int(g) for g in dataset.grid_size)
     pcr = tuple(float(x) for x in dataset.point_cloud_range)
     vs = tuple(float(v) for v in dataset.voxel_size)
 
-    def train_step(state, device_batch):
+    def train_step(state, device_batch, generator=None):
         model.train()
         batch = prepare_device_batch(device_batch, voxel_cfg, grid_size, pcr, vs)
-        out = model(batch)
+        out = model(batch, generator)
         loss, tb = model.compute_loss(out)
         optimizer.zero_grad()
         loss.backward()
@@ -111,10 +117,12 @@ def make_train_step(model, optimizer, dataset):
     return train_step
 
 
-def train_one_epoch(state, train_step, loader, device='cuda'):
+def train_one_epoch(state, train_step, loader, device='cuda', generator=None):
     """One pass over ``loader`` (parity ``train_utils.train_one_epoch``):
-    each host batch to ``device``, one step.  The losses stay on the device
-    and are read once, at the end.  Returns (state, mean loss)."""
-    losses = [train_step(state, host_to_device_batch(batch, device))[1]['loss']
+    each host batch to ``device``, one step drawing from ``generator``.  The
+    losses stay on the device and are read once, at the end.  Returns
+    (state, mean loss)."""
+    losses = [train_step(state, host_to_device_batch(batch, device),
+                         generator)[1]['loss']
               for batch in loader]
     return state, float(torch.stack(losses).mean()) if losses else float('nan')

@@ -1,4 +1,5 @@
-"""Box geometry utilities (host-side numpy).
+"""Box geometry utilities (host-side numpy; the corners and the enlarged
+boxes also on torch tensors).
 
 Copy of the numpy parts of ``crb_active_3ddet_tpu/utils/box_utils.py``
 (reference parity: ``pcdet/utils/box_utils.py`` boxes_to_corners_3d
@@ -15,6 +16,7 @@ heading the rotation around +z (counter-clockwise, 0 along +x).
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from . import common
 
@@ -27,8 +29,11 @@ _CORNER_TEMPLATE = np.array([
 
 
 def boxes_to_corners_3d(boxes3d):
-    """(N, 7) boxes → (N, 8, 3) corners."""
-    corners = boxes3d[:, None, 3:6] * _CORNER_TEMPLATE[None, :, :]  # (N, 8, 3)
+    """(N, 7) boxes → (N, 8, 3) corners; numpy arrays or torch tensors."""
+    template = _CORNER_TEMPLATE
+    if isinstance(boxes3d, torch.Tensor):
+        template = torch.from_numpy(template).to(boxes3d)
+    corners = boxes3d[:, None, 3:6] * template[None, :, :]  # (N, 8, 3)
     corners = common.rotate_points_along_z(corners, boxes3d[:, 6])
     return corners + boxes3d[:, None, 0:3]
 
@@ -60,7 +65,12 @@ def mask_boxes_outside_range_numpy(boxes, limit_range, min_num_corners=1):
 
 
 def enlarge_box3d(boxes3d, extra_width=(0, 0, 0)):
-    """Grow each box by extra_width on each size axis (reference :236-249)."""
+    """Grow each box by extra_width on each size axis (reference :236-249).
+    A torch tensor may have any leading axes, (..., M, 7+)."""
+    if isinstance(boxes3d, torch.Tensor):
+        extra = torch.tensor(extra_width, dtype=boxes3d.dtype, device=boxes3d.device)
+        return torch.cat([boxes3d[..., :3], boxes3d[..., 3:6] + extra,
+                          boxes3d[..., 6:]], dim=-1)
     out = np.asarray(boxes3d).copy()
     out[:, 3:6] += np.asarray(extra_width, dtype=out.dtype)
     return out

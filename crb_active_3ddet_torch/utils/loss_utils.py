@@ -1,6 +1,6 @@
-"""Loss functions (torch). Port of the anchor head's losses in
-``crb_active_3ddet_tpu/utils/loss_utils.py:16-72`` (reference
-``pcdet/utils/loss_utils.py``).
+"""Loss functions (torch). Port of ``crb_active_3ddet_tpu/utils/loss_utils.py``
+:16-90, the anchor head's losses and the RoI head's BCE and corner loss
+(reference ``pcdet/utils/loss_utils.py``).
 
 Every loss is elementwise or per anchor and returns an unreduced tensor, so
 that the caller applies the weighting and keeps the ``reduce=False``
@@ -9,12 +9,16 @@ per-sample mode that BADGE, CRB and llal read.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from . import box_utils
 
-def _bce_with_logits(input, target):
-    """Numerically stable, unreduced BCE with logits, in the JAX order."""
+
+def binary_cross_entropy_with_logits(input, target):
+    """Numerically stable, unreduced BCE with logits, in the JAX order (the
+    RoI head's cls loss and the focal loss's BCE)."""
     return (torch.clamp(input, min=0) - input * target
             + torch.log1p(torch.exp(-torch.abs(input))))
 
@@ -27,7 +31,7 @@ def sigmoid_focal_cls_loss(input, target, weights, gamma: float = 2.0,
     alpha_weight = target * alpha + (1 - target) * (1 - alpha)
     pt = target * (1.0 - pred_sigmoid) + (1.0 - target) * pred_sigmoid
     focal_weight = alpha_weight * torch.pow(pt, gamma)
-    loss = focal_weight * _bce_with_logits(input, target)
+    loss = focal_weight * binary_cross_entropy_with_logits(input, target)
     if weights.ndim == loss.ndim - 1:
         weights = weights[..., None]
     return loss * weights
@@ -70,3 +74,16 @@ def weighted_cross_entropy_loss(input, target, weights):
     """input (B, A, C) logits; target (B, A, C) one-hot; weights (B, A).
     Returns (B, A)."""
     return -(target * F.log_softmax(input, dim=-1)).sum(dim=-1) * weights
+
+
+def get_corner_loss_lidar(pred_bbox3d, gt_bbox3d):
+    """Corner loss against the nearer of the gt box and the gt box turned by
+    π: pred/gt (N, 7) → (N,) smooth-L1 (beta 1) of each corner's distance,
+    averaged over the 8 corners (reference ``loss_utils.py:210-239``)."""
+    pred_corners = box_utils.boxes_to_corners_3d(pred_bbox3d)
+    gt_corners = box_utils.boxes_to_corners_3d(gt_bbox3d)
+    gt_flip = torch.cat([gt_bbox3d[:, :6], gt_bbox3d[:, 6:7] + np.pi], dim=1)
+    gt_corners_flip = box_utils.boxes_to_corners_3d(gt_flip)
+    dist = torch.minimum(torch.linalg.norm(pred_corners - gt_corners, dim=-1),
+                         torch.linalg.norm(pred_corners - gt_corners_flip, dim=-1))
+    return smooth_l1_loss(dist, beta=1.0).mean(dim=1)
