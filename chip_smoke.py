@@ -47,7 +47,20 @@ Run from the root of a checkout.  It
      the CPU path (which the CPU tests hold against the JAX reference),
      predictions and recall record, and a reduced train step of each (loss
      terms, gradients, updated parameters, BN statistics; PV-RCNN's from
-     one set of RoI targets, without Dropout).
+     one set of RoI targets, without Dropout);
+  8. runs the active-learning loop (``train_model_active``) on SECOND at the
+     full width of second_synth_active_entropy.yaml, batch 4, under
+     PyTorch's default precision settings (the port's f32 guard checked at
+     every convolution): pretrain from the JAX model's init, two rounds of
+     entropy scoring over the pool, selection and retraining from the init
+     weights; launches per train step and per scored pool batch exactly,
+     every K1 and K2 call of the scans against its plain version, ms/step,
+     ms per pool batch and scans/s; then the confidence, random, coreset
+     and entropy queries over the round-1 pool (launches per scored batch
+     exactly), the full scan at the eval phase's seeded weights and cls
+     bias on the kernel path against the plain path (live boxes and an
+     untied top-4 box_entropy required, every anchor's cls logit equal), a
+     profiled scan, and a reduced f32 scan card vs CPU.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -686,12 +699,12 @@ def rulebook_emptiness(name, rbk):
     log('; '.join(parts))
 
 
-def time_gather_gemm(name, layer, feats, rbk, n_launch):
+def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16):
     """Hold the gather-GEMM against its plain version at one layer's inputs
-    (bf16, as the main path feeds it); time both and the matmul yardstick."""
+    (in ``cdt``, as the main path feeds it: bf16 on tensor cores, f32 on CUDA
+    cores); time both and the matmul yardstick."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
-    cdt = torch.bfloat16
     b_, v, cin = feats.shape
     f = feats.to(cdt).reshape(b_ * v, cin).contiguous()
     w = layer[0].weight.to(cdt).contiguous()
@@ -712,7 +725,7 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch):
     w2 = w.reshape(k * cin, cout)
     lib_ms = graph_time_ms(lambda: torch.matmul(g, w2))
     nnz = int((rbk >= 0).sum())
-    nbytes = f.numel() * 2 + rbk.numel() * 4 + w.numel() * 2 + ref.numel() * 4
+    nbytes = (f.numel() + w.numel()) * f.element_size() + rbk.numel() * 4 + ref.numel() * 4
     entry = _entry(name, 'crb_active_3ddet_torch/csrc/gather_gemm.cu',
                    'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
                    plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[cdt], lib_ms)
@@ -1080,21 +1093,29 @@ def check_train_kernel_path(model, vox, mode, tols):
                            f'least cosine {least_cos[1][1]:.6f} ({least_cos[0]})')
 
 
-def time_dgrad(name, args, n_launch):
+def time_dgrad(name, args, n_launch, f64_tol=None):
     """Hold the dgrad (K2 over the inverse rulebook) against its plain
     version at one layer's backward inputs (error over the sum of the
-    products' magnitudes, as the wgrad's), check equal bits on a second
-    run; time both and the matmul yardstick over the materialised inverse
-    gather."""
+    products' magnitudes, as the wgrad's, within 1e-5; given ``f64_tol``,
+    against the plain version in f64 within that, the f32 plain version's
+    own error beside it), check equal bits on a second run; time both and
+    the matmul yardstick over the materialised inverse gather."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
     dout, rbk, inv, w, v_in = args
+    tol = 1e-5 if f64_tol is None else f64_tol
+    up = (lambda t: t) if f64_tol is None else (lambda t: t.double())
     got = cuda_kernels.gather_gemm_dgrad(*args)
-    ref = gather_gemm_dgrad_plain(dout, rbk, w, v_in)
-    scale = gather_gemm_dgrad_plain(dout.abs(), rbk, w.abs(), v_in)
-    err = ((got - ref).abs() / (scale + 1e-30)).max().item()
-    if not err <= 1e-5:
-        raise RuntimeError(f'{name}: max err {err} of the products\' magnitude > 1e-5')
+    ref = gather_gemm_dgrad_plain(up(dout), rbk, up(w), v_in)
+    scale = gather_gemm_dgrad_plain(up(dout).abs(), rbk, up(w).abs(), v_in) + 1e-30
+    err = ((got - ref).abs() / scale).max().item()
+    if f64_tol is not None:
+        plain_err = ((gather_gemm_dgrad_plain(dout, rbk, w, v_in) - ref).abs()
+                     / scale).max().item()
+        log(f'{name}: err {err:.2e} of the products\' magnitude against f64, the f32 '
+            f'plain version\'s {plain_err:.2e} (tol {tol:.0e})')
+    if not err <= tol:
+        raise RuntimeError(f'{name}: max err {err} of the products\' magnitude > {tol}')
     ref_max, ref_median = ref.abs().max().item(), ref.abs().median().item()
     if not torch.equal(got, cuda_kernels.gather_gemm_dgrad(*args)):
         raise RuntimeError(f'{name}: two runs on the same inputs differ')
@@ -1112,7 +1133,7 @@ def time_dgrad(name, args, n_launch):
                    'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
                    plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[w.dtype], lib_ms)
     log(f'{name}: V_in {v_in} K {k} {cout}->{cin} nnz {nnz}: |ref| max {ref_max:.3e}, '
-        f'median {ref_median:.3e}; err {err:.2e} of the products\' magnitude (tol 1e-5), '
+        f'median {ref_median:.3e}; err {err:.2e} of the products\' magnitude (tol {tol:.0e}), '
         f'equal bits on a second run; call {ms:.4f} ms on the card (graph '
         f'replay: cast of dout, W transposed, pack, kernel), plain {plain_ms:.4f} ms, '
         f'matmul yardstick {lib_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
@@ -1120,7 +1141,7 @@ def time_dgrad(name, args, n_launch):
     return entry
 
 
-def time_wgrad(name, args, n_launch):
+def time_wgrad(name, args, n_launch, f64_tol=None):
     """Hold the wgrad kernel against its plain version at one layer's
     backward inputs (error over the sum of the products' magnitudes, which
     bounds an f32 sum's rounding), check equal bits on a second run, on the
@@ -1129,20 +1150,30 @@ def time_wgrad(name, args, n_launch):
     matmul yardstick over the materialised gather and the transpose of the
     rulebook that the tensor-core route reads.  ``bound_ms`` counts the
     route's own arithmetic (three bf16 products at the bf16 peak on tensor
-    cores), ``bound_f32_ms`` the f32 products at the f32 peak."""
+    cores), ``bound_f32_ms`` the f32 products at the f32 peak.  The errors
+    are held within 1e-5; given ``f64_tol``, against the plain version in
+    f64 within that, the f32 plain version's own error beside them."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
     feats, rbk, dout = args[:3]
     route = cuda_kernels.wgrad_route(feats.dtype)
+    tol = 1e-5 if f64_tol is None else f64_tol
+    up = (lambda t: t) if f64_tol is None else (lambda t: t.double())
     errs = {}
     for r, xa in ((route, args), ('f32', (feats.float(), rbk, dout))):
         got = cuda_kernels.gather_gemm_wgrad(*xa)
-        ref = gather_gemm_wgrad_plain(xa[0], rbk, dout)
-        scale = gather_gemm_wgrad_plain(xa[0].abs(), rbk, dout.abs())
-        err = ((got - ref).abs() / (scale + 1e-30)).max().item()
-        if not err <= 1e-5:
-            raise RuntimeError(f'{name} ({r}): max err {err} of the products\' magnitude > 1e-5')
+        ref = gather_gemm_wgrad_plain(up(xa[0]), rbk, up(dout))
+        scale = gather_gemm_wgrad_plain(up(xa[0]).abs(), rbk, up(dout).abs()) + 1e-30
+        err = ((got - ref).abs() / scale).max().item()
+        if f64_tol is not None:
+            plain_err = ((gather_gemm_wgrad_plain(xa[0], rbk, dout) - ref).abs()
+                         / scale).max().item()
+            log(f'{name} ({r}): err {err:.2e} of the products\' magnitude against f64, '
+                f'the f32 plain version\'s {plain_err:.2e} (tol {tol:.0e})')
+        if not err <= tol:
+            raise RuntimeError(f'{name} ({r}): max err {err} of the products\' magnitude '
+                               f'> {tol}')
         if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*xa)):
             raise RuntimeError(f'{name} ({r}): two runs on the same inputs differ')
         errs[r] = err
@@ -1171,7 +1202,7 @@ def time_wgrad(name, args, n_launch):
     entry['bound_f32_ms'] = max(nbytes / MEM_BW, products / PEAK[torch.float32]) * 1e3
     log(f'{name}: route {route}, V_out {rbk.shape[0]} K {k} {cin}x{cout} nnz {nnz}: err '
         + ', '.join(f'{r} {e:.2e}' for r, e in errs.items())
-        + ' of the products\' magnitude (tol 1e-5), equal bits on a second run; call '
+        + f' of the products\' magnitude (tol {tol:.0e}), equal bits on a second run; call '
         f'{ms:.4f} ms on the card (graph replay: partial sums + slice sum), plain '
         f'{plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, bound '
         f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}, the route\'s arithmetic), f32 bound '
@@ -1507,6 +1538,436 @@ def check_reduced_train(dev, cfg_file, box_std=None):
         f'held to {atol:.0e} differ by more than it (within 2 lr)')
 
 
+ACTIVE_CFG = 'tools/cfgs/synthetic_models/second_synth_active_entropy.yaml'
+# AL phase, the pool scan's per-frame float signals on the kernel path against
+# the plain path, max |diff| / (1 + |ref|) over the frames.  The config runs in
+# f32, where K2's route (CUDA cores) and K1's mask are bit-equal to their plain
+# versions at every call of the scan, and so are the signals: two readings on
+# an H100 80GB HBM3 at 700 W (PERF.md, Findings) were 0 for every signal, so
+# the limit is equality.  The gt statistics' mean and variance are sums over
+# the gt slots, the same on one device.
+ACTIVE_TOL = dict.fromkeys(('box_entropy', 'label_entropy', 'confidence_entropy',
+                            'pred_density', 'embeddings', 'mean_points',
+                            'variance_points'), 0.0)
+# the reduced f32 scan, card vs CPU, for the same float signals (reading
+# 1.7e-7, PERF.md)
+ACTIVE_REDUCED_TOL = 1e-5
+# the retrain's f32 dgrad and wgrad against the exact (f64) sums, max error
+# over the sum of the products' magnitudes.  An f32 sum over the tens of
+# thousands of hits of one offset strays from the exact sum by a few 1e-6
+# of it in the kernel and in the plain version alike (the two then differ by
+# up to twice that, above the 1e-5 that the train phases hold between them
+# at bf16-valued inputs).  Readings on an H100 80GB HBM3 at 700 W (PERF.md,
+# Findings; three runs, the retrain's inputs differ a little between runs):
+# 6.88e-6, 2.67e-6 and 1.66e-5 (the f32 plain version 9.19e-6, 6.27e-6 and
+# 1.91e-5).  Limit 3.6x the largest.
+ACTIVE_BACKWARD_TOL = 6e-5
+# the signals that must be equal wherever two scans are compared
+ACTIVE_EXACT = ('pred_labels', 'pred_valid', 'num_bbox', 'median_points')
+# (K2 forward, K1 mask) launches per scored pool batch of each strategy's scan
+SCAN_LAUNCHES = {'entropy': (len(SPARSE_LAYERS), 1), 'confidence': (len(SPARSE_LAYERS), 0),
+                 'random': (0, 0), 'coreset': (len(SPARSE_LAYERS), 0)}
+
+
+def counters(reset=False):
+    """The launch counters of every kernel wrapper (set to 0 first if
+    ``reset``)."""
+    from crb_active_3ddet_torch.ops import cuda_fps, cuda_kernels, cuda_overlap
+    if reset:
+        cuda_kernels.launches = cuda_kernels.dgrad_launches = cuda_kernels.wgrad_launches = 0
+        cuda_overlap.launches = cuda_overlap.mask_launches = cuda_fps.launches = 0
+    return {'gather_gemm': cuda_kernels.launches,
+            'gather_gemm_dgrad': cuda_kernels.dgrad_launches,
+            'gather_gemm_wgrad': cuda_kernels.wgrad_launches,
+            'nms_mask': cuda_overlap.mask_launches, 'overlap_bev': cuda_overlap.launches,
+            'fps': cuda_fps.launches}
+
+
+def signal_errs(got, ref, tols, tag):
+    """Two scans of one pool: each float signal's max |diff| / (1 + |ref|)
+    over the frames within ``tols``, the others (and the frames) equal."""
+    if list(got) != list(ref):
+        raise RuntimeError(f'{tag}: the scans hold other frames')
+    errs = {}
+    for k, tol in tols.items():
+        a = np.stack([np.asarray(got[f][k], np.float64) for f in ref])
+        b = np.stack([np.asarray(ref[f][k], np.float64) for f in ref])
+        errs[k] = float((np.abs(a - b) / (1 + np.abs(b))).max())
+    unequal = [k for k in ACTIVE_EXACT
+               if not all(np.array_equal(got[f][k], ref[f][k]) for f in ref)]
+    log(f'{tag}: ' + ', '.join(f'{k} {e:.3e} (tol {tols[k]:.0e})' for k, e in errs.items())
+        + f'; {", ".join(ACTIVE_EXACT)} equal: {not unequal}')
+    bad = [k for k in tols if not errs[k] <= tols[k]]
+    if bad or unequal:
+        raise RuntimeError(f'{tag}: {bad} beyond their limits, {unequal} not equal')
+    return errs
+
+
+def top_equal(got, ref, key, n, tol, tag):
+    """The top ``n`` frames by ``key`` (the strategies' stable ascending sort,
+    last n) must be the same set unless the reference's n-th and (n+1)-th
+    scores lie within ``tol`` of each other.  Those two scores must differ:
+    a tie (constant scores) would make the comparison empty."""
+    def top(rec):
+        return {f for f, _ in sorted(((f, float(r[key])) for f, r in rec.items()),
+                                     key=lambda kv: kv[1])[len(rec) - n:]}
+    scores = sorted(float(r[key]) for r in ref.values())
+    gap = scores[-n] - scores[-n - 1]
+    same = top(got) == top(ref)
+    log(f'{tag}: top {n} by {key} equal: {same}; n-th minus (n+1)-th score {gap:.3e}')
+    if not gap > 0:
+        raise RuntimeError(f'{tag}: the n-th and (n+1)-th scores by {key} tie ({gap})')
+    if not same and gap > tol * (1 + abs(scores[-n])):
+        raise RuntimeError(f'{tag}: the top {n} by {key} differ away from a near-tie')
+
+
+def drive_active(dev):
+    """The AL loop, ``train_model_active``, on SECOND at the full width of
+    second_synth_active_entropy.yaml and its own sizes (32 scenes: 8
+    labelled, 24 in the pool; batch 4; 2 pretrain epochs; 2 rounds of 4
+    frames, 2 epochs each), from the loop's own init (``flax_init``, seed 0),
+    under PyTorch's default precision settings (cuDNN free to use TF32: the
+    port's f32 guard must turn it off, which is checked at every convolution
+    of the loop's forwards), in a temporary directory: counters to 0, the loop, counters read (K2 forward 12 a train
+    step and a scored batch, dgrad 11 and wgrad 12 a train step, one K1 mask
+    a scored batch); each round from the init weights with a fresh
+    optimizer; every call K1 and K2 made in the scans against its plain
+    version; ms/step, ms per pool batch and scans/s.  Then, over the round-1
+    pool at the pretrained weights: the confidence, random, coreset and
+    entropy queries with their launches per scored batch exactly; then, at
+    the eval phase's seeded weights and cls bias (the pretrained model keeps
+    no box and scores the classes alike), the full scan on
+    the kernel path against the plain path (live boxes and an untied top-4
+    box_entropy required, every anchor's cls logit equal) and K1's mask
+    timed at its call with the most live boxes; a profiled scan and the same scan timed under other cuDNN
+    settings; a retrain step's launches; the scan's K2 at the loop's inputs,
+    timed.  Last, a reduced f32 scan on the card against the CPU.  Returns
+    the kernels' JSON entries."""
+    import logging
+    import pickle
+    import random
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_active_dataloader
+    from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap, nms
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.query_strategies.strategy import Strategy
+    from crb_active_3ddet_torch.runtime import active
+    from crb_active_3ddet_torch.runtime import checkpoint as ckpt_rt
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.utils import common
+    from crb_active_3ddet_torch.utils.common import set_random_seed
+    cfg = load_config(ACTIVE_CFG)
+    a = cfg.ACTIVE_TRAIN
+    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
+    pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
+    n_rounds = int(a.TOTAL_BUDGET_NUMS) // n_sel
+    round_starts = [pre + r * interval for r in range(n_rounds)]
+    log(f'==== active learning: {ACTIVE_CFG}, {a.METHOD}, batch {bs}, '
+        f'{cfg.DATA_CONFIG.NUM_SCENES} scenes, {a.PRE_TRAIN_SAMPLE_NUMS} labelled, '
+        f'pretrain {pre} epochs, {n_rounds} rounds of {n_sel} x {interval} epochs ====')
+    # the loop runs as in a user's process, under PyTorch's defaults (cuDNN
+    # free to use TF32; main() turned that off for the earlier phases)
+    torch.backends.cudnn.allow_tf32 = True
+    logger = logging.getLogger('chip_smoke.active')
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_al_'))
+    (out / 'ckpt').mkdir()
+    epochs, scans, k2_first, pretrained = [], [], [], {}
+    real_epoch, real_scan = train_rt.train_one_epoch, Strategy.scan_pool
+
+    def epoch(state, step, loader, *args, **kw):
+        e = kw['cur_epoch']
+        if e in round_starts:
+            init = ckpt_rt.load_checkpoint(str(out / 'backbone' / 'init_checkpoint.pth'))
+            sd = state.model.state_dict()
+            same = all(torch.equal(sd[k].cpu(), v) for part in ('model_state', 'batch_stats')
+                       for k, v in init[part].items())
+            fresh = state.optimizer.count == 0 and not state.optimizer.inner.state
+            if not (same and fresh):
+                raise RuntimeError(f'the round at epoch {e} does not start from the init '
+                                   f'weights (equal: {same}) with a fresh optimizer ({fresh})')
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        result = real_epoch(state, step, loader, *args, **kw)   # reads its losses back
+        epochs.append({'epoch': e, 'steps': len(loader), 'labelled': len(loader.dataset),
+                       'ms': (time.perf_counter() - t) * 1e3 / len(loader),
+                       'loss': result[1], 'at_init': e in round_starts})
+        return result
+
+    def scan(self, *args, **kw):
+        if not pretrained:
+            pretrained.update(weights={k: v.clone() for k, v in self.model.state_dict().items()},
+                              loaders=(self.labelled_loader, self.unlabelled_loader))
+        k2, masks, fix = [], [], []
+        before = counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording(cuda_kernels, 'sparse_conv_gather_gemm', k2,
+                       lambda: cuda_kernels.launches), \
+                recording(nms, 'nms_mask', masks, lambda: cuda_overlap.mask_launches), \
+                recording(nms, '_fixpoint_words', fix):
+            records = real_scan(self, *args, **kw)     # reads every signal back once
+        ms = (time.perf_counter() - t) * 1e3
+        made = {k: v - before[k] for k, v in counters().items()}
+        n_b = len(self.unlabelled_loader)
+        k2_per, mask_per = SCAN_LAUNCHES['entropy']
+        want = {**{k: 0 for k in made}, 'gather_gemm': k2_per * n_b, 'nms_mask': mask_per * n_b}
+        if made != want or any(n != 1 for _, n, _ in k2 + masks):
+            raise RuntimeError(f'entropy scan of {n_b} batches launched {made}, expected '
+                               f'{want}, one launch a call')
+        # every call against its plain version at its inputs (the plain
+        # versions launch nothing)
+        k2_err = mask_bits = near = 0
+        for (f, rbk, w), _, got in k2:
+            ref = subm_conv3d_gather(f, rbk, w)
+            err = (got - ref).abs().max().item()
+            if not err <= 1e-4 * (1 + ref.abs().max().item()):
+                raise RuntimeError(f'scan K2 call: max err {err}')
+            k2_err = max(k2_err, err)
+        for (boxes, alive, thresh), _, words in masks:
+            d, nr = mask_vs_plain(words, boxes, alive, thresh, 'active scan')
+            mask_bits, near = mask_bits + d, near + nr
+        scans.append({'pool': len(self.unlabelled_loader.dataset), 'batches': n_b, 'ms': ms,
+                      'made': made, 'rounds': [r for _, _, (_, r) in fix], 'k2_err': k2_err,
+                      'mask_bits': mask_bits, 'near': near,
+                      'alive': [int(al.sum()) for (_, al, _), _, _ in masks]})
+        if not k2_first:
+            k2_first.extend(k2[:len(SPARSE_LAYERS)])
+        return records
+
+    tf32_seen = set()
+
+    def conv_tf32(module, _):
+        if isinstance(module, torch.nn.Conv2d):
+            tf32_seen.add(torch.backends.cudnn.allow_tf32)
+
+    set_random_seed(666)          # the augmentor's draws (tools/train.py seeds 666)
+    counters(reset=True)
+    train_rt.train_one_epoch, Strategy.scan_pool = epoch, scan
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(conv_tf32)
+    try:
+        t = time.perf_counter()
+        state = active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
+                                          device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        train_rt.train_one_epoch, Strategy.scan_pool = real_epoch, real_scan
+        hook.remove()
+    counts = counters()
+    log(f'active loop: cuDNN TF32 at every convolution of its forwards {tf32_seen} '
+        f'(PyTorch\'s default outside: {torch.backends.cudnn.allow_tf32})')
+    if tf32_seen != {False}:
+        raise RuntimeError(f'the loop\'s convolutions ran with cuDNN TF32 {tf32_seen}')
+    steps = sum(r['steps'] for r in epochs)
+    scored = sum(s['batches'] for s in scans)
+    n_layers = len(SPARSE_LAYERS)
+    expected = {'gather_gemm': n_layers * (steps + scored),
+                'gather_gemm_dgrad': (n_layers - 1) * steps,
+                'gather_gemm_wgrad': n_layers * steps, 'nms_mask': scored,
+                'overlap_bev': 0, 'fps': 0}
+    log(f'active loop: {loop_s:.1f} s; launches {counts} over {steps} train steps and '
+        f'{scored} scored pool batches')
+    if counts != expected:
+        raise RuntimeError(f'active loop launches {counts}, expected {expected}')
+    sizes = [r['labelled'] for r in epochs if r['epoch'] in round_starts]
+    want_sizes = [int(a.PRE_TRAIN_SAMPLE_NUMS) + n_sel * (i + 1) for i in range(n_rounds)]
+    if len(scans) != n_rounds or sizes != want_sizes:
+        raise RuntimeError(f'{len(scans)} scans, labelled pools {sizes}, expected '
+                           f'{n_rounds} and {want_sizes}')
+    for r in epochs:
+        log(f"active epoch {r['epoch']}: {r['steps']} steps over {r['labelled']} labelled "
+            f"frames, {r['ms']:.2f} ms/step ({bs * 1e3 / r['ms']:.2f} samples/s), loss "
+            f"{r['loss']:.4f}" + (', from the init weights with a fresh optimizer'
+                                  if r['at_init'] else ''))
+    selections = []
+    for i, (s, e) in enumerate(zip(scans, round_starts)):
+        with open(out / 'active_labels' / f'selected_frames_epoch_{e}_rank_0.pkl', 'rb') as f:
+            selections.append(pickle.load(f)['frame_id'])
+        log(f"active round {i + 1} scan: pool {s['pool']} frames in {s['batches']} batches, "
+            f"{s['ms']:.2f} ms, {s['ms'] / s['batches']:.2f} ms per pool batch, "
+            f"{s['pool'] * 1e3 / s['ms']:.2f} scans/s; launches per batch K2 "
+            f"{s['made']['gather_gemm'] // s['batches']}, K1 mask "
+            f"{s['made']['nms_mask'] // s['batches']}; NMS boxes alive {s['alive']}, "
+            f"fixpoint rounds {s['rounds']}; every K2 call within {s['k2_err']:.2e} of its "
+            f"plain version, K1 words {s['mask_bits']} bits off ({s['near']} pairs within "
+            f"1e-6 of the threshold); selected {selections[-1]}; labelled pool then "
+            f'{sizes[i]}')
+    for path in [out / 'backbone' / f'checkpoint_epoch_{pre}.pth'] + sorted(
+            (out / 'ckpt').glob('checkpoint_epoch_*.pth')):
+        ck = ckpt_rt.load_checkpoint(str(path))
+        bad = [k for part in ('model_state', 'batch_stats') for k, v in ck[part].items()
+               if v.is_floating_point() and not torch.isfinite(v).all()]
+        if bad:
+            raise RuntimeError(f'{path.name}: non-finite {bad[:5]}')
+    log(f'active loop: every parameter and BN statistic finite after the pretrain and '
+        f'after each of {n_rounds} rounds')
+
+    # ---- queries over the round-1 pool at the pretrained weights ----
+    model = state.model
+    model.load_state_dict(pretrained['weights'])
+    lab, unlab = pretrained['loaders']
+    qdir = out / 'queries'
+    qdir.mkdir()
+    random.seed(0)
+    for method in ('confidence', 'random', 'coreset', 'entropy'):
+        strat = build_strategy(method, model, lab, unlab, 0, str(qdir), cfg)
+        before = counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sel = strat.query(cur_epoch=pre)
+        ms = (time.perf_counter() - t) * 1e3
+        made = {k: v - before[k] for k, v in counters().items()}
+        k2_per, mask_per = SCAN_LAUNCHES[method]
+        n_b = len(unlab) + (len(lab) if method == 'coreset' else 0)
+        want = {**{k: 0 for k in made}, 'gather_gemm': k2_per * n_b,
+                'nms_mask': mask_per * len(unlab)}
+        if made != want:
+            raise RuntimeError(f'{method} query launched {made}, expected {want}')
+        log(f'{method} query over the round-1 pool ({len(unlab.dataset)} frames): '
+            f'{ms:.2f} ms, {ms / len(unlab):.2f} ms per pool batch; launches per scored '
+            f'batch K2 {k2_per}, K1 mask {mask_per} ({n_b} batches scored); selected {sel}')
+        if method == 'entropy' and sel != selections[0]:
+            raise RuntimeError(f'entropy query {sel} differs from the loop\'s round 1 '
+                               f'{selections[0]} at the same weights and pool')
+
+    # ---- the full scan, kernel path against plain path, at weights whose
+    # signals are not degenerate: after 4 steps from the symmetric init the
+    # pretrained model keeps no box and scores the three classes alike (the
+    # entropies ~ln 3, tied at the top 4), so the scan runs at the eval
+    # phase's seeded weights (init_weights seed 0, cls bias CLS_BIAS).  There
+    # confidence_entropy, a mean over 211 200 anchors of near-equal
+    # entropies, still ties across frames to an f32 ulp; its input, every
+    # anchor's cls logit, is held equal on the two paths instead ----
+    from crb_active_3ddet_torch.models.detectors import init_weights
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.dense_head.conv_cls.bias.fill_(CLS_BIAS)
+    masks, fix, cls_logits = [], [], {'kernel': [], 'plain': []}
+
+    def scan_logits(path):
+        grab = model.dense_head.conv_cls.register_forward_hook(
+            lambda m, i, o: cls_logits[path].append(o.detach().clone()))
+        try:
+            return build_strategy('entropy', model, lab, unlab, 0, str(qdir), cfg).scan_pool()
+        finally:
+            grab.remove()
+    with recording(nms, 'nms_mask', masks, lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', fix):
+        full = scan_logits('kernel')
+    with plain_versions():
+        plain = scan_logits('plain')
+    kept = [int(r['pred_valid'].sum()) for r in plain.values()]
+    log(f'active full scan: boxes kept per frame {kept}, box_entropy '
+        f"{[round(float(r['box_entropy']), 4) for r in full.values()]}")
+    if not sum(kept) > 0:
+        raise RuntimeError('active full scan: no frame keeps a box')
+    bits = [mask_vs_plain(words, *args, 'active full scan') for args, _, words in masks]
+    log(f'active full scan: {len(masks)} K1 mask calls, live boxes '
+        f'{[int(args[1].sum()) for args, _, _ in masks]}, bits off the plain words '
+        f'{[d for d, _ in bits]} (pairs within 1e-6 of the threshold {[n for _, n in bits]})')
+    signal_errs(full, plain, ACTIVE_TOL, 'active full scan, kernel path vs plain')
+    top_equal(full, plain, 'box_entropy', n_sel, ACTIVE_TOL['box_entropy'],
+              'active full scan')
+    got, ref = torch.cat(cls_logits['kernel']), torch.cat(cls_logits['plain'])
+    conf = [float(r['confidence_entropy']) for r in plain.values()]
+    log(f'active full scan: every anchor\'s cls logit equal on the two paths: '
+        f'{torch.equal(got, ref)} ({ref.numel()} values, std {ref.std().item():.3e}, std '
+        f'across frames at one place {ref.std(0).mean().item():.3e}); confidence_entropy '
+        f'takes {len(set(conf))} values over {len(conf)} frames, spread {np.ptp(conf):.3e}')
+    if not torch.equal(got, ref):
+        raise RuntimeError('active full scan: the cls logits differ kernel path vs plain')
+    strat = build_strategy('entropy', model, lab, unlab, 0, str(qdir), cfg)
+    log(f'profiled entropy scan of {len(unlab)} pool batches:')
+    profile_step(lambda _: strat.scan_pool(signals=('box_entropy',)), None)
+    # the same scan, timed only: as the port runs it (f32, its guard turning
+    # TF32 off), with the guard lifted under PyTorch's default (cuDNN free to
+    # use TF32), and with cuDNN free to autotune
+    cudnn = torch.backends.cudnn
+    saved = cudnn.allow_tf32, cudnn.benchmark, common.full_f32
+    for label, guard, bench in (('as run', common.full_f32, False),
+                                ('TF32, the f32 guard lifted', contextlib.nullcontext, False),
+                                ('benchmark', common.full_f32, True),
+                                ('as run', common.full_f32, False)):
+        common.full_f32, cudnn.benchmark = guard, bench
+        try:
+            strat.scan_pool(signals=('box_entropy',))          # warm (autotune)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            strat.scan_pool(signals=('box_entropy',))
+            ms = (time.perf_counter() - t) * 1e3
+        finally:
+            cudnn.allow_tf32, cudnn.benchmark, common.full_f32 = saved
+        log(f'entropy scan, cuDNN {label}: {ms / len(unlab):.2f} ms per pool batch')
+
+    # ---- a retrain step at the pretrained weights: launches, and its
+    # backward's calls ----
+    model.load_state_dict(pretrained['weights'])
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, 10, model.parameters())
+    step = train_rt.make_train_step(model, optimizer, lab.dataset)
+    batch = train_rt.host_to_device_batch(next(iter(lab)), dev)
+    dcalls, wcalls = [], []
+    before = counters()
+    with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls,
+                   lambda: cuda_kernels.dgrad_launches), \
+            recording(cuda_kernels, 'gather_gemm_wgrad', wcalls,
+                      lambda: cuda_kernels.wgrad_launches):
+        step(train_rt.init_train_state(model, optimizer), batch)
+    torch.cuda.synchronize()
+    made = {k: v - before[k] for k, v in counters().items()}
+    want = {**{k: 0 for k in made}, 'gather_gemm': n_layers,
+            'gather_gemm_dgrad': n_layers - 1, 'gather_gemm_wgrad': n_layers}
+    if made != want:
+        raise RuntimeError(f'retrain step launched {made}, expected {want}')
+    log(f'active retrain step launches: {made}')
+
+    # ---- the kernels at the loop's inputs, timed ----
+    layers = [m for m in model.backbone_3d.modules() if type(m).__name__ == 'SparseConvLayer']
+    results = [time_gather_gemm(f'active.gather_gemm[{lname}]', layer, f[None], rbk,
+                                scored, cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers, k2_first)]
+    # K1 at the full scan's call with the most live boxes
+    most = max(range(len(masks)), key=lambda i: int(masks[i][0][1].sum()))
+    (boxes, alive, thresh), _, _ = masks[most]
+    _, _, (_, rounds) = fix[most]
+    log(f'active.nms_mask[scan]: timed at pool batch {most} of the full scan '
+        f'({int(alive.sum())} live boxes)')
+    results.append(time_mask('active.nms_mask[scan]', boxes, alive, thresh, scored, rounds,
+                             'active scan'))
+    # the retrain's f32 backward against the exact (f64) sums
+    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
+    results += [time_dgrad(f'active_train.gather_gemm_dgrad[{lname}]', args, steps,
+                           f64_tol=ACTIVE_BACKWARD_TOL)
+                for lname, (args, _, _) in zip(dnames, dcalls)]
+    results += [time_wgrad(f'active_train.gather_gemm_wgrad[{lname}]', args, steps,
+                           f64_tol=ACTIVE_BACKWARD_TOL)
+                for lname, (args, _, _) in zip(wnames, wcalls)]
+
+    # ---- a reduced f32 scan, card against CPU ----
+    small = reduced_cfg(load_config(ACTIVE_CFG))
+    small.DATA_CONFIG.NUM_SCENES = 9
+    recs = []
+    for d in (dev, torch.device('cpu')):
+        _, _, m, _ = build(small, 2, d, seed=1, cls_bias=0.0)
+        ls, us = build_active_dataloader(small.DATA_CONFIG, small.CLASS_NAMES, 2, workers=0,
+                                         training=True, pre_train_sample_nums=4,
+                                         seed=0)[2:4]
+        recs.append(build_strategy('entropy', m, ls, us, 0, str(qdir), small).scan_pool())
+    signal_errs(recs[0], recs[1], dict.fromkeys(ACTIVE_TOL, ACTIVE_REDUCED_TOL),
+                'reduced f32 scan, card vs CPU')
+    log(f"reduced scan kept {[int(r['pred_valid'].sum()) for r in recs[1].values()]} "
+        'boxes per frame')
+    shutil.rmtree(out)
+    torch.backends.cudnn.allow_tf32 = False
+    return results
+
+
 def ablate_gather_gemm(dev):
     """Time the gather-GEMM (bf16, graph replay) at the inputs of each sparse
     conv layer of the SECOND step, as built and with parts compiled out."""
@@ -1618,6 +2079,7 @@ def main():
     check_reduced(PVRCNN_CFG, dev)
     check_reduced_train(dev, SECOND_CFG)
     check_reduced_train(dev, PVRCNN_CFG, box_std=0.001)
+    results += drive_active(dev)
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

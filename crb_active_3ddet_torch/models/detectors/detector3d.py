@@ -17,6 +17,7 @@ import math
 import torch
 from torch import nn
 
+from ...utils import common
 from ...utils.common import resolve_device
 from ..backbones_2d.base_bev_backbone import build_backbone_2d
 from ..backbones_2d.map_to_bev import build_map_to_bev
@@ -78,12 +79,13 @@ class Detector3D(nn.Module):
     def forward(self, batch_dict, generator=None):
         """``generator`` (a ``torch.Generator`` on the model's device) feeds
         the modules that draw in training; such a module raises without
-        one."""
+        one.  The f32 layers compute in f32 (``full_f32``)."""
         batch_dict = dict(batch_dict)       # never mutate the caller's dict
-        for name in self.module_topology:
-            module = getattr(self, name)
-            batch_dict = module(batch_dict, generator) if name in _DRAWS \
-                else module(batch_dict)
+        with common.full_f32():
+            for name in self.module_topology:
+                module = getattr(self, name)
+                batch_dict = module(batch_dict, generator) if name in _DRAWS \
+                    else module(batch_dict)
         return batch_dict
 
     def compute_loss(self, batch_dict, reduce: bool = True):
@@ -145,6 +147,57 @@ def init_weights(model, generator: torch.Generator, box_std=None):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=generator))
         if box_std is not None:       # drawn last: the other weights stay as without it
             box_weight.copy_(box_std * torch.randn(box_weight.shape, generator=generator))
+    return model
+
+
+FOCAL_PRIOR = 0.01       # the anchor head's cls bias is -log((1 - p) / p)
+
+
+def flax_init(model, generator: torch.Generator):
+    """The JAX model's own initialisation, as its ``init_train_state`` draws
+    it (Flax defaults plus the modules' own initializers), from a seeded
+    ``generator``: every Conv, ConvTranspose and Dense kernel lecun-normal
+    (a normal truncated at ±2 of its scale, std 1/√fan_in); each sparse conv
+    kernel variance_scaling(1, fan_out, normal), a plain normal of std
+    1/√(K·Cout); zero biases; BatchNorm scale 1, bias 0, mean 0, var 1; the
+    anchor head's cls bias at the focal prior and its box kernel normal(0,
+    0.001), as the RoI head's two output kernels.  Fan-in as Flax counts it:
+    a ConvTranspose2d weight (in, out, kh, kw) has in·kh·kw, every other
+    weight (out, ...) the product of its trailing dims.  The draws differ
+    from JAX's (another generator); their distribution is the same."""
+    small = {id(model.dense_head.conv_box.weight)}
+    if hasattr(model, 'roi_head'):
+        small |= {id(model.roi_head.cls_layers[-1].weight),
+                  id(model.roi_head.reg_layers[-1].weight)}
+    done = set()
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.modules.batchnorm._BatchNorm):
+                m.reset_parameters()
+                done |= {id(m.weight), id(m.bias)}
+                continue
+            w = getattr(m, 'weight', None)
+            if not isinstance(w, nn.Parameter) or id(w) in done:
+                continue
+            if id(w) in small:
+                w.normal_(0.0, 0.001, generator=generator)
+            elif isinstance(m, SparseConv3d):
+                w.normal_(0.0, 1.0 / math.sqrt(w.shape[0] * w.shape[2]),
+                          generator=generator)
+            else:
+                fan_in = w[0].numel() if not isinstance(m, nn.ConvTranspose2d) \
+                    else w.shape[0] * w[0, 0].numel()
+                scale = 1.0 / math.sqrt(fan_in) / .87962566103423978
+                nn.init.trunc_normal_(w, 0.0, scale, -2 * scale, 2 * scale,
+                                      generator=generator)
+            done.add(id(w))
+            if getattr(m, 'bias', None) is not None:
+                m.bias.zero_()
+                done.add(id(m.bias))
+        model.dense_head.conv_cls.bias.fill_(-math.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR))
+    missed = [n for n, p in model.named_parameters() if id(p) not in done]
+    if missed:
+        raise NotImplementedError(f'flax_init has no initializer for {missed}')
     return model
 
 

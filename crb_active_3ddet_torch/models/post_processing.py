@@ -1,7 +1,7 @@
 """Post-processing: NMS + the per-frame outputs the AL layer reads (torch).
 
-Port of ``post_processing`` (:110), ``post_process_frame`` (:27) and
-``generate_recall_record`` (:221) from
+Port of ``post_processing`` (:110), ``post_process_frame`` (:27),
+``gt_class_stats`` (:178) and ``generate_recall_record`` (:221) from
 ``crb_active_3ddet_tpu/models/post_processing.py`` (reference
 ``detector3d_template.py:186-453``).  Frames are processed as one batch (the
 JAX package vmaps per frame): every output is a fixed (B, P, ...) tensor with
@@ -18,7 +18,7 @@ import torch
 
 from ..ops import iou3d
 from ..ops import nms as nms_ops
-from ..ops.points_in_boxes import box_point_density
+from ..ops.points_in_boxes import box_point_density, points_in_boxes
 from ..utils.common import take_rows
 
 
@@ -111,3 +111,38 @@ def generate_recall_record(pred_boxes, pred_valid, gt_boxes, gt_valid,
     for t in thresh_list:
         out[f'rcnn_{t}'] = (gt_max > t).sum(-1)
     return out
+
+
+def gt_class_stats(points, points_valid, gt_boxes, num_classes: int):
+    """Per-class gt box counts and the mean / median / variance of the
+    points in each class's boxes, batched: (B, N, 3+) points, (B, N)
+    points_valid or None, (B, M, 8) zero-padded gt_boxes with the class id
+    last → dict of (B, num_classes) tensors.
+
+    Parity: ``detector3d_template.py:242-267``.  The median is the lower
+    middle of the sorted counts, the variance the population variance, and
+    an absent class reads 0 in every statistic."""
+    labels = gt_boxes[..., -1].to(torch.int64)
+    valid = gt_boxes.abs().sum(-1) > 0
+    member = points_in_boxes(points[..., :3], gt_boxes[..., :7])     # (B, N, M)
+    if points_valid is not None:
+        member = member & points_valid[..., None]
+    counts = member.sum(-2).to(torch.float32)                        # (B, M)
+    m = gt_boxes.shape[-2]
+    classes = torch.arange(1, num_classes + 1, device=gt_boxes.device)
+    cls_mask = valid[:, None, :] & (labels[:, None, :] == classes[None, :, None])
+    n = cls_mask.sum(-1)                                             # (B, C)
+    present = n > 0
+    denom = torch.clamp(n, min=1).to(torch.float32)
+    cnt = counts[:, None, :].expand_as(cls_mask)
+    zero = torch.zeros((), dtype=torch.float32, device=gt_boxes.device)
+    mean = torch.where(present, torch.where(cls_mask, cnt, zero).sum(-1) / denom, zero)
+    dev2 = torch.where(cls_mask, (cnt - mean[..., None]) ** 2, zero)
+    var = torch.where(present, dev2.sum(-1) / denom, zero)
+    sorted_c = torch.sort(torch.where(cls_mask, cnt, torch.full_like(cnt, float('inf'))),
+                          dim=-1).values
+    med_idx = torch.clamp(torch.div(n - 1, 2, rounding_mode='floor'), 0, m - 1)
+    median = torch.where(present, torch.gather(sorted_c, -1, med_idx[..., None])[..., 0],
+                         zero)
+    return {'num_bbox': n.to(torch.int32), 'mean_points': mean,
+            'median_points': median, 'variance_points': var}

@@ -2,7 +2,8 @@
 from ``crb_active_3ddet_tpu/runtime/eval.py`` (reference
 ``tools/eval_utils/eval_utils.py:53-154``): fixed-shape forward + NMS on the
 device, per-frame annos and AP on the host (``utils/simple_eval.py`` through
-``dataset.evaluation``).
+``dataset.evaluation``).  ``eval_one_epoch`` keeps the JAX loop's window of
+8 dispatched batches before it reads the oldest one back.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import torch
 
 from ..models import post_processing as pp
 from .train import host_to_device_batch, prepare_device_batch
+
+EVAL_WINDOW = 8     # batches in flight (the JAX loop's window)
 
 
 def make_eval_step(model, dataset, post_cfg, num_class):
@@ -48,8 +51,10 @@ def eval_one_epoch(eval_step, dataset, loader, class_names, device='cuda',
     recall_acc = {}
     num_frames = 0
     t0 = time.time()
-    for batch in loader:
-        preds, rec = eval_step(host_to_device_batch(batch, device))
+
+    def drain(entry):
+        nonlocal num_frames
+        batch, preds, rec = entry
         preds = {k: v.cpu().numpy() for k, v in preds.items()}
         det_annos.extend(dataset.generate_prediction_dicts(
             batch, preds, class_names, output_path=result_dir))
@@ -57,6 +62,17 @@ def eval_one_epoch(eval_step, dataset, loader, class_names, device='cuda',
         if rec is not None:
             for k, v in rec.items():
                 recall_acc[k] = recall_acc.get(k, 0) + int(v.sum())
+
+    # keep a window of dispatched batches in flight, so that the host's anno
+    # conversion of one batch overlaps the next batches' device work
+    window = []
+    for batch in loader:
+        preds, rec = eval_step(host_to_device_batch(batch, device))
+        window.append((batch, preds, rec))
+        if len(window) >= EVAL_WINDOW:
+            drain(window.pop(0))
+    for entry in window:
+        drain(entry)
     sec_per_example = (time.time() - t0) / max(num_frames, 1)
     if logger is not None:
         logger.info('Eval: %d frames, %.4f s/frame', num_frames, sec_per_example)

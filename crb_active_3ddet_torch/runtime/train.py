@@ -21,10 +21,18 @@ import numpy as np
 import torch
 
 from ..ops import voxelize as vx_ops
+from ..utils import common
 from ..utils.common import resolve_device
 
 _CAMERA_KEYS = ('images', 'depth_maps', 'trans_lidar_to_cam',
                 'trans_cam_to_img', 'image_shape', 'gt_boxes2d')
+
+
+def points_valid_mask(points, num_points):
+    """(B, N) validity of the padded (B, N, C) points: the first
+    ``num_points`` of each frame."""
+    return torch.arange(points.shape[1], device=points.device)[None, :] \
+        < num_points[:, None]
 
 
 def prepare_device_batch(batch, voxel_cfg, grid_size, point_cloud_range,
@@ -37,10 +45,7 @@ def prepare_device_batch(batch, voxel_cfg, grid_size, point_cloud_range,
     out = {}
     if 'points' in batch and voxel_cfg is not None:
         points = batch['points']            # (B, N, C)
-        num_points = batch['num_points']    # (B,)
-        n = points.shape[1]
-        points_valid = torch.arange(n, device=points.device)[None, :] \
-            < num_points[:, None]
+        points_valid = points_valid_mask(points, batch['num_points'])
         vox = vx_ops.voxelize_batch(points, points_valid, point_cloud_range,
                                     voxel_size, tuple(grid_size),
                                     voxel_cfg['max_voxels'],
@@ -95,7 +100,8 @@ def make_train_step(model, optimizer, dataset):
     tensors.  ``generator`` stands where the JAX step takes its dropout key:
     a ``torch.Generator`` on the model's device (a CUDA generator on the
     card), from which PV-RCNN's RoI sampler and Dropout draw; SECOND draws
-    nothing and needs none."""
+    nothing and needs none.  The backward's f32 layers compute in f32, as
+    the forward's (``full_f32``)."""
     voxel_cfg = dataset.voxel_cfg
     grid_size = tuple(int(g) for g in dataset.grid_size)
     pcr = tuple(float(x) for x in dataset.point_cloud_range)
@@ -107,7 +113,8 @@ def make_train_step(model, optimizer, dataset):
         out = model(batch, generator)
         loss, tb = model.compute_loss(out)
         optimizer.zero_grad()
-        loss.backward()
+        with common.full_f32():
+            loss.backward()
         optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in tb.items()
@@ -117,12 +124,26 @@ def make_train_step(model, optimizer, dataset):
     return train_step
 
 
-def train_one_epoch(state, train_step, loader, device='cuda', generator=None):
+def train_one_epoch(state, train_step, loader, device='cuda', generator=None,
+                    logger=None, log_interval=50, tb_log=None, cur_epoch=0):
     """One pass over ``loader`` (parity ``train_utils.train_one_epoch``):
     each host batch to ``device``, one step drawing from ``generator``.  The
-    losses stay on the device and are read once, at the end.  Returns
-    (state, mean loss)."""
-    losses = [train_step(state, host_to_device_batch(batch, device),
-                         generator)[1]['loss']
-              for batch in loader]
-    return state, float(torch.stack(losses).mean()) if losses else float('nan')
+    losses stay on the device and are read once, at the end; only a
+    ``logger`` line every ``log_interval`` steps reads one before.
+    ``tb_log`` (any object with ``add_scalar(key, value, step)``) gets each
+    step's loss at the end of the epoch.  Returns (state, mean loss)."""
+    losses = []
+    for it, batch in enumerate(loader):
+        loss = train_step(state, host_to_device_batch(batch, device),
+                          generator)[1]['loss']
+        losses.append(loss)
+        if logger is not None and it % log_interval == 0:
+            logger.info('epoch %d it %d loss %.4f', cur_epoch, it, float(loss))
+    if not losses:
+        return state, float('nan')
+    values = torch.stack(losses).cpu()
+    if tb_log is not None:
+        first = state.step - len(losses) + 1
+        for i, v in enumerate(values.tolist()):
+            tb_log.add_scalar('train/loss', v, first + i)
+    return state, float(values.mean())

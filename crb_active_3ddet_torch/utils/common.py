@@ -1,4 +1,5 @@
-"""Common utilities: device choice, angle wrapping, rotation, logging, seeds.
+"""Common utilities: device choice, f32 precision, angle wrapping, rotation,
+logging, seeds.
 
 Host-side numpy parts copied from ``crb_active_3ddet_tpu/utils/common.py``
 (limit_period, rotate_points_along_z*, get_voxel_centers, create_logger,
@@ -8,6 +9,7 @@ and ``get_voxel_centers`` also take torch tensors.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import random
 
@@ -26,6 +28,23 @@ def resolve_device(device='cuda') -> torch.device:
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run on the CPU")
     return device
+
+
+@contextlib.contextmanager
+def full_f32():
+    """Float32 work computes in float32 while the block runs: TF32 off in
+    cuDNN's convolutions (PyTorch's default lets them round f32 operands to
+    TF32's 10-bit mantissa) and in cuBLAS's matmuls, the earlier settings
+    restored after.  The configs' f32 layers mean f32, as in the JAX
+    package on the CPU; a config's bf16 layers cast their operands
+    themselves."""
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    saved = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32 = matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
 def take_rows(x, idx):
