@@ -55,7 +55,9 @@ Run from the root of a checkout.  It
      entropy scoring over the pool, selection and retraining from the init
      weights; launches per train step and per scored pool batch exactly,
      every K1 and K2 call of the scans against its plain version, ms/step,
-     ms per pool batch and scans/s; then the confidence, random, coreset
+     ms per pool batch and scans/s, and the f32 K2 route timed at the first
+     scan batch's 12 layers and a retrain step's 11 dgrads, each bit for bit
+     against the f32 matmul; then the confidence, random, coreset
      and entropy queries over the round-1 pool (launches per scored batch
      exactly), the full scan at the eval phase's seeded weights and cls
      bias on the kernel path against the plain path (live boxes and an
@@ -66,10 +68,11 @@ it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
     python3 chip_smoke.py --ablate-k2
 
-instead times, at each sparse conv layer of the SECOND step, measurement
-builds of the gather-GEMM with its row gather, its weight reads or both
-compiled out: where that kernel's time goes, on a machine without a profiler
-for single kernels.
+instead times measurement builds of the gather-GEMM with its row gather, its
+weight reads or both compiled out: the bf16 route at each sparse conv layer
+of the SECOND step, the f32 route at each layer of the AL scan and at each
+dgrad of an AL retrain step, with each rulebook's hit shares: where that
+kernel's time goes, on a machine without a profiler for single kernels.
 
     python3 chip_smoke.py --ablate-wgrad
 
@@ -677,15 +680,16 @@ def mask_stress(dev, k=1024):
             f'{n_clip * OVERLAP_OPS_PER_PAIR / PEAK[torch.float32] * 1e3:.4f} ms')
 
 
-def rulebook_emptiness(name, rbk):
+def rulebook_emptiness(name, rbk, granularity=(16, 64)):
     """Log what share of a layer's rulebook a gather-GEMM can skip, at the
-    granularity of an entry, of a (16-row group, offset) pair and of a
-    (64-row tile, offset) pair; 'live' counts only groups or tiles that hold
-    at least one hit (the others are the buffers' padding rows)."""
+    granularity of an entry and of a (group of ``rows`` consecutive rows,
+    offset) pair for each ``rows`` in ``granularity`` (16: the bf16 route's
+    m16 tile; 64: a tile); 'live' counts only groups that hold at least one
+    hit (the others are the buffers' padding rows)."""
     hit = rbk >= 0
     v, k = hit.shape
     parts = [f'{name}: entries that hit {hit.float().mean().item():.4f}']
-    for rows in (16, 64):
+    for rows in granularity:
         pad = (-v) % rows
         h = torch.cat([hit, hit.new_zeros(pad, k)]) if pad else hit
         pair = h.reshape(-1, rows, k).any(1)               # (groups, K)
@@ -717,6 +721,9 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16):
         raise RuntimeError(f'{name}: max err {err} > {tol}')
     if not torch.equal(got, cuda_kernels.sparse_conv_gather_gemm(f, rbk, w)):
         raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    # the f32 route keeps the f32 matmul's summation order
+    if cdt == torch.float32 and not torch.equal(got, ref):
+        raise RuntimeError(f'{name}: the f32 route differs from its plain version')
     rulebook_emptiness(name, rbk)
     ms = graph_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
     call_ms = cuda_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
@@ -730,10 +737,13 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16):
                    'crb_active_3ddet_tpu/ops/pallas_kernels.py:60', n_launch, err, ms,
                    plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[cdt], lib_ms)
     log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
-        f'nnz {nnz}: err {err:.2e} (tol {tol:.1e}) kernel {ms:.4f} ms on the card '
+        f'nnz {nnz}: err {err:.2e} (tol {tol:.1e})'
+        + (', equal bits to the plain version' if cdt == torch.float32 else '')
+        + f'; kernel {ms:.4f} ms on the card '
         f'(graph replay; {call_ms:.4f} ms a call as the host enqueues it), '
         f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms (graph replay), '
-        f'bound {entry["bound_ms"]:.4f} ms')
+        f'bound {entry["bound_ms"]:.4f} ms (bytes {nbytes / MEM_BW * 1e3:.4f}, operations '
+        f'{2 * nnz * cin * cout / PEAK[cdt] * 1e3:.4f})')
     return entry
 
 
@@ -1101,7 +1111,8 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
     own error beside it), check equal bits on a second run; time both and
     the matmul yardstick over the materialised inverse gather."""
     from crb_active_3ddet_torch.ops import cuda_kernels
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import (gather_gemm_dgrad_plain,
+                                                              subm_conv3d_gather)
     dout, rbk, inv, w, v_in = args
     tol = 1e-5 if f64_tol is None else f64_tol
     up = (lambda t: t) if f64_tol is None else (lambda t: t.double())
@@ -1119,6 +1130,11 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
     ref_max, ref_median = ref.abs().max().item(), ref.abs().median().item()
     if not torch.equal(got, cuda_kernels.gather_gemm_dgrad(*args)):
         raise RuntimeError(f'{name}: two runs on the same inputs differ')
+    # the f32 route keeps the order of the f32 matmul over the inverse gather
+    if w.dtype == torch.float32 and not torch.equal(
+            got, subm_conv3d_gather(dout, inv, w.transpose(1, 2).contiguous())):
+        raise RuntimeError(f'{name}: the f32 route differs from the f32 matmul over the '
+                           'inverse rulebook')
     k, cin, cout = w.shape
     ms = graph_time_ms(lambda: cuda_kernels.gather_gemm_dgrad(*args))
     plain_ms = cuda_time_ms(lambda: gather_gemm_dgrad_plain(dout, rbk, w, v_in),
@@ -1134,10 +1150,14 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
                    plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[w.dtype], lib_ms)
     log(f'{name}: V_in {v_in} K {k} {cout}->{cin} nnz {nnz}: |ref| max {ref_max:.3e}, '
         f'median {ref_median:.3e}; err {err:.2e} of the products\' magnitude (tol {tol:.0e}), '
-        f'equal bits on a second run; call {ms:.4f} ms on the card (graph '
+        f'equal bits on a second run'
+        + (' and to the f32 matmul over the inverse gather' if w.dtype == torch.float32
+           else '')
+        + f'; call {ms:.4f} ms on the card (graph '
         f'replay: cast of dout, W transposed, pack, kernel), plain {plain_ms:.4f} ms, '
         f'matmul yardstick {lib_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
-        f'({entry["bound_by"]})')
+        f'({entry["bound_by"]}; bytes {nbytes / MEM_BW * 1e3:.4f}, operations '
+        f'{2 * nnz * cin * cout / PEAK[w.dtype] * 1e3:.4f})')
     return entry
 
 
@@ -1968,40 +1988,91 @@ def drive_active(dev):
     return results
 
 
+def active_k2_calls(dev):
+    """The f32 gather-GEMM's calls (args, launches, out) at the AL loop's
+    inputs: the 12 forward calls of the entropy scan's first pool batch
+    (second_synth_active_entropy.yaml, batch 4, the eval phase's seeded
+    weights) and the 11 dgrad calls of a retrain step."""
+    import tempfile
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_active_dataloader
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    cfg = load_config(ACTIVE_CFG)
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    _, _, model, _ = build(cfg, bs, dev, seed=0, cls_bias=CLS_BIAS)
+    lab, unlab = build_active_dataloader(
+        cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0, training=True,
+        pre_train_sample_nums=int(cfg.ACTIVE_TRAIN.PRE_TRAIN_SAMPLE_NUMS), seed=0)[2:4]
+    k2, dcalls = [], []
+    with tempfile.TemporaryDirectory() as qdir, \
+            recording(cuda_kernels, 'sparse_conv_gather_gemm', k2):
+        build_strategy('entropy', model, lab, unlab, 0, qdir, cfg).scan_pool(
+            signals=('box_entropy',))
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, 10, model.parameters())
+    train_step = train_rt.make_train_step(model, optimizer, lab.dataset)
+    with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls):
+        train_step(train_rt.init_train_state(model, optimizer),
+                   train_rt.host_to_device_batch(next(iter(lab)), dev))
+    torch.cuda.synchronize()
+    return k2[:len(SPARSE_LAYERS)], dcalls
+
+
 def ablate_gather_gemm(dev):
-    """Time the gather-GEMM (bf16, graph replay) at the inputs of each sparse
-    conv layer of the SECOND step, as built and with parts compiled out."""
+    """Time the gather-GEMM (graph replay of the launch) as built and with
+    parts compiled out: the bf16 route at the inputs of each sparse conv
+    layer of the SECOND step; the f32 route at each layer of the AL scan's
+    first pool batch (second_synth_active_entropy.yaml, batch 4, the eval
+    phase's seeded weights) and at each dgrad of an AL retrain step, with
+    every rulebook's hit share at the granularities the kernels skip at."""
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.ops import cuda_build, cuda_kernels
-    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    libs = cuda_build.build_variants('gather_gemm', {
+        'as built': [], 'no gather': ['-DGG_ABLATE_A'], 'no weight reads': ['-DGG_ABLATE_B'],
+        'neither': ['-DGG_ABLATE_A', '-DGG_ABLATE_B']}, cuda_kernels._SIG)
+
+    def variants(f, rbk, w, tag):
+        (v_out, k), cin, cout = rbk.shape, w.shape[1], w.shape[2]
+        bf16 = int(f.dtype == torch.bfloat16)
+        out = torch.empty((v_out, cout), dtype=torch.float32, device=dev)
+        wpack = (torch.empty(((k + 3) // 4 * 4, cin, cout), dtype=torch.bfloat16, device=dev)
+                 if bf16 else None)
+
+        def launch(lib):
+            cuda_build.check(lib, 'gather_gemm', lib.gather_gemm_launch(
+                f.data_ptr(), rbk.data_ptr(), w.data_ptr(),
+                None if wpack is None else wpack.data_ptr(), out.data_ptr(), v_out, k,
+                cin, cout, bf16, torch.cuda.current_stream().cuda_stream))
+        log(f'{tag} {cin}->{cout} nnz {int((rbk >= 0).sum())}, ms on the card (graph '
+            'replay): ' + ', '.join(f'{t} {graph_time_ms(lambda: launch(lib)):.4f}'
+                                    for t, lib in libs.items()))
+
     _, loader, model, step = build(load_config(SECOND_CFG), BATCH, dev, seed=0,
                                    cls_bias=CLS_BIAS)
     captured = []
     hooks = [m.register_forward_pre_hook(
         lambda mod, args: captured.append((mod, args[0], args[1])))
         for m in model.backbone_3d.modules() if type(m).__name__ == 'SparseConvLayer']
-    step(host_to_device_batch(next(iter(loader)), dev))
+    step(train_rt.host_to_device_batch(next(iter(loader)), dev))
     torch.cuda.synchronize()
     for h in hooks:
         h.remove()
-    libs = cuda_build.build_variants('gather_gemm', {
-        'as built': [], 'no gather': ['-DGG_ABLATE_A'], 'no weight reads': ['-DGG_ABLATE_B'],
-        'neither': ['-DGG_ABLATE_A', '-DGG_ABLATE_B']}, cuda_kernels._SIG)
     for lname, (layer, feats, rbk) in zip(SPARSE_LAYERS, captured):
-        f = feats.to(torch.bfloat16).reshape(-1, feats.shape[-1]).contiguous()
-        w = layer[0].weight.to(torch.bfloat16).contiguous()
-        k, cin, cout = w.shape
-        out = torch.empty((rbk.shape[0], cout), dtype=torch.float32, device=dev)
-        wpack = torch.empty(((k + 3) // 4 * 4, cin, cout), dtype=torch.bfloat16, device=dev)
+        variants(feats.to(torch.bfloat16).reshape(-1, feats.shape[-1]).contiguous(), rbk,
+                 layer[0].weight.to(torch.bfloat16).contiguous(), f'gather_gemm[{lname}]')
 
-        def launch(lib):
-            cuda_build.check(lib, 'gather_gemm', lib.gather_gemm_launch(
-                f.data_ptr(), rbk.data_ptr(), w.data_ptr(), wpack.data_ptr(),
-                out.data_ptr(), rbk.shape[0], k, cin, cout, 1,
-                torch.cuda.current_stream().cuda_stream))
-        log(f'gather_gemm[{lname}] {cin}->{cout}, ms on the card (graph replay): '
-            + ', '.join(f'{tag} {graph_time_ms(lambda: launch(lib)):.4f}'
-                        for tag, lib in libs.items()))
+    k2, dcalls = active_k2_calls(dev)
+    for lname, ((f, rbk, w), _, _) in zip(SPARSE_LAYERS, k2):
+        rulebook_emptiness(f'active.gather_gemm[{lname}]', rbk, (4, 8, 16, 32, 64))
+        variants(f, rbk, w, f'active.gather_gemm[{lname}] f32')
+    for lname, ((dout, _, inv, w, _), _, _) in zip(SPARSE_LAYERS[1:][::-1], dcalls):
+        rulebook_emptiness(f'active_train.gather_gemm_dgrad[{lname}]', inv,
+                           (4, 8, 16, 32, 64))
+        variants(dout, inv, w.transpose(1, 2).contiguous(),
+                 f'active_train.gather_gemm_dgrad[{lname}] f32')
 
 
 def ablate_wgrad(dev):

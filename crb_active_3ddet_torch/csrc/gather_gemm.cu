@@ -56,12 +56,37 @@
 // @ W[k]^T over the inverse rulebook (ops/sparse/rulebook.py), so its Cin is
 // the forward's Cout, up to 128 (conv_out); the wgrad is gather_gemm_wgrad.cu.
 //
-// f32: CUDA cores in full f32 (a TF32 product would lose the 1e-4 agreement
-// of the f32 models with the CPU path)
-//   * a block of 256 threads owns 64 rows x TN columns (TN = min(Cout, 64));
-//     it reads its (64, K) rulebook block once, coalesced, builds the tile's
-//     offset mask, and for each offset that hits stages W[k] and the gathered
-//     rows as f32 in shared memory and accumulates with FMAs.
+// f32: CUDA cores in exact f32 (the AL configs' route, forward and dgrad)
+//   * what bounds it: by bytes a layer of the AL scan (batch 4, 16 000-voxel
+//     buffers) is 10-30 us; the products of the entries that hit, at the
+//     card's 67 TFLOP/s of f32 FMA, are less.  The first kernel lost 18x
+//     that (2.2x the f32 matmul over the dense gather) to (1) one 4-byte
+//     shared load per FMA, (2) every offset run for all 64 rows of a tile
+//     when one row hit it, (3) scalar gathers after a barrier, nothing in
+//     flight under the FMAs, two barriers per offset, (4) Cin 4 and 8 paying
+//     that per 4 or 8 columns;
+//   * (2) a block owns 128 rows x TN = min(Cout, 64) columns.  It reads its
+//     (128, K) rulebook block once and lists, per offset, the rows that hit
+//     (warp ballots and prefix counts, rows ascending).  Only listed rows
+//     are gathered and multiplied; the accumulators stay in shared memory
+//     between steps, so a row that misses costs nothing;
+//   * (1) a step's n hits are split evenly over the block's entry groups
+//     (16 lanes x 4 columns each at TN 64): a thread takes ceil(n / 16) of
+//     them (at most 8), loads their accumulators, and per 4 channels reads
+//     one float4 of each hit's gathered row and 4 float4s of W and runs up
+//     to 128 FMAs; a warp's groups read distinct banks;
+//   * (3) a step is (offset, chunk of 32 channels).  The next step's gathered rows and W[k] are staged with
+//     cp.async, 16 B a lane (a -1 entry zero-fills), into the other half of
+//     a double buffer while this step's FMAs run: one barrier a step;
+//   * (4) below Cin 16, 16 / Cin offsets fold into one staged row of 16
+//     values (conv_input: 7 steps over K = 27);
+//   * the order rule: every output element is summed by one thread as one
+//     fmaf chain from 0.0f, in ascending offset and, within an offset,
+//     ascending input channel, leaving out only products that are exactly 0
+//     (the rows that miss).  At the AL path's shapes that is also the order
+//     of the plain version's f32 matmul (TF32 off), and the two are
+//     bit-equal; the route is bit-equal to itself on every run.  No TF32 or split-operand tensor-core product, no split of
+//     the depth across threads, no partial sums added later.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -312,95 +337,254 @@ cudaError_t launch_mma(const __nv_bfloat16* feat, const int* rb, const __nv_bflo
 
 // ------------------------------------------------------------------ CUDA cores
 
-constexpr int TILE_V = 64;
 constexpr int FMA_THREADS = 256;
+constexpr int FMA_BM = 128;          // rows a block owns (a hit list entry is a uint8)
+constexpr int FMA_CC = 32;           // most input channels a step stages
+constexpr int NR = 4;                // columns a thread owns: one float4
+
+// How a block of the f32 kernel cuts its work.  A UNIT is what the hit lists
+// count: one offset, or, below Cin 16, 16 / Cin offsets folded into one staged
+// row.  A STEP stages, for one unit, its whole hit list (at most BM entries)
+// and one chunk of CC input channels: D = F * CC values an entry, in
+// (offset, channel) order.  The G entry groups of the block's threads split a
+// step's n entries evenly: each takes mr = ceil(n / G) consecutive entries
+// (at most MR = BM / G), so a step costs its busiest thread mr entries; a
+// group's staged rows are followed by one float4 of padding, so that the
+// groups of a warp read distinct banks.
+template <int CIN, int TN>
+struct Fma {
+  static constexpr int F = CIN < 16 ? 16 / CIN : 1;            // offsets a unit
+  static constexpr int CC = CIN < FMA_CC ? CIN : FMA_CC;        // channels a step
+  static constexpr int NCH = CIN / CC;                          // chunks a unit
+  static constexpr int D = F * CC;                              // depth of a step
+  static constexpr int Q = D / 4;                               // float4s a staged row
+  static constexpr int CG = TN / NR;                            // column groups
+  static constexpr int G = FMA_THREADS / CG;                    // entry groups
+  static constexpr int MR = FMA_BM / G;                         // most entries a group
+  static constexpr int F_CHUNKS = FMA_BM * Q + G;               // float4s a feature buffer
+  static constexpr int W_CHUNKS = D * TN / 4;                   // float4s a weight buffer
+  static constexpr int ACC_LD = TN + 4;                         // floats an accumulator row
+  static_assert(MR >= 1 && MR <= 8 && MR * G == FMA_BM && FMA_BM % 32 == 0, "tile");
+  __host__ __device__ static int units(int num_k) { return (num_k + F - 1) / F; }
+  __device__ static int entries_a_group(int n) { return min(MR, (n + G - 1) / G); }
+  static size_t smem_bytes(int num_k) {
+    return 16 * (2 * (size_t)F_CHUNKS + 2 * (size_t)W_CHUNKS)
+        + 4 * (size_t)(FMA_BM + 1) * ACC_LD + 4 * (size_t)FMA_BM * num_k
+        + (size_t)units(num_k) * FMA_BM;
+  }
+};
+
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// One group's products of a step: M entries (rows arow[m] of the
+// accumulators, scratch past the list) x the thread's 4 columns, continuing
+// each element's fmaf chain over the step's D values in order
+template <class S, int M, int TN>
+__device__ __forceinline__ void fma_entries(float* acc_s, const int* arow,
+                                            const float4* fb, const float4* wb) {
+  float4 acc[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) acc[m] = *reinterpret_cast<const float4*>(acc_s + arow[m]);
+#pragma unroll
+  for (int q = 0; q < S::Q; ++q) {
+    float4 fv[M];
+#pragma unroll
+    for (int m = 0; m < M; ++m) fv[m] = fb[m * S::Q + q];
+#pragma unroll
+    for (int dd = 0; dd < 4; ++dd) {
+      const float4 wv = wb[(4 * q + dd) * (TN / 4)];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float a = dd == 0 ? fv[m].x : dd == 1 ? fv[m].y : dd == 2 ? fv[m].z : fv[m].w;
+        acc[m].x = fmaf(a, wv.x, acc[m].x);
+        acc[m].y = fmaf(a, wv.y, acc[m].y);
+        acc[m].z = fmaf(a, wv.z, acc[m].z);
+        acc[m].w = fmaf(a, wv.w, acc[m].w);
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 0; m < M; ++m) *reinterpret_cast<float4*>(acc_s + arow[m]) = acc[m];
+}
 
 template <int CIN, int TN>
 __global__ void __launch_bounds__(FMA_THREADS)
 gather_fma_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
                   const float* __restrict__ w, float* __restrict__ out,
                   int v_out, int num_k, int cout) {
-  constexpr int RSTEP = FMA_THREADS / TN;  // rows between one thread's outputs
-  constexpr int NPT = TILE_V / RSTEP;      // outputs per thread
-  constexpr int CC = CIN < 64 ? CIN : 64;  // input columns staged at a time
-  __shared__ int rb_s[TILE_V * MAX_K];     // the tile's (64, K) rulebook block
-  __shared__ float f_s[TILE_V][CC + 1];    // +1: rows fall in distinct banks
-  __shared__ float w_s[CC][TN];
-  __shared__ unsigned mask_s;              // bit k: offset k hits in this tile
+  using S = Fma<CIN, TN>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* f_s = reinterpret_cast<float4*>(smem);                        // [2][F_CHUNKS]
+  float4* w_s = f_s + 2 * S::F_CHUNKS;                                   // [2][D][TN / 4]
+  float* acc_s = reinterpret_cast<float*>(w_s + 2 * S::W_CHUNKS);        // [BM + 1][ACC_LD]
+  int* rb_s = reinterpret_cast<int*>(acc_s + (FMA_BM + 1) * S::ACC_LD);  // [BM][K]
+  unsigned char* list_s = reinterpret_cast<unsigned char*>(rb_s + FMA_BM * num_k);
+  __shared__ int cnt_s[MAX_K];                                           // hit list lengths
 
-  const int v0 = blockIdx.x * TILE_V;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int v0 = blockIdx.x * FMA_BM;
   const int n0 = blockIdx.y * TN;
-  const int tid = threadIdx.x;
-  const int col = tid % TN;
-  const int row0 = tid / TN;
+  const int units = S::units(num_k);
 
-  if (tid == 0) mask_s = 0u;
-  __syncthreads();
+  // the block's (BM, K) rulebook tile (-1 past v_out), accumulators at 0
   {
-    const int n_in = min(TILE_V, v_out - v0) * num_k;
+    const int n_in = min(FMA_BM, v_out - v0) * num_k;
     const int* slab = rb + (size_t)v0 * num_k;
-    unsigned mine = 0u;
-    for (int i = tid; i < TILE_V * num_k; i += FMA_THREADS) {
-      const int e = i < n_in ? slab[i] : -1;
-      rb_s[i] = e;
-      if (e >= 0) mine |= 1u << (i % num_k);
-    }
-    mine = __reduce_or_sync(FULL, mine);
-    if ((tid & 31) == 0 && mine) atomicOr(&mask_s, mine);
+    for (int i = tid; i < FMA_BM * num_k; i += FMA_THREADS)
+      rb_s[i] = i < n_in ? __ldg(slab + i) : -1;
+    float4* a4 = reinterpret_cast<float4*>(acc_s);
+    for (int i = tid; i < (FMA_BM + 1) * S::ACC_LD / 4; i += FMA_THREADS)
+      a4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   __syncthreads();
-
-  float acc[NPT];
+  // hit lists: each warp builds those of every (FMA_THREADS / 32)-th unit:
+  // the rows, in ascending order, with a hit at one of the unit's offsets
+  for (int u = warp; u < units; u += FMA_THREADS / 32) {
+    int n = 0;
+    for (int q = 0; q < FMA_BM / 32; ++q) {
+      const int r = 32 * q + lane;
+      bool hit = false;
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) acc[i] = 0.f;
-
-  // per offset, the columns in chunks of CC (one chunk up to Cin 64; the
-  // chunks keep Cin 128, the dgrad of conv_out, in the same shared memory)
-  for (unsigned todo = mask_s; todo; todo &= todo - 1) {
-    const int k = __ffs(todo) - 1;
-    for (int c0 = 0; c0 < CIN; c0 += CC) {
-      for (int idx = tid; idx < CC * TN; idx += FMA_THREADS) {
-        const int c = idx / TN, n = idx % TN;
-        w_s[c][n] = w[((size_t)k * CIN + c0 + c) * cout + n0 + n];
+      for (int f = 0; f < S::F; ++f) {
+        const int k = S::F * u + f;
+        hit |= k < num_k && rb_s[r * num_k + k] >= 0;
       }
-      for (int idx = tid; idx < TILE_V * CC; idx += FMA_THREADS) {
-        const int r = idx / CC, c = idx % CC;
-        const int src = rb_s[r * num_k + k];
-        f_s[r][c] = src >= 0 ? feat[(size_t)src * CIN + c0 + c] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int c = 0; c < CC; ++c) {
-        const float wv = w_s[c][col];
-#pragma unroll
-        for (int i = 0; i < NPT; ++i)
-          acc[i] = fmaf(f_s[row0 + i * RSTEP][c], wv, acc[i]);
-      }
-      __syncthreads();
+      const unsigned b = __ballot_sync(FULL, hit);
+      if (hit) list_s[u * FMA_BM + n + __popc(b & ((1u << lane) - 1u))] = (unsigned char)r;
+      n += __popc(b);
     }
+    if (lane == 0) cnt_s[u] = n;
   }
+  __syncthreads();
+  unsigned todo = 0u;
+  for (int u = 0; u < units; ++u)
+    if (cnt_s[u]) todo |= 1u << u;
+
+  // stage step (u, chunk c) into buffer b: the gathered rows of the unit's
+  // hits (zeros for -1 and past K), group by group, and its weight rows
+  auto stage = [&](int u, int c, int b) {
+    const int n_e = cnt_s[u];
+#ifndef GG_ABLATE_A    // measurement build: gather nothing
+    const int mr = S::entries_a_group(n_e);
+    float4* fb = f_s + b * S::F_CHUNKS;
+    constexpr int PER_ENTRY = S::F * (S::CC / 4);
+    for (int idx = tid; idx < n_e * PER_ENTRY; idx += FMA_THREADS) {
+      const int i = idx / PER_ENTRY, q = idx % PER_ENTRY;
+      const int f = q / (S::CC / 4), c4 = q % (S::CC / 4);
+      const int k = S::F * u + f;
+      const int src = k < num_k ? rb_s[list_s[u * FMA_BM + i] * num_k + k] : -1;
+      cp_async16(fb + i * S::Q + i / mr + q,
+                 src >= 0 ? feat + (size_t)src * CIN + c * S::CC + 4 * c4 : feat,
+                 src >= 0 ? 16 : 0);
+    }
+#endif
+#ifndef GG_ABLATE_B    // measurement build: read no weights
+    float4* wb = w_s + b * S::W_CHUNKS;
+    for (int idx = tid; idx < S::W_CHUNKS; idx += FMA_THREADS) {
+      const int d = idx / (TN / 4), n4 = idx % (TN / 4);
+      const int k = S::F * u + d / S::CC;
+      cp_async16(wb + idx,
+                 k < num_k ? w + ((size_t)k * CIN + c * S::CC + d % S::CC) * cout + n0 + 4 * n4
+                           : w,
+                 k < num_k ? 16 : 0);
+    }
+#endif
+    cp_async_commit();
+  };
+
+  // one step's products: group g of the step's entry groups takes entries
+  // g * mr .. g * mr + mr - 1, thread (g, j) their columns 4j..4j+3; each
+  // output element is one fmaf chain, continued here over the step's D
+  // values in (offset, channel) order
+  auto compute = [&](int u, int b) {
+    const int n_e = cnt_s[u];
+    const int mr = S::entries_a_group(n_e);
+    const int j = tid % S::CG, g = tid / S::CG;
+    if (g * mr >= n_e) return;
+    int arow[S::MR];
 #pragma unroll
-  for (int i = 0; i < NPT; ++i) {
-    const int v = v0 + row0 + i * RSTEP;
-    if (v < v_out) out[(size_t)v * cout + n0 + col] = acc[i];
+    for (int m = 0; m < S::MR; ++m) {
+      const int e = g * mr + m;
+      const int r = m < mr && e < n_e ? list_s[u * FMA_BM + e] : FMA_BM;  // BM: scratch
+      arow[m] = r * S::ACC_LD + 4 * j;
+    }
+    const float4* fb = f_s + b * S::F_CHUNKS + g * (mr * S::Q + 1);
+    const float4* wb = w_s + b * S::W_CHUNKS + j;
+    switch (mr) {
+      case 1: fma_entries<S, 1, TN>(acc_s, arow, fb, wb); break;
+      case 2: fma_entries<S, 2, TN>(acc_s, arow, fb, wb); break;
+      case 3: if constexpr (S::MR >= 3) fma_entries<S, 3, TN>(acc_s, arow, fb, wb); break;
+      case 4: if constexpr (S::MR >= 4) fma_entries<S, 4, TN>(acc_s, arow, fb, wb); break;
+      case 5: if constexpr (S::MR >= 5) fma_entries<S, 5, TN>(acc_s, arow, fb, wb); break;
+      case 6: if constexpr (S::MR >= 6) fma_entries<S, 6, TN>(acc_s, arow, fb, wb); break;
+      case 7: if constexpr (S::MR >= 7) fma_entries<S, 7, TN>(acc_s, arow, fb, wb); break;
+      default: if constexpr (S::MR >= 8) fma_entries<S, 8, TN>(acc_s, arow, fb, wb); break;
+    }
+  };
+
+  // steps in order: units with a hit ascending, then chunks.  One barrier a
+  // step: it publishes the step's staged buffer and frees the other one
+  // (every thread is done with the previous step), whose refill then runs
+  // under this step's products
+  int u = todo ? __ffs(todo) - 1 : -1, c = 0, b = 0;
+  if (u >= 0) stage(u, 0, 0);
+  while (u >= 0) {
+    int nu = u, nc = c + 1;
+    if (nc == S::NCH) {
+      nc = 0;
+      todo &= todo - 1u;
+      nu = todo ? __ffs(todo) - 1 : -1;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    if (nu >= 0) stage(nu, nc, b ^ 1);
+    compute(u, b);
+    u = nu; c = nc; b ^= 1;
   }
+  __syncthreads();
+  for (int i = tid; i < FMA_BM * (TN / 4); i += FMA_THREADS) {
+    const int r = i / (TN / 4), n4 = i % (TN / 4);
+    if (v0 + r < v_out)
+      *reinterpret_cast<float4*>(out + (size_t)(v0 + r) * cout + n0 + 4 * n4) =
+          *reinterpret_cast<const float4*>(acc_s + r * S::ACC_LD + 4 * n4);
+  }
+}
+
+template <int CIN, int TN>
+cudaError_t launch_fma_tile(const float* feat, const int* rb, const float* w, float* out,
+                            int v_out, int num_k, int cout, cudaStream_t stream) {
+  const int smem = static_cast<int>(Fma<CIN, TN>::smem_bytes(num_k));
+  // above 48 KB a block's shared memory must be asked for (on the current
+  // device; not a stream operation, so a CUDA graph may capture the launch)
+  const cudaError_t e = cudaFuncSetAttribute(
+      gather_fma_kernel<CIN, TN>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  dim3 grid((v_out + FMA_BM - 1) / FMA_BM, cout / TN);
+  gather_fma_kernel<CIN, TN><<<grid, FMA_THREADS, smem, stream>>>(
+      feat, rb, w, out, v_out, num_k, cout);
+  return cudaGetLastError();
 }
 
 template <int CIN>
 cudaError_t launch_fma_cin(const float* feat, const int* rb, const float* w, float* out,
                            int v_out, int num_k, int cout, cudaStream_t stream) {
-  const int tn = cout >= 64 ? 64 : cout;
-  dim3 grid((v_out + TILE_V - 1) / TILE_V, cout / tn);
-  switch (tn) {
-    case 16: gather_fma_kernel<CIN, 16><<<grid, FMA_THREADS, 0, stream>>>(
-                 feat, rb, w, out, v_out, num_k, cout); break;
-    case 32: gather_fma_kernel<CIN, 32><<<grid, FMA_THREADS, 0, stream>>>(
-                 feat, rb, w, out, v_out, num_k, cout); break;
-    case 64: gather_fma_kernel<CIN, 64><<<grid, FMA_THREADS, 0, stream>>>(
-                 feat, rb, w, out, v_out, num_k, cout); break;
+  switch (cout >= 64 ? 64 : cout) {
+    case 16: return launch_fma_tile<CIN, 16>(feat, rb, w, out, v_out, num_k, cout, stream);
+    case 32: return launch_fma_tile<CIN, 32>(feat, rb, w, out, v_out, num_k, cout, stream);
+    case 64: return launch_fma_tile<CIN, 64>(feat, rb, w, out, v_out, num_k, cout, stream);
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
 cudaError_t launch_fma(const float* f, const int* rb, const float* ww, float* out,
@@ -425,7 +609,8 @@ extern "C" {
 // f32.  cin in {4, 8, 16, 32, 64, 128}; cout in {16, 32} or a multiple of 64.
 // bf16 runs on tensor cores and needs wpack, scratch of (num_k rounded up to a
 // multiple of 4) * cin * cout bf16 values; feat, rb and wpack must then be
-// 16-byte aligned.  f32 runs on CUDA cores; wpack is not read.
+// 16-byte aligned.  f32 runs on CUDA cores and stages feat and w 16 bytes a
+// lane: they must then be 16-byte aligned; wpack is not read.
 int gather_gemm_launch(const void* feat, const int* rb, const void* w, void* wpack,
                        float* out, int v_out, int num_k, int cin, int cout,
                        int is_bf16, void* stream) {
@@ -433,10 +618,13 @@ int gather_gemm_launch(const void* feat, const int* rb, const void* w, void* wpa
   if (num_k < 1 || num_k > MAX_K) return cudaErrorInvalidValue;
   if (cout != 16 && cout != 32 && cout % 64 != 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!is_bf16)
+  if (!is_bf16) {
+    if ((reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(w)) % 16 != 0)
+      return cudaErrorInvalidValue;
     return static_cast<int>(launch_fma(static_cast<const float*>(feat), rb,
                                        static_cast<const float*>(w), out, v_out, num_k, cin,
                                        cout, s));
+  }
   if (wpack == nullptr || (reinterpret_cast<uintptr_t>(feat) | reinterpret_cast<uintptr_t>(rb) |
                            reinterpret_cast<uintptr_t>(wpack)) % 16 != 0)
     return cudaErrorInvalidValue;

@@ -20,7 +20,10 @@ sum to it, so its products are the f32 products; it reads the rulebook
 transposed (``transpose_rulebook``, built once per rulebook by the
 backbone).  Gradients come back in their inputs' dtypes, so a bf16 ``dW`` is
 rounded to bf16 as the JAX VJP's is.  f32 runs on CUDA cores in full f32
-throughout.
+throughout; its forward and dgrad sum each output element as one fmaf chain
+in ascending (offset, channel) order.  That is the order of the f32 matmul
+in ``subm_conv3d_gather`` (TF32 off) where cuBLAS runs one chain an element,
+as at the AL path's shapes, and there the two are bit-equal.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
 it runs the plain version (``ops/sparse/sparse_ops.py``).  ``launches``,
@@ -209,7 +212,7 @@ def _launch(features, rulebook, weights):
     # the tensor-core path reads W as mma fragments, which the launch packs
     # into this scratch (below Cin 16 it folds several offsets into one mma
     # step, so K rounds up to 4), and reads features and rulebook 16 bytes a
-    # lane
+    # lane; the CUDA-core path stages features and weights 16 bytes a lane
     wpack = None
     if bf16:
         if features.data_ptr() % 16 or rulebook.data_ptr() % 16:
@@ -217,6 +220,9 @@ def _launch(features, rulebook, weights):
                              '16-byte aligned')
         wpack = torch.empty((-(-k // 4) * 4, cin, cout), dtype=torch.bfloat16,
                             device=dev)
+    elif features.data_ptr() % 16 or weights.data_ptr() % 16:
+        raise ValueError('gather-GEMM: f32 features and weights must be '
+                         '16-byte aligned')
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_gemm_launch(

@@ -26,6 +26,8 @@ from crb_active_3ddet_torch.ops import iou3d as tiou
 from crb_active_3ddet_torch.ops.cuda_kernels import sparse_conv_gather_gemm
 from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
 
+from test_torch_gather_fma import CASES as FMA_CASES, _case as fma_case, fma_chain
+
 ATOL = 1e-4
 
 
@@ -224,16 +226,45 @@ def cuda_device():
     return torch.device('cuda')
 
 
+def _misaligned(t):
+    """The same values 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _hold_f32(f, r, ww, got):
+    """The f32 route sums each output element as one fmaf chain in ascending
+    (offset, channel) order: its bits are those of ``fma_chain`` (exact
+    rounding, on the card).  That is the f32 matmul's order where cuBLAS
+    runs one chain an element, as at the AL path's 64 000 rows, which
+    chip_smoke.py holds bit for bit; at these few rows cuBLAS sums in another
+    order (seen on an H100), so the plain version is held to the tolerance
+    above.  The route
+    reads features and weights 16 bytes a lane and refuses them unaligned."""
+    assert torch.equal(got, fma_chain(f, r, ww))
+    with pytest.raises(ValueError, match='aligned'):
+        sparse_conv_gather_gemm(_misaligned(f), r, ww)
+    with pytest.raises(ValueError, match='aligned'):
+        sparse_conv_gather_gemm(f, r, _misaligned(ww))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize('shape', [(64, 48, 27, 16, 32), (200, 130, 27, 4, 16),
                                    (100, 70, 27, 64, 64), (90, 64, 3, 64, 128),
-                                   (30, 17, 27, 32, 32), (40, 50, 27, 8, 16)])
+                                   (30, 17, 27, 32, 32), (40, 50, 27, 8, 16),
+                                   *FMA_CASES])
 def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
-    feats, rulebook, w = _gemm_case(9, *shape)
-    f = _t(feats).to(cuda_device, dtype)
-    r = _t(rulebook).to(cuda_device)
-    ww = _t(w).to(cuda_device, dtype)
+    """The shapes, then the cases of tests/test_torch_gather_fma.py (every
+    supported Cin and Cout, tiles without a hit, one hit in a tile, steps
+    where every entry group takes its most hits)."""
+    feats, rulebook, w = (fma_case(shape) if isinstance(shape, str)
+                          else map(_t, _gemm_case(9, *shape)))
+    f = feats.to(cuda_device, dtype)
+    r = rulebook.to(cuda_device)
+    ww = w.to(cuda_device, dtype)
     n0 = cuda_kernels.launches
     got = sparse_conv_gather_gemm(f, r, ww)
     torch.cuda.synchronize()
@@ -241,6 +272,9 @@ def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
     ref = subm_conv3d_gather(f, r, ww)
     torch.testing.assert_close(got, ref, atol=ATOL * (1 + ref.abs().max().item()),
                                rtol=0)
+    assert torch.equal(got, sparse_conv_gather_gemm(f, r, ww))   # same bits again
+    if dtype == torch.float32:
+        _hold_f32(f, r, ww, got)
 
 
 @pytest.mark.cuda
@@ -260,6 +294,8 @@ def test_gather_gemm_kernel_edge_cases(cuda_device, dtype, name):
                                rtol=0)
     assert torch.all(got[(r < 0).all(1)] == 0)
     assert torch.equal(got, sparse_conv_gather_gemm(f, r, ww))   # same bits again
+    if dtype == torch.float32:
+        _hold_f32(f, r, ww, got)
 
 
 @pytest.mark.cuda
@@ -541,6 +577,10 @@ def test_gather_gemm_dgrad_kernel_matches_plain(cuda_device, dtype, name):
                                rtol=0)
     assert torch.all(got[(iv < 0).all(1)] == 0)
     assert torch.equal(got, cuda_kernels.gather_gemm_dgrad(d, r, iv, ww, len(feats)))
+    if dtype == torch.float32:
+        # the forward's f32 route over the inverse rulebook: one fmaf chain
+        # an element in ascending (offset, channel) order
+        assert torch.equal(got, fma_chain(d, iv, ww.transpose(1, 2).contiguous()))
     if name == 'single_hit':
         torch.testing.assert_close(got[5], ref[5], atol=1e-6, rtol=0)
         assert int((got.abs().sum(1) > 0).sum()) == 1
