@@ -76,8 +76,12 @@ kernel's time goes, on a machine without a profiler for single kernels.
 
     python3 chip_smoke.py --ablate-wgrad
 
-likewise times the bf16 weight gradient's tensor-core kernel at each layer
-of the SECOND train step with its row gather, its mmas or both compiled out.
+likewise times the weight gradient: the bf16 route's tensor-core kernel at
+each layer of the SECOND train step with its row gather, its mmas or both
+compiled out, and the f32 route's CUDA-core kernel at each of the 12 wgrad
+calls of an AL retrain step with its row gather, its FMAs or both compiled
+out, each with its rulebook's hit shares and its grid (bf16 slices; f32
+blocks and the kernel's resident blocks per SM).
 """
 
 from __future__ import annotations
@@ -306,8 +310,9 @@ def profile_step(step, batch, rows=10):
     ours = {}
     for e in events:
         name = next((k for k in ('gather_mma_kernel', 'gather_fma_kernel',
-                                 'pack_weights_kernel', 'wgrad_partial_kernel',
-                                 'wgrad_mma_kernel',
+                                 'pack_weights_kernel', 'wgrad_fma_kernel',
+                                 'wgrad_mma_kernel', 'count_hits_kernel',
+                                 'list_hits_kernel', 'sum_blocks_kernel',
                                  'sum_slices_kernel', 'fps_kernel',
                                  'overlap_bev_kernel', 'nms_mask_kernel')
                      if k in e.key), None)
@@ -1164,11 +1169,12 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
 def time_wgrad(name, args, n_launch, f64_tol=None):
     """Hold the wgrad kernel against its plain version at one layer's
     backward inputs (error over the sum of the products' magnitudes, which
-    bounds an f32 sum's rounding), check equal bits on a second run, on the
-    route the step ran (bf16: tensor cores) and on the f32 route with the
-    same numbers; time the step's route, the plain version, the
-    matmul yardstick over the materialised gather and the transpose of the
-    rulebook that the tensor-core route reads.  ``bound_ms`` counts the
+    bounds an f32 sum's rounding), check equal bits on a second run and with
+    the transposed rulebook given or built by the wrapper, on the route the
+    step ran (bf16: tensor cores) and on the f32 route with the same
+    numbers; time the step's route, the plain version, the matmul yardstick
+    over the materialised gather and the transpose of the rulebook that both
+    routes read.  ``bound_ms`` counts the
     route's own arithmetic (three bf16 products at the bf16 peak on tensor
     cores), ``bound_f32_ms`` the f32 products at the f32 peak.  The errors
     are held within 1e-5; given ``f64_tol``, against the plain version in
@@ -1196,6 +1202,10 @@ def time_wgrad(name, args, n_launch, f64_tol=None):
                                f'> {tol}')
         if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*xa)):
             raise RuntimeError(f'{name} ({r}): two runs on the same inputs differ')
+        if not torch.equal(got, cuda_kernels.gather_gemm_wgrad(*xa[:3],
+                                                               transpose_rulebook(rbk))):
+            raise RuntimeError(f'{name} ({r}): the transposed rulebook given and built by '
+                               'the wrapper give other bits')
         errs[r] = err
     k = rbk.shape[1]
     v_in, cin = feats.shape
@@ -1220,9 +1230,11 @@ def time_wgrad(name, args, n_launch, f64_tol=None):
                    ms, plain_ms, nbytes, ops, peak, lib_ms)
     entry['path'] = route
     entry['bound_f32_ms'] = max(nbytes / MEM_BW, products / PEAK[torch.float32]) * 1e3
+    entry['transpose_ms'] = t_ms
     log(f'{name}: route {route}, V_out {rbk.shape[0]} K {k} {cin}x{cout} nnz {nnz}: err '
         + ', '.join(f'{r} {e:.2e}' for r, e in errs.items())
-        + f' of the products\' magnitude (tol {tol:.0e}), equal bits on a second run; call '
+        + f' of the products\' magnitude (tol {tol:.0e}), equal bits on a second run and '
+        f'with the transposed rulebook given or built; call '
         f'{ms:.4f} ms on the card (graph replay: partial sums + slice sum), plain '
         f'{plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms, bound '
         f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}, the route\'s arithmetic), f32 bound '
@@ -1992,7 +2004,7 @@ def active_k2_calls(dev):
     """The f32 gather-GEMM's calls (args, launches, out) at the AL loop's
     inputs: the 12 forward calls of the entropy scan's first pool batch
     (second_synth_active_entropy.yaml, batch 4, the eval phase's seeded
-    weights) and the 11 dgrad calls of a retrain step."""
+    weights), and the 11 dgrad and 12 wgrad calls of a retrain step."""
     import tempfile
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.datasets import build_active_dataloader
@@ -2006,18 +2018,19 @@ def active_k2_calls(dev):
     lab, unlab = build_active_dataloader(
         cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0, training=True,
         pre_train_sample_nums=int(cfg.ACTIVE_TRAIN.PRE_TRAIN_SAMPLE_NUMS), seed=0)[2:4]
-    k2, dcalls = [], []
+    k2, dcalls, wcalls = [], [], []
     with tempfile.TemporaryDirectory() as qdir, \
             recording(cuda_kernels, 'sparse_conv_gather_gemm', k2):
         build_strategy('entropy', model, lab, unlab, 0, qdir, cfg).scan_pool(
             signals=('box_entropy',))
     optimizer, _ = build_optimizer(cfg.OPTIMIZATION, 10, model.parameters())
     train_step = train_rt.make_train_step(model, optimizer, lab.dataset)
-    with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls):
+    with recording(cuda_kernels, 'gather_gemm_dgrad', dcalls), \
+            recording(cuda_kernels, 'gather_gemm_wgrad', wcalls):
         train_step(train_rt.init_train_state(model, optimizer),
                    train_rt.host_to_device_batch(next(iter(lab)), dev))
     torch.cuda.synchronize()
-    return k2[:len(SPARSE_LAYERS)], dcalls
+    return k2[:len(SPARSE_LAYERS)], dcalls, wcalls
 
 
 def ablate_gather_gemm(dev):
@@ -2064,7 +2077,7 @@ def ablate_gather_gemm(dev):
         variants(feats.to(torch.bfloat16).reshape(-1, feats.shape[-1]).contiguous(), rbk,
                  layer[0].weight.to(torch.bfloat16).contiguous(), f'gather_gemm[{lname}]')
 
-    k2, dcalls = active_k2_calls(dev)
+    k2, dcalls, _ = active_k2_calls(dev)
     for lname, ((f, rbk, w), _, _) in zip(SPARSE_LAYERS, k2):
         rulebook_emptiness(f'active.gather_gemm[{lname}]', rbk, (4, 8, 16, 32, 64))
         variants(f, rbk, w, f'active.gather_gemm[{lname}] f32')
@@ -2076,9 +2089,14 @@ def ablate_gather_gemm(dev):
 
 
 def ablate_wgrad(dev):
-    """Time the bf16 wgrad (graph replay of the launch, slice sum included)
-    at the inputs of each sparse conv layer of the SECOND train step, as
-    built and with its row gather, its mmas or both compiled out."""
+    """Time the wgrad (graph replay of the launch, the partial sums' sum
+    included) as built and with parts compiled out: the bf16 route (its row
+    gather, its mmas or both) at the inputs of each sparse conv layer of the
+    SECOND train step; the f32 route (its row gather, its FMAs or both) at
+    each of the 12 wgrad calls of an AL retrain step
+    (second_synth_active_entropy.yaml, batch 4), with each rulebook's hit
+    shares and the grid (bf16 slices; f32 blocks and the kernel's resident
+    blocks per SM)."""
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.ops import cuda_build, cuda_kernels
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch
@@ -2089,24 +2107,50 @@ def ablate_wgrad(dev):
     torch.cuda.synchronize()
     libs = cuda_build.build_variants('gather_gemm_wgrad', {
         'as built': [], 'no gather': ['-DGW_ABLATE_GATHER'], 'no mma': ['-DGW_ABLATE_MMA'],
-        'neither': ['-DGW_ABLATE_GATHER', '-DGW_ABLATE_MMA']}, cuda_kernels._WSIG)
-    for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], wcalls):
+        'no fma': ['-DGW_ABLATE_FMA'],
+        'neither': ['-DGW_ABLATE_GATHER', '-DGW_ABLATE_MMA', '-DGW_ABLATE_FMA']},
+        cuda_kernels._WSIG)
+
+    def variants(args, tag, parts):
         feats, rbk, dout, rbt = args
         (v_out, k), cin, cout = rbk.shape, feats.shape[1], dout.shape[1]
-        cut = (ctypes.c_int * 2)()
-        libs['as built'].gather_gemm_wgrad_slices(v_out, k, cin, cout, 1, cut)
-        partial = torch.empty((cut[0], k, cin, cout), dtype=torch.float32, device=dev)
-        dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+        bf16 = int(feats.dtype == torch.bfloat16)
 
-        def launch(lib):
-            cuda_build.check(lib, 'gather_gemm_wgrad', lib.gather_gemm_wgrad_launch(
-                feats.data_ptr(), rbk.data_ptr(), rbt.data_ptr(), dout.data_ptr(),
-                partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, 1,
-                torch.cuda.current_stream().cuda_stream))
-        log(f'gather_gemm_wgrad[{lname}] {cin}x{cout} nnz {int((rbk >= 0).sum())} slices '
-            f'{cut[0]}, ms on the card (graph replay): '
-            + ', '.join(f'{tag} {graph_time_ms(lambda: launch(lib)):.4f}'
-                        for tag, lib in libs.items()))
+        def prepared(lib):             # each build sizes its own grid and scratch
+            cut = (ctypes.c_int * 4)()
+            cuda_build.check(lib, 'gather_gemm_wgrad', lib.gather_gemm_wgrad_slices(
+                v_out, k, cin, cout, bf16, cut))
+            partial = torch.empty(cut[1], dtype=torch.float32, device=dev)
+            counts = torch.empty(max(cut[2], 1), dtype=torch.int32, device=dev)
+            dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+
+            def launch():
+                cuda_build.check(lib, 'gather_gemm_wgrad', lib.gather_gemm_wgrad_launch(
+                    feats.data_ptr(), rbt.data_ptr(), dout.data_ptr(), partial.data_ptr(),
+                    counts.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, bf16,
+                    torch.cuda.current_stream().cuda_stream))
+            return cut, launch
+        runs = {t: prepared(libs[t]) for t in parts}
+        cut = runs['as built'][0]
+        nnz = int((rbk >= 0).sum())
+        per_k = (rbk >= 0).sum(0)
+        log(f'{tag} {cin}x{cout} K {k} nnz {nnz} (hits {nnz / (v_out * k):.3f}, an offset '
+            f'{int(per_k.min())}-{int(per_k.max())}) '
+            + (f'slices {cut[0]}' if bf16 else
+               f'{cut[0]} blocks a Cout tile ({nnz / cut[0]:.0f} hits each), {cut[3]} '
+               'resident per SM')
+            + ', ms on the card (graph replay): '
+            + ', '.join(f'{t} {graph_time_ms(launch):.4f}'
+                        + ('' if bf16 or t == 'as built' else f' ({c[0]} blocks)')
+                        for t, (c, launch) in runs.items()))
+
+    for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], wcalls):
+        variants(args, f'gather_gemm_wgrad[{lname}]',
+                 ('as built', 'no gather', 'no mma', 'neither'))
+    _, _, acalls = active_k2_calls(dev)
+    for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], acalls):
+        variants(args, f'active_train.gather_gemm_wgrad[{lname}] f32',
+                 ('as built', 'no gather', 'no fma', 'neither'))
 
 
 def main():

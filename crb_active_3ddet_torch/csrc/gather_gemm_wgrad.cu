@@ -8,11 +8,14 @@
 // input gradient needs no kernel of its own: it is the forward kernel
 // (gather_gemm.cu) over the inverse rulebook with W[k] transposed.
 //
-// Both routes cut the rows v into slices: a block owns one offset k, one
-// Cout tile of TN <= 64 columns and one slice, so that even K = 3 (conv_out)
-// fills the card.  The slices' partial tiles go to scratch and a second
-// kernel sums them in slice order: no float atomics, the same bits on every
-// run.
+// Both routes read the rulebook transposed, (K, V_out) (ops/sparse/
+// rulebook.py transpose_rulebook, built once a rulebook by the backbone), and
+// split the hits over many blocks, so that even K = 3 (conv_out) fills the
+// card: the tensor-core route cuts the rows into slices (a block owns one
+// offset k, one Cout tile and one slice), the CUDA-core route gives each
+// block an equal share of all the hits.  The blocks' partial tiles go to
+// scratch and a second kernel sums them in a fixed order: no float atomics,
+// the same bits on every run.
 //
 // bf16 features: tensor cores (wgrad_mma_kernel)
 //   * the tile is a GEMM with M = Cin (A = the gathered feature rows,
@@ -52,19 +55,57 @@
 //     the mma's M rows past Cin cost products but no bytes.
 //
 // f32 features (the f32 models' gradient must keep their 1e-4 agreement,
-// which a TF32 product loses): CUDA cores (wgrad_partial_kernel)
-//   * a block walks its rows 256 at a time: one rulebook entry a thread, the
-//     hits compacted in row order into a list in shared memory, so that rows
-//     without a hit cost one 4-byte read and nothing else;
-//   * 32 listed rows at a time are staged in shared memory, each thread's
-//     loads of a round all issued before its first store, and the next 256
-//     rows' rulebook entries read while this chunk is worked on; each thread
-//     keeps an MR x MC block of the (Cin, TN) tile in registers and adds each
-//     row's outer product with FMAs.  Below 1024 outputs a tile, G groups of
-//     threads take every G-th row and are summed in group order at the end.
+// which a TF32 or split-operand tensor-core product loses): CUDA cores in
+// exact f32 (wgrad_fma_kernel)
+//   * what bounds it: at the AL retrain's shapes (batch 4, 64 000 rows) the
+//     64 x 64 layers are bound by their products at the card's 67 TFLOP/s of
+//     f32 FMA (40-60 us each), the others by bytes (4-15 us).  The first
+//     kernel ran at 10-14 % of the FMA peak where operations bound it and
+//     lost to the f32 matmul over the dense gather at seven of twelve layers,
+//     because (1) each thread read the (V_out, K) rulebook one entry at a
+//     stride of K * 4 bytes, (2) it listed the hits of 256 rows at a time
+//     and worked them in chunks of 32, so every 256 rows ended in a
+//     part-filled chunk, two barriers each, (3) it gathered a chunk's rows
+//     with scalar loads after a barrier, nothing in flight under the FMAs,
+//     (4) a thread held 4 x 4 outputs or fewer, and conv_input's 64 outputs a
+//     tile were 16 groups of 16 threads with a row each, (5) its grid was 4
+//     blocks an SM, whatever the kernel's residency;
+//   * (1, 2) two small kernels read the transposed (K, V_out) rulebook
+//     coalesced: the first counts each offset's hits in each CHUNK rows, the
+//     second writes the offsets' hit lists end to end (offset-major, rows
+//     ascending: ballots and one prefix a chunk) as (feature row, dout row)
+//     pairs.  The list is cut into B equal shares, B one wave of resident
+//     blocks a Cout tile (at most one a hit): rows that miss cost no block,
+//     and a subm rulebook's centre offset, which hits every valid row, no
+//     longer makes its blocks four times longer than the rest.  A block
+//     copies its share to shared memory an offset at a time, at most
+//     LIST_CAP hits a copy;
+//   * (3) stages of H >= STAGE listed hits: their feature rows (Cin floats)
+//     and dout rows (TN floats) are copied with cp.async, 16 B a lane, into
+//     the other half of a double buffer while this stage's FMAs run, one
+//     barrier a stage; rows past the list are zero-filled, so that the FMA
+//     loop runs without a test a hit (an exact zero leaves an fmaf chain as
+//     it is);
+//   * (4) a thread holds 8 x 8 outputs of the (Cin, TN) tile (4 x 4 below
+//     WIDE outputs), read per hit as float4s of both staged rows, split in
+//     halves half a row apart so that a quarter warp's loads are 128
+//     contiguous bytes; below THREADS x 64 outputs a tile, G groups of
+//     threads take every G-th listed hit.  conv_input (4 x 16) is 64 groups
+//     of 4 threads, each with 4 x 4 outputs a hit;
+//   * (5) TN is 128 at Cout 128 (conv_out reads its rows once), and the
+//     grid is one wave of the kernel's resident blocks
+//     (cudaOccupancyMaxActiveBlocksPerMultiprocessor) a Cout tile;
+//   * the order rule: block b's tile of offset k is G fmaf chains from 0.0f,
+//     group g's over the block's hits g, g + G, g + 2G, ... of offset k in
+//     row order, added in group order (0.0f + group 0 + group 1 ...) into
+//     partial slot b + k; sum_blocks_kernel adds the slots of the blocks
+//     that hold offset k's hits in a fixed order (lane l of a warp the l-th,
+//     (l + 32)-th, ... in block order, then the lanes pairwise).  No float
+//     atomics, no TF32: the same bits on every run.
 //
 // Measurement builds (chip_smoke.py --ablate-wgrad): GW_ABLATE_GATHER stages
-// zeros instead of gathering rows, GW_ABLATE_MMA leaves out the mmas.
+// zeros instead of gathering rows (both routes), GW_ABLATE_MMA leaves out the
+// tensor-core route's mmas, GW_ABLATE_FMA the f32 route's FMAs.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -75,147 +116,333 @@
 namespace {
 
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int THREADS = 256;        // also the rows a block tests at a time
+constexpr int LIST_CAP = 2048;       // hits a list holds (tensor cores: rows a slice at most)
+constexpr int SCAN = 8;              // rulebook entries a thread reads a round
+constexpr int MAX_K = 32;            // offsets a rulebook row may hold
+
+// ---------------------------------------------------------------- CUDA cores
+
+constexpr int THREADS = 256;         // f32 route: threads a block
 constexpr int WARPS = THREADS / 32;
-constexpr int ROWS = 32;            // listed rows staged at a time
-constexpr int TARGET_BLOCKS = 4 * 132;
+constexpr int CHUNK = THREADS * SCAN;     // rows a round of a block's scan
+constexpr int WIDE = 2048;           // outputs a tile from which a thread holds 8 x 8
+constexpr int STAGE = 32;            // fewest listed hits a stage holds
 
 template <int CIN, int TN>
-struct Tile {
-  static constexpr int OUT = CIN * TN;                       // outputs a block
-  static constexpr int MC = 4;                               // columns a thread
-  static constexpr int MR = OUT > THREADS * MC ? OUT / (THREADS * MC) : 1;  // rows a thread
-  static constexpr int P = (CIN / MR) * (TN / MC);           // threads a group
-  static constexpr int G = THREADS / P;                      // groups
-  static_assert(P * G == THREADS && CIN % MR == 0, "tile does not fit the block");
+struct FmaTile {
+  static constexpr int OUT = CIN * TN;                   // outputs a block
+  static constexpr int M = OUT >= WIDE ? 8 : 4;          // a thread's M x M outputs
+  static constexpr int Q = M / 4;                        // float4s of each row a hit
+  static constexpr int PC = TN / M;                      // threads along the Cout tile
+  static constexpr int P = (CIN / M) * PC;               // threads a group
+  static constexpr int G = THREADS / P;                  // groups
+  static constexpr int H = 2 * G > STAGE ? 2 * G : STAGE;   // listed hits a stage
+  static constexpr int LIST_BYTES = LIST_CAP * 8;
+  static constexpr int STAGE_BYTES = 2 * H * (CIN + TN) * 4;   // double buffer
+  static constexpr int RED_BYTES = G > 1 ? G * OUT * 4 : 0;
+  static constexpr int SMEM = LIST_BYTES + STAGE_BYTES > RED_BYTES
+                                  ? LIST_BYTES + STAGE_BYTES : RED_BYTES;
+  static_assert(P * G == THREADS && CIN % M == 0 && TN % M == 0 && H % G == 0 &&
+                    LIST_CAP % G == 0, "tile does not fit the block");
 };
 
-template <int CIN, int TN>
+// 16 bytes global -> shared, asynchronously; src_bytes 0 writes zeros
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_bytes) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+#ifdef GW_ABLATE_GATHER
+constexpr int GATHER_BYTES = 0;      // zero-fill: no row is read
+#else
+constexpr int GATHER_BYTES = 16;
+#endif
+
+// The offsets' hit lists laid end to end (offset-major, rows ascending) are
+// cut into min(B, nnz) equal shares: block b of a Cout tile owns hits
+// [first_hit(b), first_hit(b + 1)), at least one
+__device__ __forceinline__ int used_blocks(int blocks, int nnz) {
+  return blocks < nnz ? blocks : nnz;
+}
+__device__ __forceinline__ int first_hit(int b, int blocks, int nnz) {
+  return (int)((long long)b * nnz / blocks);
+}
+
+// exclusive and total sums of one int a lane (of the first 32 offsets)
+__device__ __forceinline__ int warp_exclusive(int x, int* total) {
+  const int lane = threadIdx.x & 31;
+  int incl = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(FULL, incl, o);
+    if (lane >= o) incl += y;
+  }
+  *total = __shfl_sync(FULL, incl, 31);
+  return incl - x;
+}
+
+// counts[k * chunks + c]: the hits of offset k among rows [c, c + 1) * CHUNK;
+// totals[k] (zeroed first) adds them up (integer adds: the same on every run)
 __global__ void __launch_bounds__(THREADS)
-wgrad_partial_kernel(const float* __restrict__ feat, const int* __restrict__ rb,
-                     const float* __restrict__ dout, float* __restrict__ partial,
-                     int v_out, int num_k, int cout, int rows_per_slice) {
-  using L = Tile<CIN, TN>;
-  constexpr int MR = L::MR, MC = L::MC, G = L::G;
-  constexpr int FPT = (ROWS * CIN + THREADS - 1) / THREADS;   // staged values a thread
-  constexpr int DPT = (ROWS * TN + THREADS - 1) / THREADS;
-  __shared__ int src_s[THREADS];                 // listed hits: feature row
-  __shared__ int dst_s[THREADS];                 //              dout row
-  __shared__ int cnt_s[WARPS];
-  __shared__ __align__(16) float f_s[ROWS][CIN];
-  __shared__ __align__(16) float d_s[ROWS][TN];
-  __shared__ __align__(16) float red_s[G > 1 ? G * L::OUT : 1];
+count_hits_kernel(const int* __restrict__ rbt, int* __restrict__ counts,
+                  int* __restrict__ totals, int v_out, int chunks) {
+  __shared__ int warp_s[WARPS];
+  const int c = blockIdx.x, k = blockIdx.y, tid = threadIdx.x;
+  const int* column = rbt + (size_t)k * v_out;
+  int n = 0;
+#pragma unroll
+  for (int j = 0; j < SCAN; ++j) {
+    const int v = c * CHUNK + j * THREADS + tid;
+    n += v < v_out && __ldg(column + v) >= 0;
+  }
+  for (int o = 16; o > 0; o >>= 1) n += __shfl_xor_sync(FULL, n, o);
+  if ((tid & 31) == 0) warp_s[tid >> 5] = n;
+  __syncthreads();
+  if (tid == 0) {
+    int sum = 0;
+    for (int w = 0; w < WARPS; ++w) sum += warp_s[w];
+    counts[(size_t)k * chunks + c] = sum;
+    atomicAdd(totals + k, sum);
+  }
+}
 
-  const int k = blockIdx.x;
-  const int n0 = blockIdx.y * TN;
-  const int slice = blockIdx.z;
+// The hit lists laid end to end: list[i] = (feature row, dout row) of hit i.
+// Block (c, k) writes offset k's hits among rows [c, c + 1) * CHUNK in row
+// order (row c * CHUNK + j * THREADS + tid is entry j of thread tid, so (j,
+// warp, lane) is row order: ballots and one prefix)
+__global__ void __launch_bounds__(THREADS)
+list_hits_kernel(const int* __restrict__ rbt, const int* __restrict__ counts,
+                 const int* __restrict__ totals, int2* __restrict__ list, int v_out,
+                 int chunks) {
+  __shared__ int cnt_s[SCAN][WARPS];
+  __shared__ int base_s;
+  const int c = blockIdx.x, k = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = tid / L::P, p = tid % L::P;
-  const int cr = (p / (TN / MC)) * MR;           // this thread's first row of W's tile
-  const int cc = (p % (TN / MC)) * MC;           // and first column
-  const int begin = slice * rows_per_slice;
-  const int end = min(v_out, begin + rows_per_slice);
-
-  float acc[MR][MC];
+  if (warp == 0) {                     // the hits ahead of this chunk's
+    int x = lane < k ? totals[lane] : 0;
+    for (int c0 = lane; c0 < c; c0 += 32) x += counts[(size_t)k * chunks + c0];
+    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
+    if (lane == 0) base_s = x;
+  }
+  const int* column = rbt + (size_t)k * v_out;
+  int e[SCAN];
+  unsigned bits[SCAN];
 #pragma unroll
-  for (int i = 0; i < MR; ++i)
+  for (int j = 0; j < SCAN; ++j) {
+    const int v = c * CHUNK + j * THREADS + tid;
+    e[j] = v < v_out ? __ldg(column + v) : -1;
+    bits[j] = __ballot_sync(FULL, e[j] >= 0);
+    if (lane == 0) cnt_s[j][warp] = __popc(bits[j]);
+  }
+  __syncthreads();
+  int run = base_s;
 #pragma unroll
-    for (int j = 0; j < MC; ++j) acc[i][j] = 0.f;
-
-  // the next chunk's rulebook entry is read while this chunk is worked on
-  int e_next = begin + tid < end ? rb[(size_t)(begin + tid) * num_k + k] : -1;
-  for (int base = begin; base < end; base += THREADS) {
-    const int v = base + tid;
-    const int e = e_next;
-    e_next = v + THREADS < end ? rb[(size_t)(v + THREADS) * num_k + k] : -1;
-    const unsigned hits = __ballot_sync(FULL, e >= 0);
-    if (lane == 0) cnt_s[warp] = __popc(hits);
-    __syncthreads();
-    int off = 0, total = 0;
+  for (int j = 0; j < SCAN; ++j) {
+    int at = run;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const int c = cnt_s[w];
-      off += w < warp ? c : 0;
-      total += c;
+      const int n = cnt_s[j][w];
+      at += w < warp ? n : 0;
+      run += n;
     }
-    if (e >= 0) {
-      const int at = off + __popc(hits & ((1u << lane) - 1u));
-      src_s[at] = e;
-      dst_s[at] = v;
-    }
-    __syncthreads();
-    for (int t0 = 0; t0 < total; t0 += ROWS) {
-      const int nr = min(ROWS, total - t0);
-      // every load of the round is issued before the first store, so that
-      // they are in flight together
-      float fv[FPT], dv[DPT];
-#pragma unroll
-      for (int j = 0; j < FPT; ++j) {
-        const int i = tid + j * THREADS, r = i / CIN;
-        fv[j] = i < ROWS * CIN && r < nr
-                    ? feat[(size_t)src_s[t0 + r] * CIN + i % CIN] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int i = tid + j * THREADS, r = i / TN;
-        dv[j] = i < ROWS * TN && r < nr ? dout[(size_t)dst_s[t0 + r] * cout + n0 + i % TN]
-                                        : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < FPT; ++j) {
-        const int i = tid + j * THREADS;
-        if (i < ROWS * CIN) f_s[i / CIN][i % CIN] = fv[j];
-      }
-#pragma unroll
-      for (int j = 0; j < DPT; ++j) {
-        const int i = tid + j * THREADS;
-        if (i < ROWS * TN) d_s[i / TN][i % TN] = dv[j];
-      }
-      __syncthreads();
-      for (int r = grp; r < nr; r += G) {
-        float f[MR], d[MC];
-#pragma unroll
-        for (int i = 0; i < MR; ++i) f[i] = f_s[r][cr + i];
-        const float4 dq = *reinterpret_cast<const float4*>(&d_s[r][cc]);
-        d[0] = dq.x; d[1] = dq.y; d[2] = dq.z; d[3] = dq.w;
-#pragma unroll
-        for (int i = 0; i < MR; ++i)
-#pragma unroll
-          for (int j = 0; j < MC; ++j) acc[i][j] = fmaf(f[i], d[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-    __syncthreads();                             // cnt_s and the list are reused
+    if (e[j] >= 0)
+      list[at + __popc(bits[j] & ((1u << lane) - 1u))] =
+          make_int2(e[j], c * CHUNK + j * THREADS + tid);
   }
+}
 
-  float* out = partial + ((size_t)slice * num_k + k) * CIN * cout + n0;
-  if constexpr (G == 1) {
+template <int CIN, int TN>
+__global__ void __launch_bounds__(THREADS, 2)
+wgrad_fma_kernel(const float* __restrict__ feat, const float* __restrict__ dout,
+                 const int2* __restrict__ list, const int* __restrict__ totals,
+                 float* __restrict__ partial, int num_k, int cout) {
+  using L = FmaTile<CIN, TN>;
+  constexpr int M = L::M, Q = L::Q, G = L::G, H = L::H;
+  extern __shared__ __align__(16) unsigned char smem[];
+  int2* list_s = reinterpret_cast<int2*>(smem);            // a list: (feature row, dout row)
+  float* f_s = reinterpret_cast<float*>(smem + L::LIST_BYTES);   // [2][H][CIN]
+  float* d_s = f_s + 2 * H * CIN;                          // [2][H][TN]
+  __shared__ int start_s[MAX_K + 1];   // offset k's hits are [start_s[k], start_s[k + 1])
+
+  const int n0 = blockIdx.y * TN;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  if (warp == 0) {                     // num_k <= MAX_K = 32: one lane an offset
+    int nnz;
+    const int lane = tid & 31;
+    start_s[lane] = warp_exclusive(lane < num_k ? totals[lane] : 0, &nnz);
+    if (lane == 0) start_s[MAX_K] = nnz;
+  }
+  __syncthreads();
+  const int nnz = start_s[MAX_K], blocks = used_blocks(gridDim.x, nnz), b = blockIdx.x;
+  if (b >= blocks) return;
+  const int lo = first_hit(b, blocks, nnz), hi = first_hit(b + 1, blocks, nnz);
+
+  // thread p of group grp holds rows cr + {0..3} + q * CIN / Q and columns
+  // cc + {0..3} + q * TN / Q of the tile, q < Q
+  const int grp = tid / L::P, p = tid % L::P;
+  const int cr = 4 * (p / L::PC), cc = 4 * (p % L::PC);
+  float acc[M][M];
+
+  // listed hits h0 .. h0 + H - 1 of m into buffer buf, zeros past m
+  auto stage = [&](int h0, int m, int buf) {
+    float* fb = f_s + buf * H * CIN;
+    float* db = d_s + buf * H * TN;
 #pragma unroll
-    for (int i = 0; i < MR; ++i)
+    for (int j = 0; j < (H * CIN / 4 + THREADS - 1) / THREADS; ++j) {
+      const int i = tid + j * THREADS, h = h0 + i / (CIN / 4);
+      if (i < H * CIN / 4)
+        cp_async16(fb + 4 * i,
+                   h < m ? feat + (size_t)list_s[h].x * CIN + 4 * (i % (CIN / 4)) : feat,
+                   h < m ? GATHER_BYTES : 0);
+    }
 #pragma unroll
-      for (int j = 0; j < MC; ++j) out[(size_t)(cr + i) * cout + cc + j] = acc[i][j];
-  } else {
+    for (int j = 0; j < (H * TN / 4 + THREADS - 1) / THREADS; ++j) {
+      const int i = tid + j * THREADS, h = h0 + i / (TN / 4);
+      if (i < H * TN / 4)
+        cp_async16(db + 4 * i,
+                   h < m ? dout + (size_t)list_s[h].y * cout + n0 + 4 * (i % (TN / 4)) : dout,
+                   h < m ? GATHER_BYTES : 0);
+    }
+    cp_async_commit();
+  };
+
+  for (int k = 0; k < num_k; ++k) {
+    const int a = max(lo, start_s[k]), e = min(hi, start_s[k + 1]);
+    if (a >= e) continue;              // this block holds none of offset k's hits
 #pragma unroll
-    for (int i = 0; i < MR; ++i)
+    for (int i = 0; i < M; ++i)
 #pragma unroll
-      for (int j = 0; j < MC; ++j) red_s[grp * L::OUT + (cr + i) * TN + cc + j] = acc[i][j];
-    __syncthreads();
-    for (int o = tid; o < L::OUT; o += THREADS) {
-      float s = 0.f;
+      for (int j = 0; j < M; ++j) acc[i][j] = 0.f;
+    // lists of at most LIST_CAP of the hits a .. e - 1 (a multiple of G each
+    // but the last, so that group g's hits are a + g, a + g + G, ...)
+    for (int q = a; q < e; q += LIST_CAP) {
+      const int m = min(LIST_CAP, e - q);
+      __syncthreads();                 // the last list, stages and tile are done with
+      for (int i = tid; i < m; i += THREADS) list_s[i] = __ldg(list + q + i);
+      __syncthreads();
+
+      // stages of H listed hits, the next stage's rows copied while this
+      // one's FMAs run; group grp takes listed hits grp + G s
+      stage(0, m, 0);
+      for (int h0 = 0, buf = 0; h0 < m; h0 += H, buf ^= 1) {
+        cp_async_wait_all();
+        __syncthreads();               // this stage has landed; the other buffer is free
+        if (h0 + H < m) stage(h0 + H, m, buf ^ 1);
+#ifndef GW_ABLATE_FMA
+        const float* fb = f_s + buf * H * CIN + grp * CIN + cr;
+        const float* db = d_s + buf * H * TN + grp * TN + cc;
 #pragma unroll
-      for (int g = 0; g < G; ++g) s += red_s[g * L::OUT + o];
-      out[(size_t)(o / TN) * cout + o % TN] = s;
+        for (int s = 0; s < H / G; ++s) {       // rows past the list are zeros
+          float f[M], d[M];
+#pragma unroll
+          for (int q4 = 0; q4 < Q; ++q4) {
+            const float4 x = *reinterpret_cast<const float4*>(fb + G * s * CIN + q4 * (CIN / Q));
+            const float4 y = *reinterpret_cast<const float4*>(db + G * s * TN + q4 * (TN / Q));
+            f[4 * q4] = x.x; f[4 * q4 + 1] = x.y; f[4 * q4 + 2] = x.z; f[4 * q4 + 3] = x.w;
+            d[4 * q4] = y.x; d[4 * q4 + 1] = y.y; d[4 * q4 + 2] = y.z; d[4 * q4 + 3] = y.w;
+          }
+#pragma unroll
+          for (int i = 0; i < M; ++i)
+#pragma unroll
+            for (int j = 0; j < M; ++j) acc[i][j] = fmaf(f[i], d[j], acc[i][j]);
+        }
+#endif
+      }
+    }
+
+    // the tile (the groups added in group order) to partial slot b + k
+    float* out = partial + (size_t)(b + k) * CIN * cout + n0;
+    auto row = [&](int i) { return cr + (i & 3) + (i >> 2) * (CIN / Q); };
+    if constexpr (G == 1) {
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int q4 = 0; q4 < Q; ++q4)
+          *reinterpret_cast<float4*>(out + (size_t)row(i) * cout + cc + q4 * (TN / Q)) =
+              make_float4(acc[i][4 * q4], acc[i][4 * q4 + 1], acc[i][4 * q4 + 2],
+                          acc[i][4 * q4 + 3]);
+    } else {
+      float* red = reinterpret_cast<float*>(smem);         // [G][CIN][TN]
+      __syncthreads();                                     // the list and stages are done
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int q4 = 0; q4 < Q; ++q4)
+          *reinterpret_cast<float4*>(red + ((size_t)grp * CIN + row(i)) * TN + cc +
+                                     q4 * (TN / Q)) =
+              make_float4(acc[i][4 * q4], acc[i][4 * q4 + 1], acc[i][4 * q4 + 2],
+                          acc[i][4 * q4 + 3]);
+      __syncthreads();
+      for (int o = tid; o < L::OUT; o += THREADS) {
+        float sum = 0.f;
+#pragma unroll
+        for (int g = 0; g < G; ++g) sum += red[g * L::OUT + o];
+        out[(size_t)(o / TN) * cout + o % TN] = sum;
+      }
     }
   }
+}
+
+// dw[k] from the partial slots b + k of the blocks b that hold hits of
+// offset k (0 where it has none).  Each element of dw is summed by a warp:
+// lane l adds the slots of the l-th, (l + 32)-th, ... of those blocks in
+// block order from 0.0f, then the lanes' sums are added pairwise, lane l
+// with l ^ 16, then ^ 8, ^ 4, ^ 2, ^ 1.  A warp does so for 8 consecutive
+// elements of one offset at once (tile = cin * cout is a multiple of 8),
+// two float4s of each slot a lane, several slots in flight
+__global__ void sum_blocks_kernel(const float* __restrict__ partial,
+                                  const int* __restrict__ totals, float* __restrict__ dw,
+                                  int num_k, int tile, int grid_blocks) {
+  const int i0 = (blockIdx.x * blockDim.x + threadIdx.x) / 32 * 8, lane = threadIdx.x & 31;
+  if (i0 >= num_k * tile) return;      // the same for the whole warp
+  const int k = i0 / tile;
+  const int t = lane < num_k ? totals[lane] : 0;
+  int nnz;
+  const int start = __shfl_sync(FULL, warp_exclusive(t, &nnz), k);
+  const int end = start + __shfl_sync(FULL, t, k);
+  float4 acc[2] = {make_float4(0.f, 0.f, 0.f, 0.f), make_float4(0.f, 0.f, 0.f, 0.f)};
+  if (end > start) {                   // the blocks that hold hits start and end - 1
+    const int blocks = used_blocks(grid_blocks, nnz);
+    const int first = (int)(((long long)(start + 1) * blocks - 1) / nnz);
+    const int last = (int)(((long long)end * blocks - 1) / nnz);
+#pragma unroll 4
+    for (int b = first + lane; b <= last; b += 32) {
+      const float4* slot =
+          reinterpret_cast<const float4*>(partial + (size_t)(b + k) * tile + i0 % tile);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float4 v = __ldg(slot + h);
+        acc[h].x += v.x;
+        acc[h].y += v.y;
+        acc[h].z += v.z;
+        acc[h].w += v.w;
+      }
+    }
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      acc[h].x += __shfl_xor_sync(FULL, acc[h].x, off);
+      acc[h].y += __shfl_xor_sync(FULL, acc[h].y, off);
+      acc[h].z += __shfl_xor_sync(FULL, acc[h].z, off);
+      acc[h].w += __shfl_xor_sync(FULL, acc[h].w, off);
+    }
+  if (lane < 2) *reinterpret_cast<float4*>(dw + i0 + 4 * lane) = lane == 0 ? acc[0] : acc[1];
 }
 
 // ---------------------------------------------------------------- tensor cores
 
 constexpr int MMA_THREADS = 128;     // also the rows a slice is a multiple of
 constexpr int MMA_WARPS = MMA_THREADS / 32;
+constexpr int TARGET_BLOCKS = 4 * 132;   // blocks a grid aims at
 constexpr int GROUP = 64;            // listed hits staged at a time (4 depth steps)
-constexpr int LIST_CAP = 2048;       // rows a slice at most: its hits fit the list
-constexpr int SCAN = 8;              // rulebook entries a thread reads a round
 constexpr int TERMS = 3;             // bf16 terms of the output gradient
 constexpr int PAD = 8;               // bf16 a staged row is padded by
 
@@ -474,35 +701,55 @@ __global__ void sum_slices_kernel(const float* __restrict__ partial, float* __re
   dw[i] = s;
 }
 
-template <int CIN>
-cudaError_t launch_cin(const float* feat, const int* rb, const float* dout, float* partial,
-                       int v_out, int num_k, int cout, int tn, int slices, int rps,
-                       cudaStream_t stream) {
-  dim3 grid(num_k, cout / tn, slices);
-  switch (tn) {
-    case 16: wgrad_partial_kernel<CIN, 16><<<grid, THREADS, 0, stream>>>(
-                 feat, rb, dout, partial, v_out, num_k, cout, rps); break;
-    case 32: wgrad_partial_kernel<CIN, 32><<<grid, THREADS, 0, stream>>>(
-                 feat, rb, dout, partial, v_out, num_k, cout, rps); break;
-    case 64: wgrad_partial_kernel<CIN, 64><<<grid, THREADS, 0, stream>>>(
-                 feat, rb, dout, partial, v_out, num_k, cout, rps); break;
+// The f32 route's Cout tile: 128 at Cout 128 (conv_out), else at most 64
+int fma_tn(int cout) { return cout % 128 == 0 ? 128 : cout < 64 ? cout : 64; }
+
+// fn(CIN, TN) with both as compile-time constants, for every tile the f32
+// route has
+template <class Fn>
+cudaError_t with_fma_tile(int cin, int tn, Fn&& fn) {
+  auto by_tn = [&](auto c) -> cudaError_t {
+    switch (tn) {
+      case 16: return fn(c, std::integral_constant<int, 16>{});
+      case 32: return fn(c, std::integral_constant<int, 32>{});
+      case 64: return fn(c, std::integral_constant<int, 64>{});
+      case 128: return fn(c, std::integral_constant<int, 128>{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (cin) {
+    case 4: return by_tn(std::integral_constant<int, 4>{});
+    case 8: return by_tn(std::integral_constant<int, 8>{});
+    case 16: return by_tn(std::integral_constant<int, 16>{});
+    case 32: return by_tn(std::integral_constant<int, 32>{});
+    case 64: return by_tn(std::integral_constant<int, 64>{});
+    case 128: return by_tn(std::integral_constant<int, 128>{});
     default: return cudaErrorInvalidValue;
   }
-  return cudaGetLastError();
 }
 
-cudaError_t launch_fma(const float* feat, const int* rb, const float* dout, float* partial,
-                       int v_out, int num_k, int cin, int cout, int tn, int slices, int rps,
-                       cudaStream_t s) {
-  switch (cin) {
-    case 4: return launch_cin<4>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    case 8: return launch_cin<8>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    case 16: return launch_cin<16>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    case 32: return launch_cin<32>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    case 64: return launch_cin<64>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    case 128: return launch_cin<128>(feat, rb, dout, partial, v_out, num_k, cout, tn, slices, rps, s);
-    default: return cudaErrorInvalidValue;
+// One wave of wgrad_fma_kernel<CIN, TN>: its resident blocks per SM (after
+// opting in to its dynamic shared memory) times the card's SMs; found once
+template <int CIN, int TN>
+cudaError_t fma_wave(int* blocks_per_sm, int* wave) {
+  static int per_sm = 0, sms = 0;
+  if (per_sm == 0) {
+    constexpr int smem = FmaTile<CIN, TN>::SMEM;
+    int dev = 0, n = 0;
+    cudaError_t e = cudaFuncSetAttribute(wgrad_fma_kernel<CIN, TN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, wgrad_fma_kernel<CIN, TN>,
+                                                        THREADS, smem);
+    if (e == cudaSuccess) e = cudaGetDevice(&dev);
+    if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (n < 1) return cudaErrorInvalidConfiguration;
+    per_sm = n;
   }
+  *blocks_per_sm = per_sm;
+  *wave = per_sm * sms;
+  return cudaSuccess;
 }
 
 template <int CIN, int TN>
@@ -549,54 +796,110 @@ cudaError_t launch_mma(const __nv_bfloat16* feat, const int* rbt, const float* d
   }
 }
 
+// How a call is cut, and the scratch it needs
+struct Cut {
+  int slices = 0;       // tensor cores: row slices; CUDA cores: blocks a Cout tile
+  int rps = 0;          // tensor cores: rows a slice
+  int chunks = 0;       // CUDA cores: CHUNK-row rounds of the rulebook
+  int per_sm = 0;       // CUDA cores: resident blocks per SM
+  int partial = 0;      // floats of partial tiles
+  int ints = 0;         // CUDA cores: ints of the hit list and counts
+};
+
+// The tensor-core route cuts the rows into slices of at most LIST_CAP rows,
+// aiming at TARGET_BLOCKS blocks.  The CUDA-core route gives each Cout tile
+// one wave of its resident blocks, each an equal share of all the hits
+cudaError_t cut_call(int v_out, int num_k, int cin, int cout, int is_bf16, Cut* c) {
+  if (is_bf16) {
+    const int tiles = num_k * (cout >= 64 ? cout / 64 : 1);
+    const int chunks = (v_out + MMA_THREADS - 1) / MMA_THREADS;
+    int slices = (TARGET_BLOCKS + tiles - 1) / tiles;
+    slices = slices < chunks ? slices : chunks;
+    slices = slices > 1 ? slices : 1;
+    int rps = ((chunks + slices - 1) / slices) * MMA_THREADS;
+    if (rps > LIST_CAP) rps = LIST_CAP;
+    c->slices = v_out > 0 ? (v_out + rps - 1) / rps : 1;
+    c->rps = rps;
+    c->partial = c->slices * num_k * cin * cout;
+    return cudaSuccess;
+  }
+  const int tn = fma_tn(cout);
+  int wave = 0;
+  const cudaError_t e = with_fma_tile(cin, tn, [&](auto ci, auto ni) {
+    return fma_wave<decltype(ci)::value, decltype(ni)::value>(&c->per_sm, &wave);
+  });
+  if (e != cudaSuccess) return e;
+  const int tiles = cout / tn;
+  c->slices = wave / tiles > 1 ? wave / tiles : 1;
+  c->chunks = (v_out + CHUNK - 1) / CHUNK;
+  c->partial = (c->slices + num_k - 1) * cin * cout;
+  c->ints = 2 * num_k * v_out + num_k * c->chunks + num_k;   // list, counts, totals
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
 
-// How the rows are cut into slices: the wrapper sizes the scratch with it.
-// Writes {slices, rows per slice}; returns 0.  The tensor-core route (bf16)
-// keeps a slice within LIST_CAP rows.
+// The scratch a call needs, for the wrapper to allocate: writes {slices (f32:
+// blocks a Cout tile), floats of partial tiles, ints of hit counts (0 for
+// bf16), resident blocks per SM of the f32 kernel (0 for bf16)}; returns a
+// CUDA error code (0 on success).
 int gather_gemm_wgrad_slices(int v_out, int num_k, int cin, int cout, int is_bf16, int* out) {
-  const int tiles = num_k * (cout >= 64 ? cout / 64 : 1);
-  const int unit = is_bf16 ? MMA_THREADS : THREADS;
-  const int chunks = (v_out + unit - 1) / unit;
-  int slices = (TARGET_BLOCKS + tiles - 1) / tiles;
-  slices = slices < chunks ? slices : chunks;
-  slices = slices > 1 ? slices : 1;
-  int rps = ((chunks + slices - 1) / slices) * unit;
-  if (is_bf16 && rps > LIST_CAP) rps = LIST_CAP;
-  out[0] = v_out > 0 ? (v_out + rps - 1) / rps : 1;
-  out[1] = rps;
-  return 0;
+  Cut c;
+  const cudaError_t e = cut_call(v_out, num_k, cin, cout, is_bf16, &c);
+  out[0] = c.slices;
+  out[1] = c.partial;
+  out[2] = c.ints;
+  out[3] = c.per_sm;
+  return static_cast<int>(e);
 }
 
-// feat (V_in, cin) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); rb (v_out, num_k)
-// int32 (-1 = none) and the same rulebook transposed, rbt (num_k, v_out),
-// which the tensor-core route (bf16; feat, dout and rbt 16-byte aligned)
-// reads instead and the f32 route does not read (may be null there);
-// dout (v_out, cout) f32; dw (num_k, cin, cout) f32; partial: scratch of
-// slices * num_k * cin * cout floats (slices from gather_gemm_wgrad_slices).
-// cin in {4, 8, 16, 32, 64, 128}; cout in {16, 32} or a multiple of 64.
-int gather_gemm_wgrad_launch(const void* feat, const int* rb, const int* rbt,
-                             const float* dout, float* partial, float* dw, int v_out,
-                             int num_k, int cin, int cout, int is_bf16, void* stream) {
-  if (num_k < 1) return cudaErrorInvalidValue;
+// feat (V_in, cin) f32 (is_bf16 = 0) or bf16 (is_bf16 = 1); rbt (num_k,
+// v_out) int32, the rulebook transposed (-1 = none); dout (v_out, cout) f32;
+// feat, rbt and dout 16-byte aligned; dw (num_k, cin, cout) f32; partial
+// and ints: scratch of the sizes gather_gemm_wgrad_slices gives (ints may be
+// null for bf16).  cin in {4, 8, 16, 32, 64, 128}; cout in {16, 32} or a
+// multiple of 64; num_k <= 32.
+int gather_gemm_wgrad_launch(const void* feat, const int* rbt, const float* dout,
+                             float* partial, int* ints, float* dw, int v_out, int num_k,
+                             int cin, int cout, int is_bf16, void* stream) {
+  if (num_k < 1 || num_k > MAX_K || rbt == nullptr) return cudaErrorInvalidValue;
   if (cout != 16 && cout != 32 && cout % 64 != 0) return cudaErrorInvalidValue;
-  if (is_bf16 && rbt == nullptr) return cudaErrorInvalidValue;
-  int cut[2];
-  gather_gemm_wgrad_slices(v_out, num_k, cin, cout, is_bf16, cut);
-  const int tn = cout >= 64 ? 64 : cout;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (is_bf16)
-    e = launch_mma(static_cast<const __nv_bfloat16*>(feat), rbt, dout, partial, v_out, num_k,
-                   cin, cout, tn, cut[0], cut[1], s);
-  else
-    e = launch_fma(static_cast<const float*>(feat), rb, dout, partial, v_out, num_k, cin, cout,
-                   tn, cut[0], cut[1], s);
+  Cut c;
+  cudaError_t e = cut_call(v_out, num_k, cin, cout, is_bf16, &c);
   if (e != cudaSuccess) return static_cast<int>(e);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int n = num_k * cin * cout;
-  sum_slices_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, dw, n, cut[0]);
+  if (is_bf16) {
+    e = launch_mma(static_cast<const __nv_bfloat16*>(feat), rbt, dout, partial, v_out, num_k,
+                   cin, cout, cout >= 64 ? 64 : cout, c.slices, c.rps, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    sum_slices_kernel<<<(n + 255) / 256, 256, 0, s>>>(partial, dw, n, c.slices);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (ints == nullptr) return cudaErrorInvalidValue;
+  int2* list = reinterpret_cast<int2*>(ints);
+  int* counts = ints + 2 * (size_t)num_k * v_out;
+  int* totals = counts + num_k * c.chunks;
+  e = cudaMemsetAsync(totals, 0, num_k * sizeof(int), s);
+  if (e == cudaSuccess && c.chunks > 0) {
+    const dim3 rounds(c.chunks, num_k);
+    count_hits_kernel<<<rounds, THREADS, 0, s>>>(rbt, counts, totals, v_out, c.chunks);
+    list_hits_kernel<<<rounds, THREADS, 0, s>>>(rbt, counts, totals, list, v_out, c.chunks);
+    e = cudaGetLastError();
+  }
+  if (e == cudaSuccess)
+    e = with_fma_tile(cin, fma_tn(cout), [&](auto ci, auto ni) {
+      constexpr int CIN = decltype(ci)::value, TN = decltype(ni)::value;
+      wgrad_fma_kernel<CIN, TN><<<dim3(c.slices, cout / TN), THREADS, FmaTile<CIN, TN>::SMEM,
+                                  s>>>(static_cast<const float*>(feat), dout, list, totals,
+                                       partial, num_k, cout);
+      return cudaGetLastError();
+    });
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sum_blocks_kernel<<<(4 * n + 255) / 256, 256, 0, s>>>(partial, totals, dw, num_k,
+                                                        cin * cout, c.slices);
   return static_cast<int>(cudaGetLastError());
 }
 

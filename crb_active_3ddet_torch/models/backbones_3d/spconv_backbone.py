@@ -152,12 +152,13 @@ class VoxelBackBone8x(nn.Module):
         backward = torch.is_grad_enabled()
 
         def for_backward(rbk, feats):
-            """The flat rulebook's inverse and, in bf16, its transpose, once
-            a rulebook, for the backward (nothing without a gradient)."""
+            """The flat rulebook's inverse (for the dgrad) and its transpose
+            (for the wgrad), once a rulebook, for the backward (nothing
+            without a gradient)."""
             if not backward:
                 return None, None
             return (rb.inverse_rulebook(rbk, feats.shape[0] * feats.shape[1]),
-                    rb.transpose_rulebook(rbk) if cdt == torch.bfloat16 else None)
+                    rb.transpose_rulebook(rbk))
 
         def subm_stage(feats, layers, coords, valid, grid):
             rbk = rb.unpack_window_rulebook(

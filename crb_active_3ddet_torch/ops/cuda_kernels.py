@@ -16,14 +16,16 @@ bf16: the forward and the dgrad run on tensor cores (``mma.sync``), the dgrad
 with ``dout`` rounded to bf16 for them, as its plain version does (the JAX
 VJP keeps it f32 and rounds each tap's product to bf16 instead).  The wgrad
 runs on tensor cores too: the f32 ``dout`` enters as three bf16 terms that
-sum to it, so its products are the f32 products; it reads the rulebook
+sum to it, so its products are the f32 products.  Gradients come back in
+their inputs' dtypes, so a bf16 ``dW`` is rounded to bf16 as the JAX VJP's
+is.  f32 runs on CUDA cores in full f32 throughout; its forward and dgrad sum
+each output element as one fmaf chain in ascending (offset, channel) order.
+That is the order of the f32 matmul in ``subm_conv3d_gather`` (TF32 off)
+where cuBLAS runs one chain an element, as at the AL path's shapes, and
+there the two are bit-equal.  Both wgrad routes read the rulebook
 transposed (``transpose_rulebook``, built once per rulebook by the
-backbone).  Gradients come back in their inputs' dtypes, so a bf16 ``dW`` is
-rounded to bf16 as the JAX VJP's is.  f32 runs on CUDA cores in full f32
-throughout; its forward and dgrad sum each output element as one fmaf chain
-in ascending (offset, channel) order.  That is the order of the f32 matmul
-in ``subm_conv3d_gather`` (TF32 off) where cuBLAS runs one chain an element,
-as at the AL path's shapes, and there the two are bit-equal.
+backbone); the f32 one gives every block an equal share of all the hits
+and sums each output element as a few fmaf chains added in a fixed order.
 
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
 it runs the plain version (``ops/sparse/sparse_ops.py``).  ``launches``,
@@ -104,8 +106,8 @@ def gather_gemm_wgrad(features, rulebook, dout, rulebook_t=None):
     """Weight gradient of ``sparse_conv_gather_gemm``: features (V_in, Cin)
     f32 or bf16, rulebook (V_out, K) int32, dout (V_out, Cout) f32, and
     optionally the rulebook transposed, (K, V_out) (``transpose_rulebook``;
-    the tensor-core route reads it, and transposes the rulebook itself when
-    it is not given).  Returns (K, Cin, Cout) float32."""
+    both kernels read it, and the wrapper transposes the rulebook itself
+    when it is not given).  Returns (K, Cin, Cout) float32."""
     global wgrad_launches
     if features.device.type == 'cpu':
         return gather_gemm_wgrad_plain(features, rulebook, dout)
@@ -128,29 +130,28 @@ def gather_gemm_wgrad(features, rulebook, dout, rulebook_t=None):
     if not (features.is_contiguous() and rulebook.is_contiguous()
             and dout.is_contiguous()):
         raise ValueError('gather-GEMM wgrad: inputs must be contiguous')
-    mma = wgrad_route(features.dtype) == 'mma'
-    if mma:
-        if rulebook_t is None:
-            rulebook_t = transpose_rulebook(rulebook)
-        if rulebook_t.device != dev or rulebook_t.dtype != torch.int32 \
-                or tuple(rulebook_t.shape) != (k, v_out) or not rulebook_t.is_contiguous():
-            raise ValueError('gather-GEMM wgrad: the transposed rulebook must be a '
-                             f'contiguous ({k}, {v_out}) int32 tensor on {dev}')
-        if features.data_ptr() % 16 or dout.data_ptr() % 16 or rulebook_t.data_ptr() % 16:
-            raise ValueError('gather-GEMM wgrad: features, dout and the transposed '
-                             'rulebook must be 16-byte aligned')
+    if rulebook_t is None:
+        rulebook_t = transpose_rulebook(rulebook)
+    if rulebook_t.device != dev or rulebook_t.dtype != torch.int32 \
+            or tuple(rulebook_t.shape) != (k, v_out) or not rulebook_t.is_contiguous():
+        raise ValueError('gather-GEMM wgrad: the transposed rulebook must be a '
+                         f'contiguous ({k}, {v_out}) int32 tensor on {dev}')
+    if features.data_ptr() % 16 or dout.data_ptr() % 16 or rulebook_t.data_ptr() % 16:
+        raise ValueError('gather-GEMM wgrad: features, dout and the transposed '
+                         'rulebook must be 16-byte aligned')
     lib = cuda_build.load_library('gather_gemm_wgrad', _WSIG)
-    bf16 = int(features.dtype == torch.bfloat16)
-    cut = (ctypes.c_int * 2)()
-    lib.gather_gemm_wgrad_slices(v_out, k, cin, cout, bf16, cut)
-    partial = torch.empty((cut[0], k, cin, cout), dtype=torch.float32, device=dev)
-    dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
+    bf16 = int(wgrad_route(features.dtype) == 'mma')
+    cut = (ctypes.c_int * 4)()          # slices, partial floats, count ints, blocks/SM
     with torch.cuda.device(dev):
+        cuda_build.check(lib, 'gather_gemm_wgrad',
+                         lib.gather_gemm_wgrad_slices(v_out, k, cin, cout, bf16, cut))
+        partial = torch.empty(cut[1], dtype=torch.float32, device=dev)
+        counts = torch.empty(max(cut[2], 1), dtype=torch.int32, device=dev)
+        dw = torch.empty((k, cin, cout), dtype=torch.float32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.gather_gemm_wgrad_launch(
-            features.data_ptr(), rulebook.data_ptr(),
-            rulebook_t.data_ptr() if mma else None, dout.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, bf16, stream)
+            features.data_ptr(), rulebook_t.data_ptr(), dout.data_ptr(), partial.data_ptr(),
+            counts.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, bf16, stream)
     cuda_build.check(lib, 'gather_gemm_wgrad', err)
     wgrad_launches += 1
     return dw
@@ -162,8 +163,8 @@ class SparseConvGatherGemm(torch.autograd.Function):
     no gradient, as at ``conv_input``, whose input comes from a VFE without
     parameters), wgrad through its own kernel.  The wrappers are looked up at
     call time.  ``apply(features, weights, rulebook, inverse, rulebook_t)``;
-    ``inverse`` and ``rulebook_t`` (the rulebook transposed, for the bf16
-    wgrad) may be None when no gradient will be asked for (eval)."""
+    ``inverse`` and ``rulebook_t`` (the rulebook transposed, for the wgrad)
+    may be None when no gradient will be asked for (eval)."""
 
     @staticmethod
     def forward(ctx, features, weights, rulebook, inverse, rulebook_t=None):

@@ -212,7 +212,7 @@ def inverse_rulebook(rulebook, v_in: int):
 
 def transpose_rulebook(rulebook):
     """(V_out, K) rulebook → (K, V_out) int32, contiguous: the layout in which
-    the bf16 weight-gradient kernel (``ops/cuda_kernels.py``) reads one
-    offset's column coalesced.  Built once per rulebook, beside its inverse,
+    the weight-gradient kernels (``ops/cuda_kernels.py``, both routes) read
+    one offset's column coalesced.  Built once per rulebook, beside its inverse,
     when a gradient is wanted."""
     return rulebook.t().contiguous()

@@ -26,7 +26,9 @@ from crb_active_3ddet_torch.ops import iou3d as tiou
 from crb_active_3ddet_torch.ops.cuda_kernels import sparse_conv_gather_gemm
 from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
 
-from test_torch_gather_fma import CASES as FMA_CASES, _case as fma_case, fma_chain
+from test_torch_gather_fma import CASES as FMA_CASES, _case as fma_case, fma_chain, fmaf
+from test_torch_wgrad_fma import (CASES as WGRAD_FMA_CASES, _case as wgrad_fma_case, grid,
+                                  wgrad_schedule)
 
 ATOL = 1e-4
 
@@ -593,8 +595,8 @@ def test_gather_gemm_wgrad_kernel_matches_plain(cuda_device, dtype, name):
     """wgrad, both routes: bf16 features on tensor cores with the output
     gradient as three bf16 terms (Cin 4 staged into 16 channels), f32 on
     CUDA cores; error within 1e-5 of the sum of the products' magnitudes, equal
-    bits on a second run; the bf16 route the same with the transposed
-    rulebook given or built by the wrapper."""
+    bits on a second run; each route the same with the transposed rulebook
+    given or built by the wrapper."""
     from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
     feats, rb, _, w, dout = _backward_case(name)
@@ -627,6 +629,29 @@ def test_gather_gemm_wgrad_kernel_matches_plain(cuda_device, dtype, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('name', list(WGRAD_FMA_CASES))
+def test_gather_gemm_wgrad_f32_kernel_matches_schedule(cuda_device, name):
+    """The f32 route bit for bit against its schedule's emulation
+    (tests/test_torch_wgrad_fma.py) with an exactly rounded fmaf, at the
+    grid the card's library makes; the grid and scratch are the emulation's
+    for the kernel's resident blocks on this card."""
+    import ctypes
+    from crb_active_3ddet_torch.ops import cuda_build
+    feats, rb, dout = wgrad_fma_case(name)
+    (v_out, k), cin, cout = rb.shape, feats.shape[1], dout.shape[1]
+    lib = cuda_build.load_library('gather_gemm_wgrad', cuda_kernels._WSIG)
+    cut = (ctypes.c_int * 4)()
+    assert lib.gather_gemm_wgrad_slices(v_out, k, cin, cout, 0, cut) == 0
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert cut[3] >= 1
+    assert tuple(cut[:3]) == grid(v_out, k, cin, cout, cut[3] * sms)
+    got = cuda_kernels.gather_gemm_wgrad(feats.to(cuda_device), rb.to(cuda_device),
+                                         dout.to(cuda_device))
+    want = wgrad_schedule(feats, rb, dout, cut[0], fma=fmaf)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
 def test_gather_gemm_backward_kernels_refuse_what_they_do_not_take(cuda_device):
     feats, rb, inv, w, dout = _backward_case('random')
     f = _t(feats).to(cuda_device)
@@ -645,8 +670,15 @@ def test_gather_gemm_backward_kernels_refuse_what_they_do_not_take(cuda_device):
                                        r, d)
     with pytest.raises(ValueError, match='not supported'):      # Cout 48
         cuda_kernels.gather_gemm_wgrad(f, r, d[:, :24].contiguous())
-    with pytest.raises(ValueError, match='transposed'):     # (V_out, K), not (K, V_out)
-        cuda_kernels.gather_gemm_wgrad(f.bfloat16(), r, d, r)
+    for ff in (f, f.bfloat16()):            # both routes read the transposed rulebook
+        with pytest.raises(ValueError, match='transposed'):     # (V_out, K), not (K, V_out)
+            cuda_kernels.gather_gemm_wgrad(ff, r, d, r)
+        with pytest.raises(ValueError, match='aligned'):
+            cuda_kernels.gather_gemm_wgrad(_misaligned(ff), r, d)
+        with pytest.raises(ValueError, match='aligned'):
+            cuda_kernels.gather_gemm_wgrad(ff, r, _misaligned(d))
+        with pytest.raises(ValueError, match='aligned'):
+            cuda_kernels.gather_gemm_wgrad(ff, r, d, _misaligned(r.t().contiguous()))
     with pytest.raises(ValueError, match='inverse'):
         cuda_kernels.gather_gemm_dgrad(d, r, None, ww, len(feats))
     with pytest.raises(ValueError, match='not supported'):      # dgrad Cout 4
