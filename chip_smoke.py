@@ -57,12 +57,23 @@ Run from the root of a checkout.  It
      every K1 and K2 call of the scans against its plain version, ms/step,
      ms per pool batch and scans/s, and the f32 K2 route timed at the first
      scan batch's 12 layers and a retrain step's 11 dgrads, each bit for bit
-     against the f32 matmul; then the confidence, random, coreset
-     and entropy queries over the round-1 pool (launches per scored batch
-     exactly), the full scan at the eval phase's seeded weights and cls
-     bias on the kernel path against the plain path (live boxes and an
-     untied top-4 box_entropy required, every anchor's cls logit equal), a
-     profiled scan, and a reduced f32 scan card vs CPU.
+     against the f32 matmul; then the confidence, random, coreset,
+     montecarlo, bald and entropy queries over the round-1 pool (launches
+     per scored batch exactly), the full scan at the eval phase's seeded
+     weights and cls bias on the kernel path against the plain path (live
+     boxes and an untied top-4 box_entropy required, every anchor's cls
+     logit equal), a profiled scan, and a reduced f32 scan card vs CPU;
+  9. runs the loop again with CRB (second_synth_active_crb.yaml, same
+     sizes, K1 2, K2 1, kmeans++): per MC-scored pool batch 5 forwards (60
+     K2) and one K1 mask at the NMS over the MC-mean scores, per stage-2
+     frame one batch-1 training-mode forward (12 K2); every K1 and K2 call
+     of the scans and of stage 2 against its plain version; every buffer
+     and parameter equal before and after each query; the stage times; then
+     at the eval phase's seeded weights the query on the kernel path
+     against the plain path (stage-1 records equal, embeddings within 1e-4
+     of their norm, picks equal), GPDB's device form against its host
+     oracle, the K2 and K1 entries at the CRB path's inputs (``crb.``,
+     ``crb_grad.``), and a reduced f32 CRB query card vs CPU.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -1597,8 +1608,13 @@ ACTIVE_BACKWARD_TOL = 6e-5
 # the signals that must be equal wherever two scans are compared
 ACTIVE_EXACT = ('pred_labels', 'pred_valid', 'num_bbox', 'median_points')
 # (K2 forward, K1 mask) launches per scored pool batch of each strategy's scan
+# the MC-dropout strategies' forwards a scored batch (SAMPLING_ROUND's default;
+# the AL configs set none)
+MC_FORWARDS = 5
 SCAN_LAUNCHES = {'entropy': (len(SPARSE_LAYERS), 1), 'confidence': (len(SPARSE_LAYERS), 0),
-                 'random': (0, 0), 'coreset': (len(SPARSE_LAYERS), 0)}
+                 'random': (0, 0), 'coreset': (len(SPARSE_LAYERS), 0),
+                 'montecarlo': (MC_FORWARDS * len(SPARSE_LAYERS), 0),
+                 'bald': (len(SPARSE_LAYERS), 1), 'crb': (MC_FORWARDS * len(SPARSE_LAYERS), 1)}
 
 
 def counters(reset=False):
@@ -1653,6 +1669,54 @@ def top_equal(got, ref, key, n, tol, tag):
         raise RuntimeError(f'{tag}: the top {n} by {key} differ away from a near-tie')
 
 
+def k2_vs_plain(calls, tag):
+    """Each recorded K2 call against its plain version at its inputs (the
+    plain version launches nothing); returns the largest error."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    k2_err = 0.0
+    for (f, rbk, w), _, got in calls:
+        ref = subm_conv3d_gather(f, rbk, w)
+        err = (got - ref).abs().max().item()
+        if not err <= 1e-4 * (1 + ref.abs().max().item()):
+            raise RuntimeError(f'{tag} K2 call: max err {err}')
+        k2_err = max(k2_err, err)
+    return k2_err
+
+
+def checked_scan(scan, strat, k2_per, mask_per, tag):
+    """``scan()``, one pool scan of ``strat``, with every K2 and K1 call
+    recorded: launches exactly ``k2_per`` K2 and ``mask_per`` K1 masks a
+    pool batch, one a call, and every call against its plain version at its
+    inputs.  Returns the records, a summary row and the K2 calls."""
+    from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap, nms
+    k2, masks, fix = [], [], []
+    before = counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with recording(cuda_kernels, 'sparse_conv_gather_gemm', k2,
+                   lambda: cuda_kernels.launches), \
+            recording(nms, 'nms_mask', masks, lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', fix):
+        records = scan()                            # reads every signal back once
+    ms = (time.perf_counter() - t) * 1e3
+    made = {k: v - before[k] for k, v in counters().items()}
+    n_b = len(strat.unlabelled_loader)
+    want = {**{k: 0 for k in made}, 'gather_gemm': k2_per * n_b, 'nms_mask': mask_per * n_b}
+    if made != want or any(n != 1 for _, n, _ in k2 + masks):
+        raise RuntimeError(f'{tag} of {n_b} batches launched {made}, expected '
+                           f'{want}, one launch a call')
+    k2_err = k2_vs_plain(k2, tag)
+    mask_bits = near = 0
+    for (boxes, alive, thresh), _, words in masks:
+        d, nr = mask_vs_plain(words, boxes, alive, thresh, tag)
+        mask_bits, near = mask_bits + d, near + nr
+    row = {'pool': len(strat.unlabelled_loader.dataset), 'batches': n_b, 'ms': ms,
+           'made': made, 'rounds': [r for _, _, (_, r) in fix], 'k2_err': k2_err,
+           'mask_bits': mask_bits, 'near': near,
+           'alive': [int(al.sum()) for (_, al, _), _, _ in masks]}
+    return records, row, k2
+
+
 def drive_active(dev):
     """The AL loop, ``train_model_active``, on SECOND at the full width of
     second_synth_active_entropy.yaml and its own sizes (32 scenes: 8
@@ -1665,8 +1729,9 @@ def drive_active(dev):
     a scored batch); each round from the init weights with a fresh
     optimizer; every call K1 and K2 made in the scans against its plain
     version; ms/step, ms per pool batch and scans/s.  Then, over the round-1
-    pool at the pretrained weights: the confidence, random, coreset and
-    entropy queries with their launches per scored batch exactly; then, at
+    pool at the pretrained weights: the confidence, random, coreset,
+    montecarlo, bald and entropy queries with their launches per scored
+    batch exactly; then, at
     the eval phase's seeded weights and cls bias (the pretrained model keeps
     no box and scores the classes alike), the full scan on
     the kernel path against the plain path (live boxes and an untied top-4
@@ -1684,7 +1749,6 @@ def drive_active(dev):
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.datasets import build_active_dataloader
     from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap, nms
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
     from crb_active_3ddet_torch.query_strategies import build_strategy
     from crb_active_3ddet_torch.query_strategies.strategy import Strategy
     from crb_active_3ddet_torch.runtime import active
@@ -1694,6 +1758,8 @@ def drive_active(dev):
     from crb_active_3ddet_torch.utils import common
     from crb_active_3ddet_torch.utils.common import set_random_seed
     cfg = load_config(ACTIVE_CFG)
+    if int(cfg.MODEL.get('SAMPLING_ROUND', MC_FORWARDS)) != MC_FORWARDS:
+        raise RuntimeError(f'{ACTIVE_CFG} runs another number of MC forwards')
     a = cfg.ACTIVE_TRAIN
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
     pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
@@ -1736,39 +1802,9 @@ def drive_active(dev):
         if not pretrained:
             pretrained.update(weights={k: v.clone() for k, v in self.model.state_dict().items()},
                               loaders=(self.labelled_loader, self.unlabelled_loader))
-        k2, masks, fix = [], [], []
-        before = counters()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        with recording(cuda_kernels, 'sparse_conv_gather_gemm', k2,
-                       lambda: cuda_kernels.launches), \
-                recording(nms, 'nms_mask', masks, lambda: cuda_overlap.mask_launches), \
-                recording(nms, '_fixpoint_words', fix):
-            records = real_scan(self, *args, **kw)     # reads every signal back once
-        ms = (time.perf_counter() - t) * 1e3
-        made = {k: v - before[k] for k, v in counters().items()}
-        n_b = len(self.unlabelled_loader)
-        k2_per, mask_per = SCAN_LAUNCHES['entropy']
-        want = {**{k: 0 for k in made}, 'gather_gemm': k2_per * n_b, 'nms_mask': mask_per * n_b}
-        if made != want or any(n != 1 for _, n, _ in k2 + masks):
-            raise RuntimeError(f'entropy scan of {n_b} batches launched {made}, expected '
-                               f'{want}, one launch a call')
-        # every call against its plain version at its inputs (the plain
-        # versions launch nothing)
-        k2_err = mask_bits = near = 0
-        for (f, rbk, w), _, got in k2:
-            ref = subm_conv3d_gather(f, rbk, w)
-            err = (got - ref).abs().max().item()
-            if not err <= 1e-4 * (1 + ref.abs().max().item()):
-                raise RuntimeError(f'scan K2 call: max err {err}')
-            k2_err = max(k2_err, err)
-        for (boxes, alive, thresh), _, words in masks:
-            d, nr = mask_vs_plain(words, boxes, alive, thresh, 'active scan')
-            mask_bits, near = mask_bits + d, near + nr
-        scans.append({'pool': len(self.unlabelled_loader.dataset), 'batches': n_b, 'ms': ms,
-                      'made': made, 'rounds': [r for _, _, (_, r) in fix], 'k2_err': k2_err,
-                      'mask_bits': mask_bits, 'near': near,
-                      'alive': [int(al.sum()) for (_, al, _), _, _ in masks]})
+        records, row, k2 = checked_scan(lambda: real_scan(self, *args, **kw), self,
+                                        *SCAN_LAUNCHES['entropy'], 'entropy scan')
+        scans.append(row)
         if not k2_first:
             k2_first.extend(k2[:len(SPARSE_LAYERS)])
         return records
@@ -1848,7 +1884,7 @@ def drive_active(dev):
     qdir = out / 'queries'
     qdir.mkdir()
     random.seed(0)
-    for method in ('confidence', 'random', 'coreset', 'entropy'):
+    for method in ('confidence', 'random', 'coreset', 'montecarlo', 'bald', 'entropy'):
         strat = build_strategy(method, model, lab, unlab, 0, str(qdir), cfg)
         before = counters()
         torch.cuda.synchronize()
@@ -1995,6 +2031,351 @@ def drive_active(dev):
                 'reduced f32 scan, card vs CPU')
     log(f"reduced scan kept {[int(r['pred_valid'].sum()) for r in recs[1].values()]} "
         'boxes per frame')
+    shutil.rmtree(out)
+    torch.backends.cudnn.allow_tf32 = False
+    return results
+
+
+CRB_CFG = 'tools/cfgs/synthetic_models/second_synth_active_crb.yaml'
+# the CRB query's stage-2 embeddings, kernel path against plain path: max
+# |diff| over the row's norm
+CRB_EMB_TOL = 1e-4
+
+
+def stage1_tie(records, n_keep):
+    """How many frames share the label entropy at the stage-1 cut (the
+    n_keep-th largest)."""
+    ents = sorted((float(r['label_entropy']) for r in records.values()), reverse=True)
+    cut = ents[min(n_keep, len(ents)) - 1]
+    return sum(e == cut for e in ents), cut
+
+
+def scorable_classes(prior, labels):
+    """The classes GPDB's host oracle can score: absent from every frame, or
+    with a prior that meets the grid.  A prior whose [5 %, 95 %] bounds, the
+    integer parts of those densities, meet (as when most boxes of random
+    weights hold no point) is 1e-6 wide and misses every grid point, and
+    the oracle's KL is NaN there (in the JAX package too; the device form
+    scores it 0)."""
+    return [c for c, pk in enumerate(prior)
+            if pk.sum() > 0 or not any((lab == c + 1).any() for lab in labels.values())]
+
+
+def spy_query(strat):
+    """Run ``strat.query()`` (a CRB strategy) keeping its stage-1 records,
+    its K1·N frames and their embeddings; returns (picks, captured)."""
+    seen = {}
+    real_scan, real_grads = strat.scan_pool, strat.grad_embeddings
+
+    def scan(*a, **k):
+        seen['records'] = real_scan(*a, **k)
+        return seen['records']
+
+    def grads(ids):
+        seen['k1'], seen['emb'] = list(ids), real_grads(ids)
+        return seen['emb']
+    strat.scan_pool, strat.grad_embeddings = scan, grads
+    try:
+        picks = strat.query(cur_epoch=0)
+    finally:
+        del strat.scan_pool, strat.grad_embeddings
+    return picks, seen
+
+
+def drive_crb(dev):
+    """CRB on SECOND: ``train_model_active`` on second_synth_active_crb.yaml
+    at its full width and sizes (32 scenes, 8 labelled, batch 4, 2 rounds of
+    4, K1 2, K2 1, kmeans++), from ``flax_init``, under PyTorch's default
+    precision settings with the f32 guard checked at every convolution:
+    counters to 0, the loop, counters read (per train step 12/11/12, per
+    MC-scored pool batch 12 x MC_FORWARDS K2 and 1 K1 mask, per stage-2
+    frame 12 K2); every K1 and K2 call of the MC scans and of stage 2
+    against its plain version; every buffer and parameter equal before and
+    after each query; stage times.  Then, over the round-1 pool at the eval
+    phase's seeded weights and cls bias, the query on the kernel path
+    against the plain path (stage-1 records equal, stage-2 embeddings within
+    CRB_EMB_TOL of their norm, picks equal, each K1 call bit for bit), GPDB's
+    device form against its host oracle, and the frames tied at the stage-1
+    cut; the kernels timed at the MC scan's and stage 2's inputs; last, a
+    reduced f32 query on the card against the CPU.  Returns the kernels'
+    JSON entries."""
+    import logging
+    import shutil
+    import tempfile
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_active_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, init_weights
+    from crb_active_3ddet_torch.ops import cuda_kernels, cuda_overlap, nms
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.query_strategies.crb_sampling import CRBSampling
+    from crb_active_3ddet_torch.query_strategies.strategy import Strategy
+    from crb_active_3ddet_torch.runtime import active
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    from crb_active_3ddet_torch.utils.common import set_random_seed
+    cfg = load_config(CRB_CFG)
+    a = cfg.ACTIVE_TRAIN
+    if int(cfg.MODEL.get('SAMPLING_ROUND', MC_FORWARDS)) != MC_FORWARDS:
+        raise RuntimeError(f'{CRB_CFG} runs another number of MC forwards')
+    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
+    k1n = int(a.ACTIVE_CONFIG.K1 * n_sel)
+    n_layers = len(SPARSE_LAYERS)
+    log(f'==== CRB: {CRB_CFG}, batch {bs}, {cfg.DATA_CONFIG.NUM_SCENES} scenes, '
+        f'{a.PRE_TRAIN_SAMPLE_NUMS} labelled, {int(a.TOTAL_BUDGET_NUMS) // n_sel} rounds of '
+        f'{n_sel}, K1 {a.ACTIVE_CONFIG.K1}, K2 {a.ACTIVE_CONFIG.K2}, '
+        f'{a.ACTIVE_CONFIG.CLUSTERING}, {MC_FORWARDS} MC forwards ====')
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch's default, as a user runs
+    logger = logging.getLogger('chip_smoke.crb')
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_crb_'))
+    (out / 'ckpt').mkdir()
+    scans, grads, queries, pretrained, steps = [], [], [], {}, [0]
+    k2_scan, k2_grad = [], []
+    real_scan, real_grads, real_query = (Strategy.scan_pool, CRBSampling.grad_embeddings,
+                                         CRBSampling.query)
+    real_epoch = train_rt.train_one_epoch
+
+    def epoch(state, step, loader, *args, **kw):
+        steps[0] += len(loader)
+        return real_epoch(state, step, loader, *args, **kw)
+
+    def scan(self, *args, **kw):
+        if not pretrained:
+            pretrained.update(weights={k: v.clone() for k, v in self.model.state_dict().items()},
+                              loaders=(self.labelled_loader, self.unlabelled_loader))
+        records, row, k2 = checked_scan(lambda: real_scan(self, *args, **kw), self,
+                                        *SCAN_LAUNCHES['crb'], 'crb MC scan')
+        scans.append(row)
+        if not k2_scan:
+            k2_scan.extend(k2[:n_layers])
+        return records
+
+    def grad_embeddings(self, ids):
+        k2 = []
+        before = counters()
+        flags = [m.training for m in self.model.modules()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with recording(cuda_kernels, 'sparse_conv_gather_gemm', k2,
+                       lambda: cuda_kernels.launches):
+            emb = real_grads(self, ids)
+        ms = (time.perf_counter() - t) * 1e3
+        if flags != [m.training for m in self.model.modules()]:
+            raise RuntimeError('crb stage 2 left other training flags')
+        made = {k: v - before[k] for k, v in counters().items()}
+        want = {**{k: 0 for k in made}, 'gather_gemm': n_layers * len(ids)}
+        if made != want:
+            raise RuntimeError(f'crb stage 2 over {len(ids)} frames launched {made}, '
+                               f'expected {want}')
+        grads.append({'frames': len(ids), 'ms': ms, 'k2_err': k2_vs_plain(k2, 'crb stage 2'),
+                      'finite': bool(np.isfinite(emb).all()), 'shape': emb.shape})
+        if not k2_grad:
+            k2_grad.extend(k2[:n_layers])
+        return emb
+
+    def query(self, *args, **kw):
+        before = {k: v.clone() for k, v in self.model.state_dict().items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sel = real_query(self, *args, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        after = self.model.state_dict()
+        if not all(torch.equal(after[k], v) for k, v in before.items()):
+            raise RuntimeError('the CRB query changed the model\'s buffers or parameters')
+        queries.append({'ms': ms, 'times': dict(self.stage_times), 'sel': list(sel),
+                        'batches': len(self.unlabelled_loader),
+                        'pool': len(self.unlabelled_loader.dataset)})
+        return sel
+
+    tf32_seen = set()
+
+    def conv_tf32(module, _):
+        if isinstance(module, torch.nn.Conv2d):
+            tf32_seen.add(torch.backends.cudnn.allow_tf32)
+
+    set_random_seed(666)
+    counters(reset=True)
+    train_rt.train_one_epoch, Strategy.scan_pool = epoch, scan
+    CRBSampling.grad_embeddings, CRBSampling.query = grad_embeddings, query
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(conv_tf32)
+    try:
+        t = time.perf_counter()
+        active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
+                                  device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        train_rt.train_one_epoch, Strategy.scan_pool = real_epoch, real_scan
+        CRBSampling.grad_embeddings, CRBSampling.query = real_grads, real_query
+        hook.remove()
+    counts = counters()
+    if tf32_seen != {False}:
+        raise RuntimeError(f'the CRB loop\'s convolutions ran with cuDNN TF32 {tf32_seen}')
+    scored = sum(r['batches'] for r in scans)
+    frames = sum(g['frames'] for g in grads)
+    expected = {'gather_gemm': n_layers * (steps[0] + MC_FORWARDS * scored + frames),
+                'gather_gemm_dgrad': (n_layers - 1) * steps[0],
+                'gather_gemm_wgrad': n_layers * steps[0], 'nms_mask': scored,
+                'overlap_bev': 0, 'fps': 0}
+    log(f'crb loop: {loop_s:.1f} s; cuDNN TF32 at every convolution {tf32_seen}; launches '
+        f'{counts} over {steps[0]} train steps, {scored} MC-scored pool batches and {frames} '
+        f'stage-2 frames')
+    if counts != expected:
+        raise RuntimeError(f'crb loop launches {counts}, expected {expected}')
+    if len(queries) != len(scans) or len(grads) != len(scans) or \
+            not all(g['finite'] and g['frames'] == k1n for g in grads):
+        raise RuntimeError(f'crb loop: {len(scans)} scans, {len(grads)} stage 2s '
+                           f'({[g["frames"] for g in grads]} frames), {len(queries)} queries')
+    for i, (q, s, g) in enumerate(zip(queries, scans, grads)):
+        tm = q['times']
+        log(f"crb round {i + 1} query: pool {q['pool']} frames in {q['batches']} batches, "
+            f"{q['ms']:.2f} ms wall; stage 1 {tm['crb_stage1_s'] * 1e3:.2f} ms "
+            f"({tm['crb_stage1_s'] * 1e3 / q['batches']:.2f} ms per pool batch with this "
+            f"script's checks of every call, the scan alone {s['ms'] / s['batches']:.2f}; "
+            f"launches per batch K2 {s['made']['gather_gemm'] // s['batches']}, K1 mask "
+            f"{s['made']['nms_mask'] // s['batches']}; NMS boxes alive {s['alive']}; every K2 "
+            f"call within {s['k2_err']:.2e} of its plain version, K1 words {s['mask_bits']} "
+            f"bits off ({s['near']} pairs within 1e-6 of the threshold)), stage 2 "
+            f"{tm['crb_stage2_s'] * 1e3:.2f} ms ({g['frames']} frames, embeddings "
+            f"{g['shape']}, {g['ms'] / g['frames']:.2f} ms a frame, 12 K2 a frame within "
+            f"{g['k2_err']:.2e} of the plain version), stage 3 {tm['crb_stage3_s'] * 1e3:.2f} "
+            f"ms; every buffer and parameter equal before and after, stage 2's training "
+            f"flags restored; selected {q['sel']}")
+
+    # ---- over the round-1 pool at the eval phase's seeded weights and cls
+    # bias: kernel path against plain path ----
+    lab, unlab = pretrained['loaders']
+    qdir = out / 'queries'
+    qdir.mkdir()
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), lab.dataset, device='cpu')
+    init_weights(model, torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        model.dense_head.conv_cls.bias.fill_(CLS_BIAS)
+    model = model.to(dev)
+    masks, fix = [], []
+    with recording(nms, 'nms_mask', masks, lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', fix):
+        strat = build_strategy('crb', model, lab, unlab, 0, str(qdir), cfg)
+        t = time.perf_counter()
+        sel_k, got = spy_query(strat)
+        kernel_ms = (time.perf_counter() - t) * 1e3
+    with plain_versions():
+        sel_p, ref = spy_query(build_strategy('crb', model, lab, unlab, 0, str(qdir), cfg))
+    bits = [mask_vs_plain(words, *args, 'crb seeded query') for args, _, words in masks]
+    log(f'crb seeded query: {len(masks)} K1 mask calls, live boxes '
+        f'{[int(args[1].sum()) for args, _, _ in masks]}, bits off the plain words '
+        f'{[d for d, _ in bits]}; boxes kept per frame '
+        f"{[int(r['pred_valid'].sum()) for r in ref['records'].values()]}")
+    signal_errs(got['records'], ref['records'],
+                dict.fromkeys(('label_entropy', 'pred_density', 'mean_points',
+                               'variance_points'), 0.0),
+                'crb stage 1, kernel path vs plain')
+    n_tied, cut = stage1_tie(ref['records'], k1n)
+    log(f'crb stage 1: {n_tied} frames tied at the cut (label entropy {cut:.6f}, the '
+        f'{k1n}-th largest); K1 frames equal on the two paths: {got["k1"] == ref["k1"]}')
+    if got['k1'] != ref['k1']:
+        raise RuntimeError('crb stage 1 keeps other frames on the plain path')
+    norm = np.linalg.norm(ref['emb'], axis=1)
+    emb_err = np.abs(got['emb'] - ref['emb']).max(axis=1) / np.maximum(norm, 1e-30)
+    log(f'crb stage 2: embeddings {ref["emb"].shape}, row norms {np.round(norm, 4).tolist()}, '
+        f'max |diff| over the row norm kernel vs plain {emb_err.max():.3e} '
+        f'(tol {CRB_EMB_TOL:.0e})')
+    if not (emb_err <= CRB_EMB_TOL).all() or not (norm > 0).all():
+        raise RuntimeError('crb stage 2 embeddings differ kernel path vs plain')
+    tm = strat.stage_times
+    log(f'crb seeded query: {kernel_ms:.2f} ms; stage 1 {tm["crb_stage1_s"] * 1e3:.2f} ms '
+        f'({tm["crb_stage1_s"] * 1e3 / len(unlab):.2f} ms per pool batch), stage 2 '
+        f'{tm["crb_stage2_s"] * 1e3:.2f} ms ({tm["crb_stage2_s"] * 1e3 / len(got["k1"]):.2f} '
+        f'ms a frame, k-means++ included), stage 3 {tm["crb_stage3_s"] * 1e3:.2f} ms; '
+        f'selected {sel_k} on the kernel path, {sel_p} on the plain path')
+    if sel_k != sel_p:
+        raise RuntimeError('crb seeded query: the kernel path picks other frames')
+    # GPDB, device form against the host oracle, on the scan's densities
+    # with every pool frame a candidate, over the classes the oracle can
+    # score (``scorable_classes``)
+    recs = got['records']
+    dens = {f: r['pred_density'][r['pred_valid']] for f, r in recs.items()}
+    labs = {f: r['pred_labels'][r['pred_valid']] for f, r in recs.items()}
+    x_axis, prior = strat._gpdb_prior(dens, labs, len(cfg.CLASS_NAMES))
+    proper = scorable_classes(prior, labs)
+    remap = np.zeros(len(cfg.CLASS_NAMES) + 1, np.int64)
+    remap[[c + 1 for c in proper]] = np.arange(1, len(proper) + 1)
+    args = (list(recs), [dens[f] for f in recs], [remap[labs[f]] for f in recs],
+            [x_axis[c] for c in proper], [prior[c] for c in proper], len(proper), n_sel)
+    gpdb = {'device': None, 'host': None, 'device ms': 0.0, 'host ms': 0.0}
+    for form in ('device', 'host') if proper else ():
+        t = time.perf_counter()
+        gpdb[form] = getattr(strat, f'_gpdb_greedy_{form}')(*[list(a) if isinstance(a, list)
+                                                              else a for a in args])
+        gpdb[form + ' ms'] = (time.perf_counter() - t) * 1e3
+    all_d, all_l = np.concatenate(list(dens.values())), np.concatenate(list(labs.values()))
+    bounds = []
+    for c in range(len(cfg.CLASS_NAMES)):
+        d = np.sort(all_d[all_l == c + 1])
+        n95 = int(strat.alpha * len(d))
+        bounds.append((len(d), int(d[-max(n95, 1)]), int(d[min(n95, len(d) - 1)]))
+                      if len(d) else (0,))
+    log(f'crb GPDB over {len(recs)} candidates, classes the host oracle can score '
+        f'{proper} (absent, or with a prior that meets the grid; each class\'s boxes and '
+        f'its prior\'s integer bounds {bounds}): device {gpdb["device"]} ({gpdb["device ms"]:.2f} '
+        f'ms), host oracle {gpdb["host"]} ({gpdb["host ms"]:.2f} ms)'
+        + ('' if proper else '; the host oracle can score no class here, so the two forms '
+           'are held to each other on the reduced query\'s densities below'))
+    if gpdb['device'] != gpdb['host']:
+        raise RuntimeError('crb GPDB: the device form picks other frames than the host '
+                           f'oracle (classes {proper})')
+
+    # ---- the kernels at the CRB path's inputs, timed ----
+    layers = [m for m in model.backbone_3d.modules() if type(m).__name__ == 'SparseConvLayer']
+    results = [time_gather_gemm(f'crb.gather_gemm[{lname}]', layer, f[None], rbk,
+                                MC_FORWARDS * scored, cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers, k2_scan)]
+    results += [time_gather_gemm(f'crb_grad.gather_gemm[{lname}]', layer, f[None], rbk,
+                                 frames, cdt=f.dtype)
+                for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers, k2_grad)]
+    most = max(range(len(masks)), key=lambda i: int(masks[i][0][1].sum()))
+    (boxes, alive, thresh), _, _ = masks[most]
+    _, _, (_, rounds) = fix[most]
+    log(f'crb.nms_mask[scan]: timed at the seeded query\'s call {most} '
+        f'({int(alive.sum())} live boxes, the NMS over the MC-mean scores)')
+    results.append(time_mask('crb.nms_mask[scan]', boxes, alive, thresh, scored, rounds,
+                             'crb scan'))
+
+    # ---- a reduced f32 CRB query, card against CPU ----
+    small = reduced_cfg(load_config(CRB_CFG))
+    small.DATA_CONFIG.NUM_SCENES = 9
+    small.ACTIVE_TRAIN.SELECT_NUMS = 2
+    runs = []
+    for d in (dev, torch.device('cpu')):
+        _, _, m, _ = build(small, 2, d, seed=1, cls_bias=0.0)
+        ls, us = build_active_dataloader(small.DATA_CONFIG, small.CLASS_NAMES, 2, workers=0,
+                                         training=True, pre_train_sample_nums=4,
+                                         seed=0)[2:4]
+        runs.append(spy_query(build_strategy('crb', m, ls, us, 0, str(qdir), small)))
+    (card_sel, card), (cpu_sel, cpu) = runs
+    norm = np.linalg.norm(cpu['emb'], axis=1)
+    err = (np.abs(card['emb'] - cpu['emb']).max(axis=1) / np.maximum(norm, 1e-30)).max()
+    log(f'reduced f32 crb query: card {card_sel}, CPU {cpu_sel}; K1 frames equal '
+        f'{card["k1"] == cpu["k1"]}; embeddings max |diff| over the row norm {err:.3e}; boxes '
+        f"kept per frame {[int(r['pred_valid'].sum()) for r in cpu['records'].values()]}")
+    if card_sel != cpu_sel:
+        raise RuntimeError('reduced f32 crb query: the card picks other frames than the CPU')
+    # GPDB's two forms on the card over the reduced scan's densities, every
+    # pool frame a candidate
+    recs = card['records']
+    dens = {f: r['pred_density'][r['pred_valid']] for f, r in recs.items()}
+    labs = {f: r['pred_labels'][r['pred_valid']] for f, r in recs.items()}
+    x_axis, prior = strat._gpdb_prior(dens, labs, len(small.CLASS_NAMES))
+    every = scorable_classes(prior, labs) == list(range(len(small.CLASS_NAMES)))
+    picks = [getattr(strat, f'_gpdb_greedy_{form}')(
+        list(recs), [dens[f] for f in recs], [labs[f] for f in recs], x_axis, prior,
+        len(small.CLASS_NAMES), len(recs)) for form in ('device', 'host')]
+    log(f'reduced crb GPDB over {len(recs)} candidates, the host oracle can score every '
+        f'class: {every}; device {picks[0]}, host oracle {picks[1]}')
+    if not every or picks[0] != picks[1]:
+        raise RuntimeError('reduced crb GPDB: the device form picks other frames than the '
+                           'host oracle')
     shutil.rmtree(out)
     torch.backends.cudnn.allow_tf32 = False
     return results
@@ -2195,6 +2576,7 @@ def main():
     check_reduced_train(dev, SECOND_CFG)
     check_reduced_train(dev, PVRCNN_CFG, box_std=0.001)
     results += drive_active(dev)
+    results += drive_crb(dev)
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

@@ -12,10 +12,18 @@ graph; eager PyTorch runs what it is given, so the scorer decides the same
 things explicitly: no voxelisation and no forward when no requested signal
 reads the model's output (``signals=()``: random's bookkeeping pass), and no
 post-processing (the NMS) unless a requested signal reads the predictions.
-The MC-dropout scorer, ``loss_predictions`` and the RoI head's
-``batch_rcnn_*`` / ``shared_features`` signals come with CRB and the other
-strategies (ROADMAP Queue 1 item 12).  There is no mesh: the sharded
-scorer is item 15.
+
+The MC-dropout scorer (JAX ``strategy.py:113-146,189-199``) runs its one-stage
+branch: ``num_mc`` eval forwards that draw from one ``torch.Generator`` on the
+model's device, seeded ``MC_SEED`` once a scan (the JAX scan's
+``PRNGKey(0)``; SECOND draws nothing); the MC mean, the population variance
+(``jnp.var``) of the sigmoid scores and of the boxes, and the logit of the
+clipped mean as ``batch_cls_preds``, which the NMS then ranks.  The
+two-stage branch (MC rounds inside the RoI head), ``loss_predictions`` and
+the RoI head's ``shared_features`` embeddings come with ROADMAP Queue 1 item
+12b; on a one-stage model ``batch_rcnn_cls`` / ``batch_rcnn_reg`` are
+accepted and emit nothing, as in JAX.  There is no mesh: the sharded scorer
+is item 15.
 """
 
 from __future__ import annotations
@@ -33,7 +41,8 @@ from ..models import post_processing as pp
 from ..runtime.train import (host_to_device_batch, points_valid_mask,
                              prepare_device_batch)
 
-_LATER = 'ROADMAP Queue 1 item 12'
+_LATER = 'ROADMAP Queue 1 item 12b'
+MC_SEED = 0            # the JAX scan's PRNGKey(0)
 
 
 def _softmax_entropy(logits, valid=None):
@@ -66,9 +75,9 @@ class Strategy:
                                'pred_labels', 'pred_valid'})
     #: signals read from the model's output: without one of them the scorer
     #: runs no forward
-    _MODEL_SIGNALS = _PRED_SIGNALS | {'confidence_entropy', 'embeddings'}
-    _LATER_SIGNALS = frozenset({'loss_predictions', 'batch_rcnn_cls',
-                                'batch_rcnn_reg', 'mc_cls_var', 'mc_box_var'})
+    _MODEL_SIGNALS = _PRED_SIGNALS | {'confidence_entropy', 'embeddings',
+                                      'mc_cls_var', 'mc_box_var'}
+    _LATER_SIGNALS = frozenset({'loss_predictions'})
 
     def __init__(self, model, labelled_loader, unlabelled_loader, rank,
                  active_label_dir, cfg):
@@ -95,14 +104,17 @@ class Strategy:
     # ---- pool scoring ------------------------------------------------------
     def build_score_fn(self, mc_dropout: bool = False, num_mc: int = 0,
                        signals=None):
-        """device batch → per-frame signal dict of (B, ...) tensors, on the
-        model's device, in eval mode, without autograd.
+        """(device batch, generator) → per-frame signal dict of (B, ...)
+        tensors, on the model's device, in eval mode, without autograd.
 
-        ``signals``: the names to emit (None: every signal of the
-        deterministic scorer).  The per-frame gt statistics are always
-        included (``save_points`` reads them)."""
-        if mc_dropout:
-            raise NotImplementedError(f'the MC-dropout scorer comes with {_LATER}')
+        ``signals``: the names to emit (None: every signal).  The per-frame
+        gt statistics are always included (``save_points`` reads them).
+        ``mc_dropout``: ``num_mc`` forwards (one when ``num_mc`` ≤ 1), each
+        drawing from the generator; ``mc_cls_var`` and ``mc_box_var`` come
+        only from more than one."""
+        if mc_dropout and hasattr(self.model, 'roi_head'):
+            raise NotImplementedError('the MC-dropout scorer\'s two-stage branch '
+                                      f'comes with {_LATER}')
         want = None if signals is None else frozenset(signals)
         if want is not None and want & self._LATER_SIGNALS:
             raise NotImplementedError(f'signals {sorted(want & self._LATER_SIGNALS)} '
@@ -124,13 +136,37 @@ class Strategy:
         need_model = want is None or bool(want & self._MODEL_SIGNALS)
         need_preds = want is None or bool(want & self._PRED_SIGNALS)
 
+        mc_rounds = int(num_mc) if mc_dropout and num_mc > 1 else 0
+
+        def forward(batch, generator):
+            if not mc_rounds:
+                return model(batch, generator)
+            # MC rounds: eval forwards, each drawing from the generator
+            # (JAX strategy.py:133-146)
+            out = model(batch, generator)
+            cls = [torch.sigmoid(out['batch_cls_preds'])]
+            box = [out['batch_box_preds']]
+            for _ in range(mc_rounds - 1):
+                o = model(batch, generator)
+                cls.append(torch.sigmoid(o['batch_cls_preds']))
+                box.append(o['batch_box_preds'])
+            mc_cls, mc_box = torch.stack(cls), torch.stack(box)   # (S, B, A, ·)
+            # jnp.mean and jnp.var: the sum over the rounds over their number
+            mean = mc_cls.sum(0) / mc_rounds
+            out['mc_cls_mean'] = mean
+            out['mc_cls_var'] = ((mc_cls - mean) ** 2).sum(0) / mc_rounds
+            out['mc_box_var'] = ((mc_box - mc_box.sum(0) / mc_rounds) ** 2).sum(0) \
+                / mc_rounds
+            out['batch_cls_preds'] = torch.logit(torch.clamp(mean, 1e-6, 1 - 1e-6))
+            return out
+
         @torch.no_grad()
-        def score(device_batch):
+        def score(device_batch, generator=None):
             out = {}
             if need_model:
                 model.eval()
                 batch = prepare_device_batch(device_batch, *geom)
-                out = model(batch)
+                out = forward(batch, generator)
                 points, points_valid = batch['points'], batch['points_valid']
             else:
                 points = device_batch['points']
@@ -155,6 +191,11 @@ class Strategy:
                 sig['pred_labels'] = preds['pred_labels']
             if wanted('pred_valid'):
                 sig['pred_valid'] = preds['pred_valid']
+            if mc_rounds:
+                if wanted('mc_cls_var'):
+                    sig['mc_cls_var'] = out['mc_cls_var'].mean(dim=(1, 2))
+                if wanted('mc_box_var'):
+                    sig['mc_box_var'] = out['mc_box_var'].mean(dim=(1, 2))
             if wanted('embeddings'):
                 # single-stage: mean-pooled BEV features, (B, H, W, C) → (B, C)
                 sig['embeddings'] = out['spatial_features_2d'].mean(dim=(1, 2))
@@ -169,7 +210,8 @@ class Strategy:
 
         Returns dict frame_id (a plain str) → {signal: np.ndarray}, in pool
         order; a frame that a wrap-padded batch scored twice keeps its last
-        record.  Every
+        record.  An MC-dropout scan draws from a generator on the model's
+        device seeded ``MC_SEED``.  Every
         batch is dispatched first, then each signal is concatenated on the
         device and read back once; a one-batch-lookahead thread collates and
         moves the next batch meanwhile."""
@@ -181,6 +223,8 @@ class Strategy:
                                                        signals=want)
         score_fn = self._score_fns[key]
         device = self.model.device
+        generator = torch.Generator(device=device).manual_seed(MC_SEED) \
+            if mc_dropout else None
         q = queue.Queue(maxsize=2)
 
         def produce():
@@ -202,7 +246,7 @@ class Strategy:
                 t.join()
                 raise item
             frame_ids, device_batch = item
-            pending.append((frame_ids, score_fn(device_batch)))
+            pending.append((frame_ids, score_fn(device_batch, generator)))
         t.join()
         records = {}
         if not pending:

@@ -226,7 +226,7 @@ def train_model_active(cfg, args, batch_size, logger, output_dir, ckpt_dir,
         if (active_cfg.METHOD == 'llal'
                 and cfg.MODEL.get('ROI_HEAD', {}).get('LOSS_NET', None)):
             raise NotImplementedError('the LossNet fitting phase comes with '
-                                      'ROADMAP Queue 1 item 12')
+                                      'ROADMAP Queue 1 item 12b')
         labelled_loader, unlabelled_loader, selected = select_active_labels(
             model, labelled_loader, unlabelled_loader, rank, logger,
             method=active_cfg.METHOD, cur_epoch=cur_epoch,

@@ -1,6 +1,7 @@
 """The port's active-learning loop vs the JAX package: the active split and
 its padded sampler, ``gt_class_stats``, the pool scorer, the one-forward
-strategies (random, entropy, confidence, coreset), the selection pickles,
+strategies (random, entropy, confidence, coreset; the MC-dropout ones and
+CRB are in tests/test_torch_crb.py), the selection pickles,
 ``resume_dataset`` and ``train_model_active``.
 
 The reduced SECOND of ``tests/test_torch_second_eval.py`` (128×128×40 grid,
@@ -279,19 +280,26 @@ def test_slim_scorer_equals_full(scored, monkeypatch, signals, forwards, nms):
 
 
 def test_mc_dropout_and_later_signals_raise(scored):
+    """``loss_predictions`` (LossNet) still raises, with and without the
+    MC-dropout scorer, which itself runs (tests/test_torch_crb.py holds it
+    to JAX); on this one-stage model ``batch_rcnn_*`` emit nothing."""
     strat = scored.port_strategy('entropy')
-    with pytest.raises(NotImplementedError, match='item 12'):
-        strat.scan_pool(mc_dropout=True, num_mc=5)
-    for sig in ('loss_predictions', 'batch_rcnn_cls'):
-        with pytest.raises(NotImplementedError, match='item 12'):
-            strat.scan_pool(signals=(sig,))
+    for mc in (False, True):
+        with pytest.raises(NotImplementedError, match='item 12b'):
+            strat.scan_pool(mc_dropout=mc, num_mc=5, signals=('loss_predictions',))
+    rec = strat.scan_pool(signals=('batch_rcnn_cls', 'batch_rcnn_reg'))
+    assert list(rec) == list(scored.trec)
+    assert all(set(r) == set(GT_STATS) for r in rec.values())
 
 
 def test_factory_names_and_later_strategies(scored):
     assert tnames() == jnames()
-    for name in ('badge', 'bald', 'crb', 'llal', 'montecarlo'):
-        with pytest.raises(NotImplementedError, match='item 12'):
+    for name in ('badge', 'llal'):
+        with pytest.raises(NotImplementedError, match='item 12b'):
             scored.port_strategy(name)
+    for name in ('crb', 'montecarlo', 'bald'):
+        assert type(scored.port_strategy(name)).__name__ == \
+            type(scored.jax_strategy(name)).__name__
     with pytest.raises(KeyError):
         scored.port_strategy('nope')
 
