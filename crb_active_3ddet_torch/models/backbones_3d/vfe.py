@@ -1,11 +1,23 @@
-"""Voxel feature encoders (torch). Port of
-``crb_active_3ddet_tpu/models/backbones_3d/vfe.py`` (reference
-``pcdet/models/backbones_3d/vfe/mean_vfe.py:14-31``)."""
+"""Voxel feature encoders (torch). Port of ``MeanVFE``, ``PFNLayer`` and
+``PillarVFE`` from ``crb_active_3ddet_tpu/models/backbones_3d/vfe.py``
+(reference ``pcdet/models/backbones_3d/vfe/mean_vfe.py:14-31``,
+``pillar_vfe.py:8-120``).
+
+The pillar feature net keeps the JAX package's padded semantics: voxels are
+(B, V, K, C) with ``voxel_num_points``; the padded points are zeroed before
+the Linear, the BatchNorm's statistics run over every (B, V, K) row (padded
+points and padded pillars included, as the reference's), and the max over
+K sees the padded rows, where relu(BN(0)) need not be 0.  The module names
+are OpenPCDet's (``pfn_layers.{i}.linear``, ``.norm``).
+"""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 from torch import nn
+
+from ..flax_layers import flax_batch_norm
 
 
 class MeanVFE(nn.Module):
@@ -27,7 +39,107 @@ class MeanVFE(nn.Module):
         return self.num_point_features
 
 
-def build_vfe(model_cfg, num_point_features):
-    if model_cfg['NAME'] == 'MeanVFE':
+class FlaxBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` (eps 1e-3, momentum 0.01) over the last axis of
+    any tensor, whose training step is Flax's ``nn.BatchNorm``
+    (``models/flax_layers.flax_batch_norm``).  Eval normalises with the
+    running statistics in Flax's order: (x − mean)·(scale·rsqrt(var + eps))
+    + bias."""
+
+    def __init__(self, channels):
+        super().__init__(channels, eps=1e-3, momentum=0.01)
+
+    def forward(self, x):
+        if self.training:
+            return flax_batch_norm(x, self, channel_dim=-1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        return (x - self.running_mean) * mul + self.bias
+
+
+class PFNLayer(nn.Module):
+    """Linear (+ BatchNorm) + ReLU + max over the K points of a pillar: (B, V,
+    K, C) → (B, V, 1, F) for the last layer, else (B, V, K, F) with F/2
+    channels of its own and the broadcast max beside them."""
+
+    def __init__(self, in_channels, out_channels, use_norm=True, last_layer=False):
+        super().__init__()
+        self.last_layer = last_layer
+        out = out_channels if last_layer else out_channels // 2
+        self.linear = nn.Linear(in_channels, out, bias=not use_norm)
+        self.norm = FlaxBatchNorm1d(out) if use_norm else None
+
+    def forward(self, x):
+        x = F.linear(x, self.linear.weight, self.linear.bias)
+        if self.norm is not None:
+            x = self.norm(x)
+        x = torch.relu(x)
+        x_max = x.amax(dim=2, keepdim=True)
+        if self.last_layer:
+            return x_max
+        return torch.cat([x, x_max.expand_as(x)], dim=-1)
+
+
+class PillarVFE(nn.Module):
+    """Pillar feature net: each point's features with its offsets from the
+    pillar's point mean and from the pillar's centre (and its distance with
+    ``WITH_DISTANCE``), padded points zeroed, then the PFN layers."""
+
+    def __init__(self, model_cfg, num_point_features, voxel_size, point_cloud_range):
+        super().__init__()
+        self.model_cfg = model_cfg
+        self.use_absolute_xyz = model_cfg.get('USE_ABSLOTE_XYZ', True)
+        self.with_distance = model_cfg.get('WITH_DISTANCE', False)
+        in_ch = num_point_features + 6 if self.use_absolute_xyz \
+            else num_point_features + 3
+        in_ch += 1 if self.with_distance else 0
+        num_filters = list(model_cfg['NUM_FILTERS'])
+        use_norm = model_cfg.get('USE_NORM', True)
+        self.pfn_layers = nn.ModuleList()
+        for i, nf in enumerate(num_filters):
+            last = i == len(num_filters) - 1
+            self.pfn_layers.append(PFNLayer(in_ch, nf, use_norm, last))
+            in_ch = nf if last else nf // 2 * 2
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.point_cloud_range = tuple(float(x) for x in point_cloud_range)
+
+    def forward(self, batch_dict):
+        voxels = batch_dict['voxels']                  # (B, V, K, C)
+        num_points = batch_dict['voxel_num_points']    # (B, V)
+        coords = batch_dict['voxel_coords']            # (B, V, 3) z, y, x
+        vx, vy, vz = self.voxel_size
+        x_off = vx / 2 + self.point_cloud_range[0]
+        y_off = vy / 2 + self.point_cloud_range[1]
+        z_off = vz / 2 + self.point_cloud_range[2]
+
+        npts = torch.clamp(num_points[..., None, None].to(voxels.dtype), min=1.0)
+        xyz = voxels[..., :3]
+        f_cluster = xyz - xyz.sum(dim=2, keepdim=True) / npts
+        c = coords.to(voxels.dtype)
+        f_center = torch.stack([
+            voxels[..., 0] - (c[..., 2:3] * vx + x_off),
+            voxels[..., 1] - (c[..., 1:2] * vy + y_off),
+            voxels[..., 2] - (c[..., 0:1] * vz + z_off),
+        ], dim=-1)
+        features = [voxels if self.use_absolute_xyz else voxels[..., 3:],
+                    f_cluster, f_center]
+        if self.with_distance:
+            features.append(torch.linalg.vector_norm(xyz, dim=-1, keepdim=True))
+        features = torch.cat(features, dim=-1)
+        mask = torch.arange(voxels.shape[2], device=voxels.device) < num_points[..., None]
+        features = features * mask[..., None].to(features.dtype)
+        for pfn in self.pfn_layers:
+            features = pfn(features)
+        batch_dict['pillar_features'] = features.squeeze(2)   # (B, V, F)
+        return batch_dict
+
+    def get_output_feature_dim(self):
+        return list(self.model_cfg['NUM_FILTERS'])[-1]
+
+
+def build_vfe(model_cfg, num_point_features, voxel_size, point_cloud_range):
+    name = model_cfg['NAME']
+    if name == 'MeanVFE':
         return MeanVFE(model_cfg, num_point_features)
-    raise KeyError(f"vfe {model_cfg['NAME']} is not ported yet")
+    if name == 'PillarVFE':
+        return PillarVFE(model_cfg, num_point_features, voxel_size, point_cloud_range)
+    raise KeyError(f'vfe {name} is not ported yet')

@@ -1,10 +1,12 @@
-"""Config-driven detector (torch): the SECONDNet and PVRCNN topologies of
-``crb_active_3ddet_tpu/models/detectors/detector3d.py`` (reference
-``detector3d_template.py:24-53``, ``second_net.py:9-34``, ``pv_rcnn.py:9-43``):
-vfe → backbone_3d → map_to_bev → [pfe] → backbone_2d → dense_head →
-[point_head → roi_head]; the bracketed modules are built when the config
-names them.  ``compute_loss`` is the training loss (``detector3d.py:
-154-218``): the anchor head's, plus the point head's and the RoI head's
+"""Config-driven detector (torch): the PointPillar, SECONDNet and PVRCNN
+topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
+(reference ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
+``second_net.py:9-34``, ``pv_rcnn.py:9-43``): vfe → [backbone_3d] →
+map_to_bev → [pfe] → backbone_2d → dense_head → [point_head → roi_head];
+the bracketed modules are built when the config names them (PointPillars
+has no 3D backbone: its BEV width is ``MAP_TO_BEV.NUM_BEV_FEATURES``).
+``compute_loss`` is the training loss (``detector3d.py:154-218``): the
+anchor head's, plus the point head's and the RoI head's
 when the forward made their targets.  The modules that draw random numbers
 in training (PV-RCNN's RoI head: the RoI sample and its Dropout) take the
 ``torch.Generator`` that ``forward`` is given.
@@ -31,7 +33,7 @@ from ..point_heads.point_head_simple import build_point_head
 from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
 
-_PORTED = {'SECONDNet', 'PVRCNN'}
+_PORTED = {'PointPillar', 'SECONDNet', 'PVRCNN'}
 _DRAWS = ('roi_head',)          # modules whose training forward draws
 
 
@@ -42,19 +44,22 @@ class Detector3D(nn.Module):
         self.model_cfg = model_cfg
         self.num_class = num_class
         self.class_names = tuple(class_names)
-        self.vfe = build_vfe(model_cfg['VFE'], num_point_features)
-        self.backbone_3d = build_backbone_3d(
-            model_cfg['BACKBONE_3D'], self.vfe.get_output_feature_dim(),
-            grid_size)
-        self.map_to_bev = build_map_to_bev(model_cfg['MAP_TO_BEV'])
+        self.vfe = build_vfe(model_cfg['VFE'], num_point_features, voxel_size,
+                             point_cloud_range)
+        topology = ['vfe']
+        if model_cfg.get('BACKBONE_3D', None) is not None:
+            self.backbone_3d = build_backbone_3d(
+                model_cfg['BACKBONE_3D'], self.vfe.get_output_feature_dim(),
+                grid_size)
+            topology.append('backbone_3d')
+        self.map_to_bev = build_map_to_bev(model_cfg['MAP_TO_BEV'], grid_size)
         self.backbone_2d = build_backbone_2d(
             model_cfg['BACKBONE_2D'], self.map_to_bev.num_bev_features)
         self.dense_head = build_dense_head(
             model_cfg['DENSE_HEAD'], self.backbone_2d.num_bev_features,
             num_class, class_names, grid_size, point_cloud_range,
             predict_boxes_when_training=model_cfg.get('ROI_HEAD', None) is not None)
-        topology = ['vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d',
-                    'dense_head']
+        topology += ['map_to_bev', 'backbone_2d', 'dense_head']
         if model_cfg.get('PFE', None) is not None:
             self.pfe = build_pfe(
                 model_cfg['PFE'], voxel_size, point_cloud_range,

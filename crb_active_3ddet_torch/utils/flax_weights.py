@@ -12,6 +12,10 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     ``utils/torch_ckpt.py:215 _t_convtranspose2d``);
   * sparse conv kernels: kept as (K, Cin, Cout), the gather-GEMM's layout;
   * BN: scale/bias → weight/bias, batch_stats mean/var → running_mean/var;
+  * PillarVFE: ``vfe.PFNLayer_{i}.Dense_0`` (in, out) → OpenPCDet's
+    ``vfe.pfn_layers.{i}.linear`` (out, in), ``BatchNorm_0`` →
+    ``vfe.pfn_layers.{i}.norm`` (the names the JAX package's ``.pth``
+    importer reads);
   * Dense (in, out) → Linear (out, in), or a k=1 Conv1d / Conv2d weight
     (out, in, 1[, 1]) where the port keeps OpenPCDet's conv layers (PV-RCNN's
     point branch).  Flax auto-names inside a StackSAModuleMSG run across the
@@ -131,19 +135,38 @@ def _point_branch(sd, params, batch_stats, model_cfg):
               (0,), out='reg_out')
 
 
+def pillar_vfe_from_flax(sd, params, batch_stats):
+    """PillarVFE's PFN layers; a layer without BatchNorm has a bias."""
+    pv, sv = params['vfe'], batch_stats.get('vfe', {})
+    i = 0
+    while f'PFNLayer_{i}' in pv:
+        layer = pv[f'PFNLayer_{i}']
+        sd[f'vfe.pfn_layers.{i}.linear.weight'] = _dense(layer['Dense_0']['kernel'])
+        if 'bias' in layer['Dense_0']:
+            sd[f'vfe.pfn_layers.{i}.linear.bias'] = layer['Dense_0']['bias']
+        if 'BatchNorm_0' in layer:
+            _bn(sd, f'vfe.pfn_layers.{i}.norm', layer['BatchNorm_0'],
+                sv[f'PFNLayer_{i}']['BatchNorm_0'])
+        i += 1
+
+
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
-    """Flax SECONDNet or PVRCNN variables → port ``state_dict`` (torch
-    tensors).  PVRCNN needs ``model_cfg`` (the MODEL node): the Flax names of
-    the point branch do not say where one MLP ends and the next begins."""
+    """Flax PointPillar, SECONDNet or PVRCNN variables → port ``state_dict``
+    (torch tensors).  PVRCNN needs ``model_cfg`` (the MODEL node): the Flax
+    names of the point branch do not say where one MLP ends and the next
+    begins."""
     sd = {}
+    if 'vfe' in params:
+        pillar_vfe_from_flax(sd, params, batch_stats)
     if 'pfe' in params:
         _point_branch(sd, params, batch_stats, model_cfg)
-    p3, s3 = params['backbone_3d'], batch_stats['backbone_3d']
-    for i, name in enumerate(VOXEL8X_ORDER):
-        layer = f'SparseConvLayer_{i}'
-        sd[f'backbone_3d.{name}.0.weight'] = p3[layer]['kernel']
-        _bn(sd, f'backbone_3d.{name}.1', p3[layer]['MaskedBatchNorm_0'],
-            s3[layer]['MaskedBatchNorm_0'])
+    if 'backbone_3d' in params:
+        p3, s3 = params['backbone_3d'], batch_stats['backbone_3d']
+        for i, name in enumerate(VOXEL8X_ORDER):
+            layer = f'SparseConvLayer_{i}'
+            sd[f'backbone_3d.{name}.0.weight'] = p3[layer]['kernel']
+            _bn(sd, f'backbone_3d.{name}.1', p3[layer]['MaskedBatchNorm_0'],
+                s3[layer]['MaskedBatchNorm_0'])
 
     p2, s2 = params['backbone_2d'], batch_stats['backbone_2d']
     i = 0
