@@ -58,13 +58,14 @@ Run from the root of a checkout.  It
      ms per pool batch and scans/s, and the f32 K2 route timed at the first
      scan batch's 12 layers and a retrain step's 11 dgrads, each bit for bit
      against the f32 matmul; then the confidence, random, coreset,
-     montecarlo, bald and entropy queries over the round-1 pool (launches
-     per scored batch exactly), the full scan at the eval phase's seeded
+     montecarlo, bald, badge (its one-stage branch: gradients at conv_cls)
+     and entropy queries over the round-1 pool (launches per scored batch
+     exactly), the full scan at the eval phase's seeded
      weights and cls bias on the kernel path against the plain path (live
      boxes and an untied top-4 box_entropy required, every anchor's cls
      logit equal), a profiled scan, and a reduced f32 scan card vs CPU;
   9. runs the loop again with CRB (second_synth_active_crb.yaml, same
-     sizes, K1 2, K2 1, kmeans++): per MC-scored pool batch 5 forwards (60
+     sizes but one round, K1 2, K2 1, kmeans++): per MC-scored pool batch 5 forwards (60
      K2) and one K1 mask at the NMS over the MC-mean scores, per stage-2
      frame one batch-1 training-mode forward (12 K2); every K1 and K2 call
      of the scans and of stage 2 against its plain version; every buffer
@@ -74,14 +75,37 @@ Run from the root of a checkout.  It
      of their norm, picks equal), GPDB's device form against its host
      oracle, the K2 and K1 entries at the CRB path's inputs (``crb.``,
      ``crb_grad.``), and a reduced f32 CRB query card vs CPU;
- 10. PointPillars (pointpillar_synth.yaml, no 3D backbone: K1 only) is
+ 10. runs the AL loop on PV-RCNN (``pvrcnn_al_cfg``: pv_rcnn_synth.yaml at
+     full width, K2 on its bf16 route, with the ACTIVE_TRAIN sizes of
+     second_synth_active_crb.yaml, batch 4) with METHOD llal: before each
+     round's query the LossNet is fitted over 2 epochs of the labelled
+     pool; launches exactly per train step and per LossNet step (12 K2,
+     11 dgrad, 12 wgrad, 1 K3, 1 K1 mask, 1 K1 float) and per scored pool
+     batch (12 K2, 1 K3, 1 K1 mask), every K1, K2 and K3 call of the scans
+     against its plain version, ms per step, per LossNet step and per pool
+     batch, scans/s; then the badge, coreset (the RoI head's shared
+     features), montecarlo, bald (the head's MC rounds), entropy,
+     confidence, random and llal queries over the round-1 pool with their
+     launches exactly; the kernels timed at the scans' and at a LossNet
+     step's inputs; a reduced f32 scan and LossNet step card vs CPU;
+ 11. runs CRB on PV-RCNN likewise: per MC-scored pool batch one forward
+     (the RoI head's 5 rounds inside it: 12 K2, 1 K3, 2 K1 masks), per
+     stage-2 frame a batch-1 training forward whose hypothetical loss is
+     differentiated at shared_fc_1 (12 K2, 1 K3, 1 K1 mask, 1 K1 float),
+     every call against its plain version, every buffer and parameter equal
+     before and after each query; at seeded weights with K2's f32 route the
+     query on the kernel path against the plain path, stage 2 from one RoI
+     sample a frame (stage-1 records equal, embeddings within 1e-4 of their
+     norm, picks equal), GPDB's two forms, the kernels timed at the MC scan's and stage 2's inputs, and a
+     reduced f32 query card vs CPU;
+ 12. PointPillars (pointpillar_synth.yaml, no 3D backbone: K1 only) is
      driven like SECOND: the eval step at full width, batch 8 (launches
      exactly 1 K1 mask, 1 K1 float; the kernel path equal to the plain path
      before the NMS; the peak of real pillars against the 8 000-pillar
      buffer), the train step (no hand-written kernel launched), a reduced
      eval and train step card vs CPU (in 7), and 8 and 9 on
-     pointpillar_synth_active_entropy.yaml (CRB with METHOD crb set in
-     code; no K2 launch, stage 2 none); last the two detection-quality
+     pointpillar_synth_active_entropy.yaml, one round each (CRB with METHOD
+     crb set in code; no K2 launch, stage 2 none); last the two detection-quality
      gates of tests/test_detection_quality.py with the port (``gate_1``:
      mAP@0.5 > 0.60 on unseen easy scenes; ``gate_2``: CRB lands at least
      one more object frame a seed than random, over 16 seeds from one
@@ -1658,8 +1682,10 @@ ACTIVE_EXACT = ('pred_labels', 'pred_valid', 'num_bbox', 'median_points')
 MC_FORWARDS = 5
 # (forwards, K1 masks) per scored pool batch of each strategy's scan; each
 # forward launches K2 once a sparse layer of the model (none on PointPillars)
+# (BADGE: pass 1 one forward a pool batch, pass 2 one a pool frame, no NMS)
 SCAN_LAUNCHES = {'entropy': (1, 1), 'confidence': (1, 0), 'random': (0, 0), 'coreset': (1, 0),
-                 'montecarlo': (MC_FORWARDS, 0), 'bald': (1, 1), 'crb': (MC_FORWARDS, 1)}
+                 'montecarlo': (MC_FORWARDS, 0), 'bald': (1, 1), 'crb': (MC_FORWARDS, 1),
+                 'badge': (1, 0)}
 
 
 def scan_launches(method, n_layers):
@@ -1798,7 +1824,8 @@ def watched_epochs(real_epoch, out, round_starts, rows):
     return epoch
 
 
-def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_LAYERS):
+def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_LAYERS,
+                 rounds=None):
     """The AL loop, ``train_model_active``, at the full width and sizes of
     ``cfg_file`` (SECOND: 32 scenes, 8 labelled, 2 rounds of 4; PointPillars:
     64 scenes, 16 labelled, 2 rounds of 8; batch 4, 2 epochs a round), from
@@ -1813,16 +1840,17 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     init weights with a fresh optimizer; every call K1 and K2 made in the
     scans against its plain version; ms/step, ms per pool batch and
     scans/s.  Then, over the round-1 pool at the pretrained weights: the
-    confidence, random, coreset, montecarlo, bald and entropy queries with
-    their launches per scored batch exactly; then, at the eval phase's
+    confidence, random, coreset, montecarlo, bald, badge and entropy queries
+    with their launches per scored batch exactly; then, at the eval phase's
     seeded weights and cls bias (SECOND pretrained keeps no box and scores
     the classes alike), the full scan on the kernel path against the plain
     path (live boxes and an untied top-n box_entropy required, every
     anchor's cls logit equal) and K1's mask timed at its call with the most
-    live boxes; a profiled scan and the same scan timed under other cuDNN
-    settings; a retrain step's launches; the scan's K2 at the loop's
+    live boxes; a profiled scan and the same scan timed with the f32 guard
+    lifted (TF32); a retrain step's launches; the scan's K2 at the loop's
     inputs, timed.  Last, a reduced f32 scan on the card against the CPU.
-    Entries and log lines are named by ``prefix``.  Returns the kernels'
+    ``rounds`` cuts the file's budget to that many rounds.  Entries and log
+    lines are named by ``prefix``.  Returns the kernels'
     JSON entries."""
     import logging
     import pickle
@@ -1845,6 +1873,8 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     if int(cfg.MODEL.get('SAMPLING_ROUND', MC_FORWARDS)) != MC_FORWARDS:
         raise RuntimeError(f'{cfg_file} runs another number of MC forwards')
     a = cfg.ACTIVE_TRAIN
+    if rounds:                    # fewer rounds than the file's budget
+        a.TOTAL_BUDGET_NUMS = int(a.SELECT_NUMS) * rounds
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
     pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
     n_rounds = int(a.TOTAL_BUDGET_NUMS) // n_sel
@@ -1951,7 +1981,8 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     qdir = out / 'queries'
     qdir.mkdir()
     random.seed(0)
-    for method in ('confidence', 'random', 'coreset', 'montecarlo', 'bald', 'entropy'):
+    for method in ('confidence', 'random', 'coreset', 'montecarlo', 'bald', 'badge',
+                   'entropy'):
         strat = build_strategy(method, model, lab, unlab, 0, str(qdir), cfg)
         before = counters()
         torch.cuda.synchronize()
@@ -1960,7 +1991,8 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
         ms = (time.perf_counter() - t) * 1e3
         made = {k: v - before[k] for k, v in counters().items()}
         k2_per, mask_per = scan_launches(method, len(layer_names))
-        n_b = len(unlab) + (len(lab) if method == 'coreset' else 0)
+        n_b = len(unlab) + (len(lab) if method == 'coreset' else 0) \
+            + (len(unlab.dataset) if method == 'badge' else 0)
         want = {**{k: 0 for k in made}, 'gather_gemm': k2_per * n_b,
                 'nms_mask': mask_per * len(unlab)}
         if made != want:
@@ -2022,23 +2054,21 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     log(f'profiled entropy scan of {len(unlab)} pool batches:')
     profile_step(lambda _: strat.scan_pool(signals=('box_entropy',)), None)
     # the same scan, timed only: as the port runs it (f32, its guard turning
-    # TF32 off), with the guard lifted under PyTorch's default (cuDNN free to
-    # use TF32), and with cuDNN free to autotune
+    # TF32 off) and with the guard lifted under PyTorch's default (cuDNN free
+    # to use TF32)
     cudnn = torch.backends.cudnn
-    saved = cudnn.allow_tf32, cudnn.benchmark, common.full_f32
-    for label, guard, bench in (('as run', common.full_f32, False),
-                                ('TF32, the f32 guard lifted', contextlib.nullcontext, False),
-                                ('benchmark', common.full_f32, True),
-                                ('as run', common.full_f32, False)):
-        common.full_f32, cudnn.benchmark = guard, bench
+    saved = cudnn.allow_tf32, common.full_f32
+    for label, guard in (('as run', common.full_f32),
+                         ('TF32, the f32 guard lifted', contextlib.nullcontext)):
+        common.full_f32 = guard
         try:
-            strat.scan_pool(signals=('box_entropy',))          # warm (autotune)
+            strat.scan_pool(signals=('box_entropy',))          # warm
             torch.cuda.synchronize()
             t = time.perf_counter()
             strat.scan_pool(signals=('box_entropy',))
             ms = (time.perf_counter() - t) * 1e3
         finally:
-            cudnn.allow_tf32, cudnn.benchmark, common.full_f32 = saved
+            cudnn.allow_tf32, common.full_f32 = saved
         log(f'entropy scan, cuDNN {label}: {ms / len(unlab):.2f} ms per pool batch')
 
     # ---- a retrain step at the pretrained weights: launches, and its
@@ -2141,8 +2171,8 @@ def spy_query(strat):
         seen['records'] = real_scan(*a, **k)
         return seen['records']
 
-    def grads(ids):
-        seen['k1'], seen['emb'] = list(ids), real_grads(ids)
+    def grads(ids, *targets):
+        seen['k1'], seen['emb'] = list(ids), real_grads(ids, *targets)
         return seen['emb']
     strat.scan_pool, strat.grad_embeddings = scan, grads
     try:
@@ -2188,7 +2218,8 @@ def check_gpdb_forms(strat, recs, num_class, n_sel, tag, need_class=False):
     return proper
 
 
-def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, every_class=True):
+def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, every_class=True,
+              rounds=None):
     """CRB: ``train_model_active`` on ``cfg_file`` with METHOD crb (set in
     code: PointPillars runs its entropy file) at its full width and sizes
     (K1 2, K2 1, kmeans++), from ``flax_init``, under PyTorch's default
@@ -2207,7 +2238,8 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     kernels timed at the MC scan's and stage 2's inputs; last, a reduced
     f32 query on the card against the CPU.  GPDB's two forms must be held
     over every class (``every_class``) or one at least, by the seeded or
-    the reduced query's densities.  Returns the kernels' JSON entries."""
+    the reduced query's densities.  ``rounds`` cuts the file's budget to
+    that many rounds.  Returns the kernels' JSON entries."""
     import logging
     import shutil
     import tempfile
@@ -2225,6 +2257,8 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     cfg = load_config(cfg_file)
     a = cfg.ACTIVE_TRAIN
     a.METHOD = 'crb'
+    if rounds:                    # fewer rounds than the file's budget
+        a.TOTAL_BUDGET_NUMS = int(a.SELECT_NUMS) * rounds
     if int(cfg.MODEL.get('SAMPLING_ROUND', MC_FORWARDS)) != MC_FORWARDS:
         raise RuntimeError(f'{cfg_file} runs another number of MC forwards')
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
@@ -2458,6 +2492,704 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     if not scored_classes or (every_class and scored_classes != every):
         raise RuntimeError(f'{prefix} GPDB: the two forms were held over classes '
                            f'{sorted(scored_classes)} only')
+    shutil.rmtree(out)
+    torch.backends.cudnn.allow_tf32 = False
+    return results
+
+
+# ---- the active-learning path on PV-RCNN -----------------------------------
+
+# (forwards, K1 masks) per scored pool batch of each strategy's scan on
+# PV-RCNN; a forward launches K2 once a sparse layer and K3 once, and its
+# RoI head's proposal NMS is one of the masks; a strategy that reads the
+# predictions adds the final NMS.  The MC strategies run one forward: the
+# head's rounds are inside it.  BADGE's pass 1 runs the dense path alone
+# (K2 only) once a pool batch and its pass 2 once a pool frame.
+PVRCNN_SCAN = {'entropy': (1, 2), 'confidence': (1, 1), 'random': (0, 0), 'coreset': (1, 1),
+               'montecarlo': (1, 1), 'bald': (1, 2), 'llal': (1, 1), 'crb': (1, 2),
+               'badge': (0, 0)}
+# the reduced f32 PV-RCNN scan card vs CPU, max |diff| / (1 + |ref|): its
+# signals read features behind grouped max-pools and RoI-grid pooling, as
+# the reduced eval step's boxes and scores that check_reduced holds to 1e-4
+PVRCNN_REDUCED_TOL = 1e-4
+KINDS = ('k2', 'mask', 'float', 'fps')
+
+
+def pvrcnn_al_cfg(method):
+    """PV-RCNN's AL configuration, put together in code: the model and data
+    of pv_rcnn_synth.yaml (the MODEL of the reference's
+    active-kitti_models/pv_rcnn_active_crb.yaml at 1 024 keypoints: 128 RoIs
+    on a 6³ grid, SHARED_FC [256, 256], DP_RATIO 0.3, SAMPLING_ROUND 5, its
+    USE_BF16) with the ACTIVE_TRAIN and OPTIMIZATION of
+    second_synth_active_crb.yaml (32 scenes, 8 labelled, 2 rounds of 4, K1
+    2, K2 1, kmeans++, batch 4) and METHOD ``method``.  llal adds the
+    LossNet [256, 256] (pv_rcnn_active_llal.yaml) with
+    LOSS_NET_TRAIN_EPOCH 2 (a key of active-waymo_models/
+    pv_rcnn_active_llal.yaml: one epoch of round 1's 2 steps makes a NaN
+    one-cycle schedule, which torch.optim refuses) and, for the coreset
+    query of the same phase, EMBEDDING_REQUIRED (pv_rcnn_active_coreset.yaml)."""
+    from crb_active_3ddet_torch.config import load_config
+    cfg = load_config(PVRCNN_CFG)
+    al = load_config(CRB_CFG)
+    cfg.ACTIVE_TRAIN, cfg.OPTIMIZATION = al.ACTIVE_TRAIN, al.OPTIMIZATION
+    cfg.ACTIVE_TRAIN.METHOD = method
+    if method == 'llal':
+        r = cfg.MODEL.ROI_HEAD
+        r.LOSS_NET = {'SHARED_FC': [256, 256]}
+        r.LOSS_NET_TRAIN_EPOCH = 2
+        r.EMBEDDING_REQUIRED = True
+    return cfg
+
+
+@contextlib.contextmanager
+def kernel_calls(rec):
+    """Record (args, launches, result) of every call of the forward kernels'
+    wrappers into ``rec``: K2 ('k2'), K1's mask ('mask') and float entry
+    ('float'), K3 ('fps'), and the NMS fixpoint ('fix', no kernel)."""
+    from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap, iou3d,
+                                            nms, pointnet2)
+    for kind in KINDS + ('fix',):
+        rec.setdefault(kind, [])
+    with recording(cuda_kernels, 'sparse_conv_gather_gemm', rec['k2'],
+                   lambda: cuda_kernels.launches), \
+            recording(nms, 'nms_mask', rec['mask'], lambda: cuda_overlap.mask_launches), \
+            recording(nms, '_fixpoint_words', rec['fix']), \
+            recording(iou3d, 'boxes_overlap_bev_cuda', rec['float'],
+                      lambda: cuda_overlap.launches), \
+            recording(pointnet2, 'farthest_point_sample_cuda', rec['fps'],
+                      lambda: cuda_fps.launches):
+        yield rec
+
+
+def calls_vs_plain(rec, tag):
+    """Every call in ``rec`` (``kernel_calls``) one launch and against its
+    plain version at its inputs: K2 within 1e-4 of 1 + max |ref| (its bf16
+    route too), K1's mask bit for bit but for pairs within 1e-6 of the
+    threshold, its float entry within 1e-4, K3 equal.  Returns a summary."""
+    from crb_active_3ddet_torch.ops import cuda_fps, cuda_overlap
+    if any(n != 1 for kind in KINDS for _, n, _ in rec[kind]):
+        raise RuntimeError(f'{tag}: a kernel call did not launch its kernel exactly once')
+    s = {'k2_err': k2_vs_plain(rec['k2'], tag), 'mask_bits': 0, 'near': 0, 'float_err': 0.0,
+         'calls': {kind: len(rec[kind]) for kind in KINDS}}
+    for (boxes, alive, thresh), _, words in rec['mask']:
+        d, nr = mask_vs_plain(words, boxes, alive, thresh, tag)
+        s['mask_bits'], s['near'] = s['mask_bits'] + d, s['near'] + nr
+    for (a, b), _, got in rec['float']:
+        err = (got - cuda_overlap.overlap_bev_plain(a, b)).abs().max().item()
+        if not err <= 1e-4:
+            raise RuntimeError(f'{tag} K1 float call: max err {err}')
+        s['float_err'] = max(s['float_err'], err)
+    for (points, valid, k), _, got in rec['fps']:
+        if not torch.equal(got, cuda_fps.fps_plain(points, valid, k)):
+            raise RuntimeError(f'{tag} K3 call: other indices than the plain version')
+    return s
+
+
+def launch_delta(before, n_k2=0, n_dgrad=0, n_wgrad=0, n_mask=0, n_float=0, n_fps=0):
+    """(launches since ``before``, the launches expected)."""
+    made = {k: v - before[k] for k, v in counters().items()}
+    return made, {'gather_gemm': n_k2, 'gather_gemm_dgrad': n_dgrad,
+                  'gather_gemm_wgrad': n_wgrad, 'nms_mask': n_mask, 'overlap_bev': n_float,
+                  'fps': n_fps}
+
+
+def summary(s):
+    return (f"every K2 call within {s['k2_err']:.2e} of its plain version, K1 words "
+            f"{s['mask_bits']} bits off ({s['near']} pairs within 1e-6 of the threshold), "
+            f"K1 float within {s['float_err']:.2e}, K3 equal; calls {s['calls']}")
+
+
+def seeded_pvrcnn(cfg, dataset, device, seed, cls_bias=None):
+    """A PV-RCNN of ``cfg`` from ``init_weights`` (seed, box layer std
+    0.001 as the JAX package draws it) on ``device``."""
+    from crb_active_3ddet_torch.models.detectors import build_detector, init_weights
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cpu')
+    init_weights(model, torch.Generator().manual_seed(seed), box_std=0.001)
+    if cls_bias is not None:
+        with torch.no_grad():
+            model.dense_head.conv_cls.bias.fill_(cls_bias)
+    return model.to(device)
+
+
+def active_loaders(cfg, batch_size):
+    from crb_active_3ddet_torch.datasets import build_active_dataloader
+    return build_active_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, batch_size, workers=0,
+                                   training=True, pre_train_sample_nums=4, seed=0)
+
+
+def given_targets(strat, source, cache):
+    """Feed ``strat``'s stage-2 frames one RoI sample each, ``common_targets``
+    drawn with ``source`` (a model) on its device once a frame and kept in
+    ``cache``, so that two runs (two devices, or the kernel and the plain
+    path) train on the same RoIs: the sampler's draws and the TRAIN
+    proposals' order follow rounding-sized differences of the scores."""
+    real = strat.single_frames
+
+    def frames(ids, drop=()):
+        for fid, b1 in zip(ids, real(ids, drop)):
+            if fid not in cache:
+                cache[fid] = common_targets(source, {
+                    k: v.to(source.device) if torch.is_tensor(v) else v
+                    for k, v in b1.items()}, 3)
+            t = {k: v.to(b1['points'].device) for k, v in cache[fid].items()}
+            yield {**b1, 'rois': t['rois'], 'roi_targets_dict': t}
+    strat.single_frames = frames
+
+
+def drive_pvrcnn_active(dev):
+    """The AL loop on PV-RCNN (``pvrcnn_al_cfg('llal')``, full width, batch
+    4, bf16 sparse backbone and BEV as the file sets them), from
+    ``flax_init``, under PyTorch's default precision settings with the f32
+    guard checked at every convolution: counters to 0, ``train_model_active``
+    with METHOD llal (each round first fits the LossNet over 2 epochs of
+    the labelled pool), counters read: per train step and per LossNet step
+    12 K2, 11 dgrad, 12 wgrad, 1 K3, 1 K1 mask (TRAIN proposals), 1 K1
+    float (proposal targets); per scored pool batch 12 K2, 1 K3, 1 K1 mask;
+    every scan call of K1, K2 and K3 against its plain version; each round
+    from the init weights.  Then over the round-1 pool at the pretrained
+    weights the queries of badge, coreset, montecarlo, bald, entropy,
+    confidence, random and llal with their launches (``PVRCNN_SCAN``), llal
+    picking the loop's round-1 frames; the kernels timed at the scans' and
+    at a LossNet step's inputs (``pvrcnn_active.``, ``pvrcnn_llal.``); last a
+    reduced f32 scan and LossNet step, card against CPU.  Returns the
+    kernels' JSON entries."""
+    import logging
+    import pickle
+    import random
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.query_strategies.strategy import Strategy
+    from crb_active_3ddet_torch.runtime import active
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.utils.common import set_random_seed
+    cfg = pvrcnn_al_cfg('llal')
+    a = cfg.ACTIVE_TRAIN
+    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
+    pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
+    n_rounds = int(a.TOTAL_BUDGET_NUMS) // n_sel
+    fit_epochs = int(cfg.MODEL.ROI_HEAD.LOSS_NET_TRAIN_EPOCH)
+    round_starts = [pre + r * interval for r in range(n_rounds)]
+    n = len(SPARSE_LAYERS)
+    log(f'==== PV-RCNN active learning: {PVRCNN_CFG} with {CRB_CFG}\'s ACTIVE_TRAIN, llal '
+        f'(LossNet {cfg.MODEL.ROI_HEAD.LOSS_NET.SHARED_FC}, {fit_epochs} fitting epochs), '
+        f'batch {bs}, {cfg.DATA_CONFIG.NUM_SCENES} scenes, {a.PRE_TRAIN_SAMPLE_NUMS} '
+        f'labelled, {n_rounds} rounds of {n_sel}, K2 '
+        f"{'bf16' if cfg.MODEL.BACKBONE_3D.get('USE_BF16', False) else 'f32'} ====")
+    torch.backends.cudnn.allow_tf32 = True         # PyTorch's default, as a user runs
+    logger = logging.getLogger('chip_smoke.pvrcnn_active')
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_pvrcnn_al_'))
+    (out / 'ckpt').mkdir()
+    epochs, scans, fits, first_scan, first_fit, pretrained = [], [], [], {}, {}, {}
+    real_epoch, real_scan = train_rt.train_one_epoch, Strategy.scan_pool
+    real_fit = active.make_lossnet_train_step
+    epoch = watched_epochs(real_epoch, out, round_starts, epochs)
+
+    def scan(self, *args, **kw):
+        if not pretrained:
+            pretrained.update(weights={k: v.clone() for k, v in self.model.state_dict().items()},
+                              loaders=(self.labelled_loader, self.unlabelled_loader))
+        rec, before = {}, counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with kernel_calls(rec):
+            records = real_scan(self, *args, **kw)      # reads every signal back once
+        ms = (time.perf_counter() - t) * 1e3
+        n_b = len(self.unlabelled_loader)
+        f, m = PVRCNN_SCAN['llal']
+        made, want = launch_delta(before, n_k2=n * f * n_b, n_mask=m * n_b, n_fps=f * n_b)
+        if made != want:
+            raise RuntimeError(f'PV-RCNN llal scan of {n_b} batches launched {made}, '
+                               f'expected {want}')
+        scans.append({'pool': len(self.unlabelled_loader.dataset), 'batches': n_b, 'ms': ms,
+                      'made': made, **calls_vs_plain(rec, 'PV-RCNN llal scan')})
+        if not first_scan:
+            first_scan.update(k2=rec['k2'][:n], mask=rec['mask'][0], fix=rec['fix'][0],
+                              fps=rec['fps'][0])
+        return records
+
+    def make_fit(model, optimizer, dataset):
+        step = real_fit(model, optimizer, dataset)
+
+        def timed(state, batch, generator=None):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if first_fit:
+                result = step(state, batch, generator)
+            else:
+                rec, dcalls, wcalls = {}, [], []
+                with kernel_calls(rec), \
+                        recording(cuda_kernels, 'gather_gemm_dgrad', dcalls,
+                                  lambda: cuda_kernels.dgrad_launches), \
+                        recording(cuda_kernels, 'gather_gemm_wgrad', wcalls,
+                                  lambda: cuda_kernels.wgrad_launches):
+                    result = step(state, batch, generator)
+                first_fit.update(rec=rec, dcalls=dcalls, wcalls=wcalls)
+            loss = float(result[1]['loss'])
+            fits.append({'ms': (time.perf_counter() - t) * 1e3, 'loss': loss,
+                         'labelled': len(dataset)})
+            return result
+        return timed
+
+    tf32_seen = set()
+
+    def conv_tf32(module, _):
+        if isinstance(module, torch.nn.Conv2d):
+            tf32_seen.add(torch.backends.cudnn.allow_tf32)
+
+    set_random_seed(666)
+    counters(reset=True)
+    train_rt.train_one_epoch, Strategy.scan_pool = epoch, scan
+    active.make_lossnet_train_step = make_fit
+    hook = torch.nn.modules.module.register_module_forward_pre_hook(conv_tf32)
+    try:
+        t = time.perf_counter()
+        state = active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
+                                          device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        train_rt.train_one_epoch, Strategy.scan_pool = real_epoch, real_scan
+        active.make_lossnet_train_step = real_fit
+        hook.remove()
+    counts = counters()
+    if tf32_seen != {False}:
+        raise RuntimeError(f'the PV-RCNN loop\'s convolutions ran with cuDNN TF32 {tf32_seen}')
+    steps = sum(r['steps'] for r in epochs)
+    scored = sum(s['batches'] for s in scans)
+    n_fit = len(fits)
+    trained = steps + n_fit
+    _, expected = launch_delta({k: 0 for k in counts}, n_k2=n * (trained + scored),
+                               n_dgrad=(n - 1) * trained, n_wgrad=n * trained,
+                               n_mask=trained + scored, n_float=trained,
+                               n_fps=trained + scored)
+    log(f'PV-RCNN loop: {loop_s:.1f} s; cuDNN TF32 at every convolution {tf32_seen}; launches '
+        f'{counts} over {steps} train steps, {n_fit} LossNet steps and {scored} scored pool '
+        f'batches')
+    if counts != expected:
+        raise RuntimeError(f'PV-RCNN loop launches {counts}, expected {expected}')
+    # each round's fitting: LOSS_NET_TRAIN_EPOCH epochs of the labelled pool
+    # the round starts from
+    want_fit = [fit_epochs * r['steps'] for r in epochs if r['epoch'] + 1 in round_starts]
+    got_fit = [sum(1 for f in fits if f['labelled'] == lab)
+               for lab in sorted({f['labelled'] for f in fits})]
+    if len(scans) != n_rounds or got_fit != want_fit:
+        raise RuntimeError(f'{len(scans)} scans, LossNet steps by round {got_fit}, expected '
+                           f'{n_rounds} and {want_fit}')
+    for r in epochs:
+        log(f"PV-RCNN epoch {r['epoch']}: {r['steps']} steps over {r['labelled']} labelled "
+            f"frames, {r['ms']:.2f} ms/step ({bs * 1e3 / r['ms']:.2f} samples/s), loss "
+            f"{r['loss']:.4f}" + (', from the init weights with a fresh optimizer'
+                                  if r['at_init'] else ''))
+    for lab in sorted({f['labelled'] for f in fits}):
+        rows = [f for f in fits if f['labelled'] == lab]
+        log(f'PV-RCNN LossNet fitting over {lab} labelled frames: {len(rows)} steps, '
+            f"{np.mean([f['ms'] for f in rows[1:] or rows]):.2f} ms a step (synchronised; "
+            f"the first {rows[0]['ms']:.2f}), margin-ranking loss "
+            f"{[round(f['loss'], 4) for f in rows]}")
+    selections = []
+    for i, (s, e) in enumerate(zip(scans, round_starts)):
+        with open(out / 'active_labels' / f'selected_frames_epoch_{e}_rank_0.pkl', 'rb') as f:
+            selections.append(pickle.load(f)['frame_id'])
+        log(f"PV-RCNN round {i + 1} llal scan: pool {s['pool']} frames in {s['batches']} "
+            f"batches, {s['ms']:.2f} ms, {s['ms'] / s['batches']:.2f} ms per pool batch, "
+            f"{s['pool'] * 1e3 / s['ms']:.2f} scans/s (with this script's recording); "
+            f"launches per batch K2 {s['made']['gather_gemm'] // s['batches']}, K3 "
+            f"{s['made']['fps'] // s['batches']}, K1 mask {s['made']['nms_mask'] // s['batches']}; "
+            f"{summary(s)}; selected {selections[-1]}")
+
+    # ---- queries over the round-1 pool at the pretrained weights ----
+    model = state.model
+    model.load_state_dict(pretrained['weights'])
+    lab, unlab = pretrained['loaders']
+    qdir = out / 'queries'
+    qdir.mkdir()
+    random.seed(0)
+    final_nms = {}
+    for method in ('badge', 'coreset', 'montecarlo', 'bald', 'entropy', 'confidence',
+                   'random', 'llal'):
+        strat = build_strategy(method, model, lab, unlab, 0, str(qdir), cfg)
+        rec, before = {}, counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with kernel_calls(rec) if method == 'entropy' else contextlib.nullcontext():
+            sel = strat.query(cur_epoch=pre)
+        ms = (time.perf_counter() - t) * 1e3
+        f, m = PVRCNN_SCAN[method]
+        n_b = len(unlab) + (len(lab) if method == 'coreset' else 0)
+        n_k2 = n * f * n_b + (n * (len(unlab) + len(unlab.dataset)) if method == 'badge' else 0)
+        made, want = launch_delta(before, n_k2=n_k2, n_mask=m * n_b, n_fps=f * n_b)
+        if made != want:
+            raise RuntimeError(f'PV-RCNN {method} query launched {made}, expected {want}')
+        log(f'PV-RCNN {method} query over the round-1 pool ({len(unlab.dataset)} frames): '
+            f'{ms:.2f} ms, {ms / len(unlab):.2f} ms per pool batch; launches {made}; '
+            f'selected {sel}')
+        if method == 'entropy':
+            final_nms.update(rec=rec, n=len(unlab))
+        if method == 'llal' and sel != selections[0]:
+            raise RuntimeError(f'llal query {sel} differs from the loop\'s round 1 '
+                               f'{selections[0]} at the same weights and pool')
+
+    # ---- the kernels at the scans' and at a LossNet step's inputs, timed ----
+    layers = sparse_layers(model)
+    results = [time_gather_gemm(f'pvrcnn_active.gather_gemm[{lname}]', layer, f[None], rbk,
+                                scored, cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
+                                                             first_scan['k2'])]
+    (boxes, alive, thresh), _, _ = first_scan['mask']
+    results.append(time_mask('pvrcnn_active.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             scored, first_scan['fix'][2][1], 'PV-RCNN scan proposal_nms'))
+    rec = final_nms['rec']
+    finals = [i for i, c in enumerate(rec['mask']) if i % 2 == 1]
+    most = max(finals, key=lambda i: int(rec['mask'][i][0][1].sum()))
+    (boxes, alive, thresh), _, _ = rec['mask'][most]
+    log(f'pvrcnn_active.nms_mask[nms]: the entropy query\'s final NMS at pool batch '
+        f'{most // 2} ({int(alive.sum())} live boxes)')
+    results.append(time_mask('pvrcnn_active.nms_mask[nms]', boxes, alive, thresh,
+                             final_nms['n'], rec['fix'][most][2][1], 'PV-RCNN scan nms'))
+    (points, valid, k), _, _ = first_scan['fps']
+    results.append(time_fps('pvrcnn_active.fps', points, valid, k, scored))
+    fit_rec = first_fit['rec']
+    results += [time_gather_gemm(f'pvrcnn_llal.gather_gemm[{lname}]', layer, f[None], rbk,
+                                 n_fit, cdt=f.dtype)
+                for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
+                                                              fit_rec['k2'])]
+    results += [time_dgrad(f'pvrcnn_llal.gather_gemm_dgrad[{lname}]', args, n_fit)
+                for lname, (args, _, _) in zip(SPARSE_LAYERS[1:][::-1], first_fit['dcalls'])]
+    results += [time_wgrad(f'pvrcnn_llal.gather_gemm_wgrad[{lname}]', args, n_fit)
+                for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], first_fit['wcalls'])]
+    (boxes, alive, thresh), _, _ = fit_rec['mask'][0]
+    results.append(time_mask('pvrcnn_llal.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             n_fit, fit_rec['fix'][0][2][1], 'PV-RCNN LossNet step'))
+    (a_, b_), _, _ = fit_rec['float'][0]
+    results.append(time_overlap('pvrcnn_llal.overlap_bev[roi_targets]', a_, b_, n_fit,
+                                'PV-RCNN LossNet step roi_targets'))
+    (points, valid, k), _, _ = fit_rec['fps'][0]
+    results.append(time_fps('pvrcnn_llal.fps', points, valid, k, n_fit))
+    first_scan.clear()
+    first_fit.clear()
+    final_nms.clear()
+
+    # ---- a reduced f32 scan and LossNet step, card against CPU (no
+    # Dropout, one RoI sample drawn on the CPU) ----
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
+                                                      init_train_state,
+                                                      prepare_device_batch)
+    small = reduced_cfg(pvrcnn_al_cfg('llal'))
+    small.DATA_CONFIG.NUM_SCENES = 9
+    small.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    tols = dict.fromkeys(tuple(ACTIVE_TOL) + ('loss_predictions',), PVRCNN_REDUCED_TOL)
+    recs, steps_out, targets = [], [], None
+    for d in (torch.device('cpu'), dev):
+        lset, _, ls, us, _, _ = active_loaders(small, 2)
+        m = seeded_pvrcnn(small, lset, d, seed=1)
+        recs.append(build_strategy('llal', m, ls, us, 0, str(qdir), small).scan_pool())
+        optimizer, schedule = build_optimizer(small.OPTIMIZATION, 8, m.parameters())
+        batch = host_to_device_batch(first_batch(ls), d)
+        if targets is None:
+            targets = common_targets(m, prepare_device_batch(
+                batch, lset.voxel_cfg, lset.grid_size, lset.point_cloud_range,
+                lset.voxel_size), seed=2)
+        given = {k: v.to(d) for k, v in targets.items()}
+        before = {k: v.cpu().clone() for k, v in m.state_dict().items()}
+        _, mt = active.make_lossnet_train_step(m, optimizer, lset)(
+            init_train_state(m, optimizer), {**batch, 'rois': given['rois'],
+                                             'roi_targets_dict': given})
+        steps_out.append((float(mt['loss']), {k: v.cpu() for k, v in m.state_dict().items()},
+                          before, schedule(0)))
+    signal_errs(recs[1], recs[0], tols, 'reduced f32 PV-RCNN scan, card vs CPU')
+    (lc, sc, bc, lr), (lg, sg, _, _) = steps_out
+    decay = 1 - lr * float(small.OPTIMIZATION.WEIGHT_DECAY)
+    params = {k for k, _ in m.named_parameters()}
+    worst, loose = 0.0, 0
+    for k, v in sc.items():
+        if not v.is_floating_point():
+            continue
+        diff = (sg[k] - v).abs().max().item()
+        worst = max(worst, diff)
+        if k in params and '.loss_net.' not in k:
+            if not (torch.equal(sg[k], v) and torch.allclose(v, bc[k] * decay, rtol=1e-6,
+                                                             atol=0)):
+                raise RuntimeError(f'reduced f32 LossNet step: {k} moved by more than the '
+                                   'weight decay, or otherwise on the card')
+        elif diff > 1e-5:
+            # a LossNet weight whose two gradients differ in sign at Adam's
+            # first step (about lr·sign(g)) lies up to 2 lr apart
+            if not (k in params and diff <= 2 * lr + 1e-7):
+                raise RuntimeError(f'reduced f32 LossNet step: {k} card vs CPU {diff:.3e}')
+            loose += 1
+    log(f'reduced f32 PV-RCNN LossNet step card vs CPU: loss {lg:.6f} / {lc:.6f}; outside the '
+        f'LossNet every parameter decayed alone, equal bits; the LossNet and every BN '
+        f'statistic within {worst:.2e} ({loose} LossNet tensors beyond 1e-5, within 2 lr)')
+    if not abs(lg - lc) <= 1e-4 * abs(lc) + 1e-6:
+        raise RuntimeError(f'reduced f32 LossNet step: loss {lg} card vs {lc} CPU')
+    shutil.rmtree(out)
+    torch.backends.cudnn.allow_tf32 = False
+    return results
+
+
+def drive_pvrcnn_crb(dev):
+    """CRB on PV-RCNN (``pvrcnn_al_cfg('crb')``, full width, batch 4, bf16
+    as the file sets it), from ``flax_init``: counters to 0, the loop (2
+    rounds), counters read (per train step as ``drive_pvrcnn_active``; per
+    MC-scored pool batch one forward, whose RoI head runs the 5 rounds: 12
+    K2, 1 K3, 2 K1 masks; per stage-2 frame a batch-1 training forward: 12
+    K2, 1 K3, 1 K1 mask at the TRAIN proposals, 1 K1 float in the proposal
+    targets); every call of the MC scans and of stage 2 against its plain
+    version; every buffer and parameter equal before and after each query,
+    the training flags and ``requires_grad`` restored; stage times.  Then,
+    over the round-1 pool at seeded weights with K2's f32 route (bit-equal
+    to its plain version, so that the two paths must agree), the query on
+    the kernel path against the plain path, stage 2 from one RoI sample a
+    frame (``given_targets``): stage-1 records equal, the K1·N frames equal, embeddings within
+    CRB_EMB_TOL of their norm, picks equal; GPDB's device form against its
+    host oracle; the kernels timed
+    at the MC scan's and stage 2's inputs (``pvrcnn_crb.``,
+    ``pvrcnn_crb_grad.``); last a reduced f32 query card vs CPU.  Returns
+    the kernels' JSON entries."""
+    import logging
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.query_strategies.crb_sampling import CRBSampling
+    from crb_active_3ddet_torch.query_strategies.strategy import Strategy
+    from crb_active_3ddet_torch.runtime import active
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    from crb_active_3ddet_torch.utils.common import set_random_seed
+    cfg = pvrcnn_al_cfg('crb')
+    a = cfg.ACTIVE_TRAIN
+    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
+    k1n = int(a.ACTIVE_CONFIG.K1 * n_sel)
+    n = len(SPARSE_LAYERS)
+    log(f'==== PV-RCNN CRB: {PVRCNN_CFG} with {CRB_CFG}\'s ACTIVE_TRAIN, batch {bs}, '
+        f'{int(a.TOTAL_BUDGET_NUMS) // n_sel} rounds of {n_sel}, K1 {a.ACTIVE_CONFIG.K1}, '
+        f'K2 {a.ACTIVE_CONFIG.K2}, SAMPLING_ROUND {cfg.MODEL.ROI_HEAD.SAMPLING_ROUND} ====')
+    torch.backends.cudnn.allow_tf32 = True
+    logger = logging.getLogger('chip_smoke.pvrcnn_crb')
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_pvrcnn_crb_'))
+    (out / 'ckpt').mkdir()
+    scans, grads, queries, pretrained, steps = [], [], [], {}, [0]
+    first_scan, first_grad = {}, {}
+    real_scan, real_grads, real_query = (Strategy.scan_pool, CRBSampling.grad_embeddings,
+                                         CRBSampling.query)
+    real_epoch = train_rt.train_one_epoch
+
+    def epoch(state, step, loader, *args, **kw):
+        steps[0] += len(loader)
+        return real_epoch(state, step, loader, *args, **kw)
+
+    def scan(self, *args, **kw):
+        if not pretrained:
+            pretrained.update(loaders=(self.labelled_loader, self.unlabelled_loader))
+        rec, before = {}, counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with kernel_calls(rec):
+            records = real_scan(self, *args, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        n_b = len(self.unlabelled_loader)
+        f, m = PVRCNN_SCAN['crb']
+        made, want = launch_delta(before, n_k2=n * f * n_b, n_mask=m * n_b, n_fps=f * n_b)
+        if made != want:
+            raise RuntimeError(f'PV-RCNN MC scan of {n_b} batches launched {made}, '
+                               f'expected {want}')
+        scans.append({'batches': n_b, 'ms': ms, 'made': made,
+                      'alive': [int(c[0][1].sum()) for c in rec['mask'][1::2]],
+                      **calls_vs_plain(rec, 'PV-RCNN MC scan')})
+        if not first_scan:
+            first_scan.update(k2=rec['k2'][:n], masks=rec['mask'][:2], fix=rec['fix'][:2],
+                              fps=rec['fps'][0])
+        return records
+
+    def grad_embeddings(self, ids, targets=None):
+        rec, before = {}, counters()
+        flags = [m.training for m in self.model.modules()]
+        wanted = [p.requires_grad for p in self.model.parameters()]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with kernel_calls(rec):
+            emb = real_grads(self, ids, targets)
+        ms = (time.perf_counter() - t) * 1e3
+        if flags != [m.training for m in self.model.modules()] or \
+                wanted != [p.requires_grad for p in self.model.parameters()]:
+            raise RuntimeError('PV-RCNN stage 2 left other training flags or requires_grad')
+        made, want = launch_delta(before, n_k2=n * len(ids), n_mask=len(ids),
+                                  n_float=len(ids), n_fps=len(ids))
+        if made != want:
+            raise RuntimeError(f'PV-RCNN stage 2 over {len(ids)} frames launched {made}, '
+                               f'expected {want}')
+        grads.append({'frames': len(ids), 'ms': ms, 'shape': emb.shape,
+                      'finite': bool(np.isfinite(emb).all()),
+                      **calls_vs_plain(rec, 'PV-RCNN stage 2')})
+        if not first_grad:
+            first_grad.update(k2=rec['k2'][:n], mask=rec['mask'][0], fix=rec['fix'][0],
+                              float=rec['float'][0], fps=rec['fps'][0])
+        return emb
+
+    def query(self, *args, **kw):
+        before = {k: v.clone() for k, v in self.model.state_dict().items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        sel = real_query(self, *args, **kw)
+        ms = (time.perf_counter() - t) * 1e3
+        after = self.model.state_dict()
+        if not all(torch.equal(after[k], v) for k, v in before.items()):
+            raise RuntimeError('the PV-RCNN CRB query changed the model\'s buffers or '
+                               'parameters')
+        queries.append({'ms': ms, 'times': dict(self.stage_times), 'sel': list(sel),
+                        'batches': len(self.unlabelled_loader),
+                        'pool': len(self.unlabelled_loader.dataset)})
+        return sel
+
+    set_random_seed(666)
+    counters(reset=True)
+    train_rt.train_one_epoch, Strategy.scan_pool = epoch, scan
+    CRBSampling.grad_embeddings, CRBSampling.query = grad_embeddings, query
+    try:
+        t = time.perf_counter()
+        active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
+                                  device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    finally:
+        train_rt.train_one_epoch, Strategy.scan_pool = real_epoch, real_scan
+        CRBSampling.grad_embeddings, CRBSampling.query = real_grads, real_query
+    counts = counters()
+    scored = sum(r['batches'] for r in scans)
+    frames = sum(g['frames'] for g in grads)
+    _, expected = launch_delta({k: 0 for k in counts}, n_k2=n * (steps[0] + scored + frames),
+                               n_dgrad=(n - 1) * steps[0], n_wgrad=n * steps[0],
+                               n_mask=steps[0] + 2 * scored + frames,
+                               n_float=steps[0] + frames, n_fps=steps[0] + scored + frames)
+    log(f'PV-RCNN CRB loop: {loop_s:.1f} s; launches {counts} over {steps[0]} train steps, '
+        f'{scored} MC-scored pool batches and {frames} stage-2 frames')
+    if counts != expected:
+        raise RuntimeError(f'PV-RCNN CRB loop launches {counts}, expected {expected}')
+    if len(queries) != len(scans) or len(grads) != len(scans) or \
+            not all(g['finite'] and g['frames'] == k1n for g in grads):
+        raise RuntimeError(f'PV-RCNN CRB loop: {len(scans)} scans, {len(grads)} stage 2s, '
+                           f'{len(queries)} queries')
+    for i, (q, s, g) in enumerate(zip(queries, scans, grads)):
+        tm = q['times']
+        log(f"PV-RCNN CRB round {i + 1} query: pool {q['pool']} frames in {q['batches']} "
+            f"batches, {q['ms']:.2f} ms wall; stage 1 {tm['crb_stage1_s'] * 1e3:.2f} ms (the "
+            f"scan alone {s['ms'] / s['batches']:.2f} ms per pool batch with this script's "
+            f"recording; launches per batch {({k: v // s['batches'] for k, v in s['made'].items()})}; "
+            f"final-NMS boxes alive {s['alive']}; {summary(s)}), stage 2 "
+            f"{tm['crb_stage2_s'] * 1e3:.2f} ms ({g['frames']} frames, embeddings {g['shape']}, "
+            f"{g['ms'] / g['frames']:.2f} ms a frame; {summary(g)}), stage 3 "
+            f"{tm['crb_stage3_s'] * 1e3:.2f} ms; every buffer and parameter equal before and "
+            f"after; selected {q['sel']}")
+
+    # ---- kernel path against plain path at seeded weights, K2 on its f32
+    # route ----
+    lab, unlab = pretrained['loaders']
+    qdir = out / 'queries'
+    qdir.mkdir()
+    f32 = pvrcnn_al_cfg('crb')
+    f32.MODEL.BACKBONE_3D.USE_BF16 = f32.MODEL.BACKBONE_2D.USE_BF16 = False
+    model = seeded_pvrcnn(f32, lab.dataset, dev, seed=0, cls_bias=CLS_BIAS)
+    # stage 2 from one RoI sample a frame, drawn on the kernel path: a
+    # rounding-sized difference reorders the TRAIN proposals' near-tied
+    # scores, and the sampler's draws then pick other RoIs (PERF.md §6)
+    cache = {}
+    strat = build_strategy('crb', model, lab, unlab, 0, str(qdir), f32)
+    given_targets(strat, model, cache)
+    t = time.perf_counter()
+    sel_k, got = spy_query(strat)
+    kernel_ms = (time.perf_counter() - t) * 1e3
+    plain_strat = build_strategy('crb', model, lab, unlab, 0, str(qdir), f32)
+    given_targets(plain_strat, model, cache)
+    with plain_versions():
+        sel_p, ref = spy_query(plain_strat)
+    signal_errs(got['records'], ref['records'],
+                dict.fromkeys(('label_entropy', 'pred_density', 'batch_rcnn_cls',
+                               'batch_rcnn_reg', 'mean_points', 'variance_points'), 0.0),
+                'PV-RCNN stage 1, kernel path vs plain')
+    n_tied, cut = stage1_tie(ref['records'], k1n)
+    log(f'PV-RCNN stage 1: boxes kept per frame '
+        f"{[int(r['pred_valid'].sum()) for r in ref['records'].values()]}; {n_tied} frames "
+        f'tied at the cut (label entropy {cut:.6f}); K1 frames equal on the two paths: '
+        f'{got["k1"] == ref["k1"]}')
+    if got['k1'] != ref['k1']:
+        raise RuntimeError('PV-RCNN stage 1 keeps other frames on the plain path')
+    norm = np.linalg.norm(ref['emb'], axis=1)
+    emb_err = np.abs(got['emb'] - ref['emb']).max(axis=1) / np.maximum(norm, 1e-30)
+    tm = strat.stage_times
+    log(f'PV-RCNN stage 2 from one RoI sample a frame: embeddings {ref["emb"].shape}, row '
+        f'norms {np.round(norm, 4).tolist()}, max |diff| over the row norm kernel vs plain '
+        f'{emb_err.max():.3e} (tol {CRB_EMB_TOL:.0e}); seeded query {kernel_ms:.2f} ms (the '
+        f'samples drawn in it), stage 1 {tm["crb_stage1_s"] * 1e3:.2f}, stage 2 '
+        f'{tm["crb_stage2_s"] * 1e3:.2f}, stage 3 {tm["crb_stage3_s"] * 1e3:.2f}; selected '
+        f'{sel_k} on the kernel path, {sel_p} on the plain path')
+    if not (emb_err <= CRB_EMB_TOL).all() or not (norm > 0).all():
+        raise RuntimeError('PV-RCNN stage 2 embeddings differ kernel path vs plain')
+    if sel_k != sel_p:
+        raise RuntimeError('PV-RCNN seeded query: the kernel path picks other frames')
+    scored_classes = set(check_gpdb_forms(strat, got['records'], len(cfg.CLASS_NAMES), n_sel,
+                                          'PV-RCNN'))
+
+    # ---- the kernels at the loop's MC scan and stage-2 inputs, timed ----
+    layers = sparse_layers(model)
+    results = [time_gather_gemm(f'pvrcnn_crb.gather_gemm[{lname}]', layer, f[None], rbk,
+                                scored, cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
+                                                             first_scan['k2'])]
+    for tag, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), first_scan['masks'], first_scan['fix']):
+        results.append(time_mask(f'pvrcnn_crb.nms_mask[{tag}]', boxes, alive, thresh, scored,
+                                 fix[2][1], f'PV-RCNN MC scan {tag}'))
+    (points, valid, k), _, _ = first_scan['fps']
+    results.append(time_fps('pvrcnn_crb.fps', points, valid, k, scored))
+    results += [time_gather_gemm(f'pvrcnn_crb_grad.gather_gemm[{lname}]', layer, f[None], rbk,
+                                 frames, cdt=f.dtype)
+                for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
+                                                              first_grad['k2'])]
+    (boxes, alive, thresh), _, _ = first_grad['mask']
+    results.append(time_mask('pvrcnn_crb_grad.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             frames, first_grad['fix'][2][1], 'PV-RCNN stage 2 proposal_nms'))
+    (a_, b_), _, _ = first_grad['float']
+    results.append(time_overlap('pvrcnn_crb_grad.overlap_bev[roi_targets]', a_, b_, frames,
+                                'PV-RCNN stage 2 roi_targets'))
+    (points, valid, k), _, _ = first_grad['fps']
+    results.append(time_fps('pvrcnn_crb_grad.fps', points, valid, k, frames))
+    first_scan.clear()
+    first_grad.clear()
+
+    # ---- a reduced f32 CRB query, card against CPU: no Dropout, and each
+    # stage-2 frame's RoI sample drawn on the CPU ----
+    small = reduced_cfg(pvrcnn_al_cfg('crb'))
+    small.DATA_CONFIG.NUM_SCENES = 9
+    small.ACTIVE_TRAIN.SELECT_NUMS = 2
+    small.MODEL.ROI_HEAD.DP_RATIO = 0.0
+    runs, cache, cpu_model = [], {}, None
+    for d in (torch.device('cpu'), dev):   # the CPU first: it draws the samples
+        lset, _, ls, us, _, _ = active_loaders(small, 2)
+        m = seeded_pvrcnn(small, lset, d, seed=1)
+        if cpu_model is None:
+            cpu_model = m
+        s = build_strategy('crb', m, ls, us, 0, str(qdir), small)
+        given_targets(s, cpu_model, cache)
+        runs.append(spy_query(s))
+    (cpu_sel, cpu), (card_sel, card) = runs
+    norm = np.linalg.norm(cpu['emb'], axis=1)
+    err = (np.abs(card['emb'] - cpu['emb']).max(axis=1) / np.maximum(norm, 1e-30)).max()
+    log(f'reduced f32 PV-RCNN crb query: card {card_sel}, CPU {cpu_sel}; K1 frames equal '
+        f'{card["k1"] == cpu["k1"]}; embeddings max |diff| over the row norm {err:.3e} (tol '
+        f'{CRB_EMB_TOL:.0e}); boxes kept per frame '
+        f"{[int(r['pred_valid'].sum()) for r in cpu['records'].values()]}")
+    if card_sel != cpu_sel or card['k1'] != cpu['k1'] or not err <= CRB_EMB_TOL:
+        raise RuntimeError('reduced f32 PV-RCNN crb query: the card differs from the CPU')
+    scored_classes |= set(check_gpdb_forms(strat, card['records'], len(small.CLASS_NAMES),
+                                           len(card['records']), 'reduced PV-RCNN'))
+    if not scored_classes:
+        raise RuntimeError('PV-RCNN GPDB: the two forms were held over no class')
     shutil.rmtree(out)
     torch.backends.cudnn.allow_tf32 = False
     return results
@@ -2979,16 +3711,21 @@ def main():
     phase('reduced PV-RCNN train', check_reduced_train, dev, PVRCNN_CFG, box_std=0.001)
     phase('reduced PointPillars train', check_reduced_train, dev, PILLAR_CFG)
     results += phase('SECOND AL loop', drive_active, dev)
-    results += phase('SECOND CRB', drive_crb, dev)
+    # one round (the PV-RCNN and PointPillars CRB phases run the same query),
+    # to keep the script within its time
+    results += phase('SECOND CRB', drive_crb, dev, rounds=1)
+    results += phase('PV-RCNN AL loop', drive_pvrcnn_active, dev)
+    results += phase('PV-RCNN CRB', drive_pvrcnn_crb, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
-    # file with METHOD crb set in code
+    # file with METHOD crb set in code; one round each (SECOND's phases run
+    # the same strategies over two), to keep the script within its time
     results += phase('PointPillars AL loop', drive_active, dev, PILLAR_ACTIVE_CFG,
-                     'pointpillar_active', ())
+                     'pointpillar_active', (), rounds=1)
     # (its Car prior is degenerate at the seeded and the reduced weights:
     # the boxes' densities' integer bounds meet, which the host oracle cannot
     # score)
     results += phase('PointPillars CRB', drive_crb, dev, PILLAR_ACTIVE_CFG, 'pointpillar_crb',
-                     (), every_class=False)
+                     (), every_class=False, rounds=1)
     with tempfile.TemporaryDirectory() as gate_dir:
         phase('gate 1', gate_1, dev)
         phase('gate 2', gate_2, dev, gate_dir)

@@ -149,12 +149,12 @@ class VoxelBackBone8x(nn.Module):
         cap = feats.shape[1]
         fracs = tuple(cfg.get('VOXEL_CAPS', (1.0, 1.0, 1.0, 1.0)))
         caps = [max(16, int(cap * f) if f <= 1.0 else int(f)) for f in fracs]
-        backward = torch.is_grad_enabled()
+        backward = torch.is_grad_enabled() and any(p.requires_grad for p in self.parameters())
 
         def for_backward(rbk, feats):
             """The flat rulebook's inverse (for the dgrad) and its transpose
             (for the wgrad), once a rulebook, for the backward (nothing
-            without a gradient)."""
+            without a gradient, or when no weight here takes one)."""
             if not backward:
                 return None, None
             return (rb.inverse_rulebook(rbk, feats.shape[0] * feats.shape[1]),

@@ -35,6 +35,8 @@ from ..roi_heads.pvrcnn_head import build_roi_head
 
 _PORTED = {'PointPillar', 'SECONDNet', 'PVRCNN'}
 _DRAWS = ('roi_head',)          # modules whose training forward draws
+# the modules whose outputs the dense head reads
+_DENSE_PATH = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d', 'dense_head')
 
 
 class Detector3D(nn.Module):
@@ -81,13 +83,18 @@ class Detector3D(nn.Module):
     def device(self):
         return self.dense_head.conv_cls.weight.device
 
-    def forward(self, batch_dict, generator=None):
+    def forward(self, batch_dict, generator=None, dense_only=False):
         """``generator`` (a ``torch.Generator`` on the model's device) feeds
         the modules that draw in training; such a module raises without
-        one.  The f32 layers compute in f32 (``full_f32``)."""
+        one, and PV-RCNN's RoI head in eval turns its Dropout live with it.
+        ``dense_only``: run only the modules the dense head's outputs read
+        (no point branch, no RoI head), as XLA prunes the JAX model to them
+        where only those outputs are used.  The f32 layers compute in f32
+        (``full_f32``)."""
         batch_dict = dict(batch_dict)       # never mutate the caller's dict
+        names = [n for n in self.module_topology if not dense_only or n in _DENSE_PATH]
         with common.full_f32():
-            for name in self.module_topology:
+            for name in names:
                 module = getattr(self, name)
                 batch_dict = module(batch_dict, generator) if name in _DRAWS \
                     else module(batch_dict)
@@ -166,7 +173,8 @@ def flax_init(model, generator: torch.Generator):
     kernel variance_scaling(1, fan_out, normal), a plain normal of std
     1/√(K·Cout); zero biases; BatchNorm scale 1, bias 0, mean 0, var 1; the
     anchor head's cls bias at the focal prior and its box kernel normal(0,
-    0.001), as the RoI head's two output kernels.  Fan-in as Flax counts it:
+    0.001), as the RoI head's two output kernels (llal's LossNet: its convs
+    and linear map lecun-normal, biases 0).  Fan-in as Flax counts it:
     a ConvTranspose2d weight (in, out, kh, kw) has in·kh·kw, every other
     weight (out, ...) the product of its trailing dims.  The draws differ
     from JAX's (another generator); their distribution is the same."""

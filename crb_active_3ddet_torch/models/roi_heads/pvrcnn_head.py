@@ -10,10 +10,16 @@ Module names and layouts are OpenPCDet's (``roi_grid_pool_layer``,
 stacks with Dropout entries), with one difference kept from the JAX package:
 the shared FC reads the pooled grid flattened grid-major, (B·R, G³·C), where
 OpenPCDet flattens channel-major.  The training forward draws the RoI
-sample and the Dropout masks from the ``torch.Generator`` it is given.  The
-MC-dropout rounds, the LossNet taps and the shared-feature export of the
-pool scorers call ``tower`` again and are not ported yet; a training config
-with a LossNet raises.
+sample and the Dropout masks from the ``torch.Generator`` it is given.
+
+An eval forward given a generator plays the JAX head's ``has_rng('dropout')``:
+the tower's Dropout entries go live (drawing from the generator; the
+BatchNorms stay in eval mode) and, with ``SAMPLING_ROUND`` > 1, the tower
+runs that many times on the one pooled grid, so that ``rcnn_cls`` and
+``rcnn_reg`` come out stacked, (S, B·R, ·).  The decoded predictions, the
+shared features and the LossNet read the first round, as in the JAX head
+(JAX ``pvrcnn_head.py:150-176``); without a generator the tower runs once,
+deterministic.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from torch import nn
 from ...utils import common
 from ..backbones_3d.pfe import StackSAModuleMSG, pointwise_stack, run_pointwise
 from . import roi_head_template as rht
+from .loss_net import LossNet
 
 
 def get_dense_grid_points(rois, grid_size: int):
@@ -72,6 +79,14 @@ class PVRCNNHead(nn.Module):
             out_channels=rht._CODER.code_size * num_class)
         nn.init.normal_(self.cls_layers[-1].weight, std=0.001)
         nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
+        self.mc_rounds = int(model_cfg.get('SAMPLING_ROUND', 0) or 0)
+        if model_cfg.get('LOSS_NET', None):
+            self.loss_net = LossNet(
+                shared, model_cfg['NMS_CONFIG']['TEST']['NMS_POST_MAXSIZE'])
+
+    def _dropouts(self):
+        return [m for stack in (self.shared_fc_layer, self.cls_layers, self.reg_layers)
+                for m in stack if isinstance(m, nn.Dropout)]
 
     def roi_grid_pool(self, batch_dict):
         """Keypoint features, weighted by their foreground score, pooled at
@@ -103,14 +118,14 @@ class PVRCNNHead(nn.Module):
 
     def forward(self, batch_dict, generator=None):
         """Eval: proposals (NMS_CONFIG.TEST) unless ``rois`` are given, the
-        tower, the decoded boxes.  Training: proposals (NMS_CONFIG.TRAIN),
-        the targets sampled with ``generator`` and the tower on the sampled
-        RoIs with live Dropout; or, given ``rois`` and their
-        ``roi_targets_dict``, the tower on those.  ``roi_targets`` then
-        carries the targets with rcnn_cls and rcnn_reg."""
+        tower, the decoded boxes; given a generator, live Dropout and the MC
+        rounds (see the module's docstring).  Training: proposals
+        (NMS_CONFIG.TRAIN), the targets sampled with ``generator`` and the
+        tower on the sampled RoIs with live Dropout; or, given ``rois`` and
+        their ``roi_targets_dict``, the tower on those.  ``roi_targets`` then
+        carries the targets with rcnn_cls and rcnn_reg.  With a LossNet:
+        ``loss_predictions`` (eval) or ``loss_predictions_train``, (B,)."""
         cfg = self.model_cfg
-        if self.training and cfg.get('LOSS_NET', None):
-            raise NotImplementedError('the LossNet of the llal strategy is not ported yet')
         if 'rois' not in batch_dict:
             batch_dict = rht.proposal_layer(
                 batch_dict, cfg['NMS_CONFIG']['TRAIN' if self.training else 'TEST'])
@@ -124,13 +139,38 @@ class PVRCNNHead(nn.Module):
                                                      device=targets['rois'].device)
         elif self.training:
             targets = batch_dict['roi_targets_dict']
-        _, rcnn_cls, rcnn_reg, _ = self.tower(self.roi_grid_pool(batch_dict), generator)
-        batch_dict['rcnn_cls'] = rcnn_cls
-        batch_dict['rcnn_reg'] = rcnn_reg
+        b, r = batch_dict['rois'].shape[:2]
+        pooled = self.roi_grid_pool(batch_dict)
+        live = not self.training and generator is not None
+        dropouts = self._dropouts() if live else []
+        for m in dropouts:                  # only the Dropout entries go live
+            m.train()
+        try:
+            shared, rcnn_cls, rcnn_reg, latents = self.tower(pooled, generator)
+            rounds = [(rcnn_cls, rcnn_reg)]
+            if live and self.mc_rounds > 1:
+                rounds += [self.tower(pooled, generator)[1:3]
+                           for _ in range(self.mc_rounds - 1)]
+        finally:
+            for m in dropouts:
+                m.eval()
+        if hasattr(self, 'loss_net'):
+            batch_dict['loss_predictions_train' if self.training
+                       else 'loss_predictions'] = self.loss_net(latents, b)
         if self.training:
+            batch_dict['rcnn_cls'] = rcnn_cls
+            batch_dict['rcnn_reg'] = rcnn_reg
             batch_dict['roi_targets'] = {**targets, 'rcnn_cls': rcnn_cls,
                                          'rcnn_reg': rcnn_reg}
             return batch_dict
+        if len(rounds) > 1:
+            batch_dict['rcnn_cls'] = torch.stack([c for c, _ in rounds])   # (S, B·R, 1)
+            batch_dict['rcnn_reg'] = torch.stack([g for _, g in rounds])
+        else:
+            batch_dict['rcnn_cls'] = rcnn_cls
+            batch_dict['rcnn_reg'] = rcnn_reg
+        if cfg.get('EMBEDDING_REQUIRED', False):
+            batch_dict['shared_features'] = shared.reshape(b, r, -1)
         batch_cls, batch_box = rht.generate_predicted_boxes(
             batch_dict['rois'], rcnn_cls, rcnn_reg)
         batch_dict['batch_cls_preds'] = batch_cls

@@ -287,3 +287,19 @@ def generate_predicted_boxes(rois, cls_preds, box_preds):
     b, r = rois.shape[:2]
     boxes = _to_global(rois.reshape(-1, 7), box_preds.reshape(-1, 7))
     return cls_preds.reshape(b, r, -1), boxes.reshape(b, r, 7)
+
+
+# ---- CRB stage 2's losses against hypothetical targets (JAX
+# roi_head_template.py:308-316; reference crb_sampling.py:194-196) ----
+
+def get_box_cls_layer_loss_hyp(rcnn_cls, hyp_labels):
+    """Mean BCE of the logits against soft labels (the stage-1 MC-mean
+    scores), both flattened."""
+    return loss_utils.binary_cross_entropy_with_logits(
+        rcnn_cls.reshape(-1), hyp_labels.reshape(-1)).mean()
+
+
+def get_box_reg_layer_loss_hyp(rcnn_reg, hyp_targets):
+    """Unreduced smooth-L1 (beta 1/9) of the flattened encoded residuals
+    against hypothetical ones."""
+    return loss_utils.smooth_l1_loss(rcnn_reg.reshape(-1) - hyp_targets.reshape(-1))

@@ -5,28 +5,38 @@ CRBSampling`` (reference ``pcdet/query_strategies/crb_sampling.py``):
   Stage 1 (JAX ``:58-78``), concise label sampling: the MC-dropout scan with
     the same signal set; each frame's label-histogram entropy; the top K1·N
     frames, ties in reverse pool order (``sorted`` then ``[::-1]``).
-  Stage 2 (``:90-164``), representative prototypes: one gradient embedding a
-    frame, the gradient of the anchor head's focal cls loss against the
-    frame's own argmax labels (the 0..C−1 quirk) with respect to
-    ``dense_head.conv_cls.weight``, flattened in the JAX kernel's
-    (1, 1, Cin, A·C) order; then k-means++ (``kmeans_pp.py``) down to K2·N,
-    de-duplicated and backfilled from the stage-1 ranking.
+  Stage 2 (``:80-164``, ``:314-408``), representative prototypes: one
+    gradient embedding a frame, then k-means++ (``kmeans_pp.py``) down to
+    K2·N, de-duplicated and backfilled from the stage-1 ranking.  On a model
+    with a RoI head (PV-RCNN) the gradient at ``roi_head.shared_fc_1`` (the
+    second shared layer, Flax's name; flattened in the Flax kernel's (in,
+    out) order) of the hypothetical cls loss plus the mean of the
+    hypothetical reg loss against the frame's stage-1 MC means
+    ``batch_rcnn_cls`` / ``batch_rcnn_reg``; the training RoIs are not the
+    TEST RoIs those came from, and are paired with them by index, sliced to
+    the shorter (JAX ``:368-385``).  On a one-stage model the gradient at
+    ``dense_head.conv_cls.weight`` of the anchor head's focal cls loss
+    against the frame's own argmax labels (the 0..C−1 quirk), flattened in
+    the JAX kernel's (1, 1, Cin, A·C) order.
   Stage 3 (``:173-311``), greedy point density balancing (GPDB): a per-class
     uniform prior over the [5 %, 95 %] density support on a 400-point grid;
     greedily the frame whose per-class Gaussian KDE of the accumulated box
     densities maximises mean(1 − (2/π)·arctan(π/2·KL(uniform ‖ KDE))).
 
 Stage 2 runs each frame alone in training mode, as the JAX ``grad_fn``'s
-batch-1 ``training=True`` forward does: BatchNorm normalises with that
-frame's statistics.  The JAX package differentiates only the head's kernel,
-so XLA runs the backbone forward only; here the frame's forward runs under
-``no_grad`` and autograd takes the 1×1 ``conv_cls`` alone.  The JAX forward
-throws its updated BN statistics away (``mutable=['batch_stats']``); the
-port's BatchNorms update theirs in place, so every buffer is copied before
-and written back after, and the modules' training flags are restored.  The
-RoI head's stage 2 (``:368-385``, hypothetical targets at
-``shared_fc_1``) and the clusterings that need scikit-learn's estimators
-(``kmeans``, ``birch``, ``gmm``) come with ROADMAP Queue 1 item 12b.
+batch-1 ``training=True`` forward with live Dropout does: BatchNorm
+normalises with that frame's statistics; on a RoI head the forward reads the
+frame's ``gt_boxes`` (the proposal targets sample the RoIs) and draws from a
+generator seeded ``GRAD_SEED``.  The JAX package differentiates only the
+one kernel, so XLA runs the rest forward only; here every other parameter
+is held out of autograd during the frame's forward (the one-stage head's
+conv is recomputed from the BEV features).  The JAX forward throws its
+updated BN statistics away (``mutable=['batch_stats']``); the port's
+BatchNorms update theirs in place, so every buffer is copied before and
+written back after, and the modules' training flags and the parameters'
+``requires_grad`` are restored.  The clusterings that need scikit-learn's
+estimators (``kmeans``, ``birch``, ``gmm``) come with ROADMAP Queue 1 item
+12c.
 """
 
 from __future__ import annotations
@@ -39,13 +49,13 @@ import scipy.stats
 import torch
 
 from ..models.dense_heads import anchor_head_single as ahs
-from ..runtime.train import host_to_device_batch, prepare_device_batch
+from ..models.roi_heads import roi_head_template as rht
 from ..utils import common
 from .kmeans_pp import kmeans_plusplus
 from .strategy import Strategy
 
 GRAD_SEED = 1          # the JAX stage 2's PRNGKey(1)
-_LATER = 'ROADMAP Queue 1 item 12b'
+_LATER = 'ROADMAP Queue 1 item 12c'
 _STAGE1_SIGNALS = ('label_entropy', 'pred_density', 'pred_labels', 'pred_valid',
                    'batch_rcnn_cls', 'batch_rcnn_reg')
 
@@ -87,8 +97,12 @@ class CRBSampling(Strategy):
         self.stage_times = {'crb_stage1_s': time.time() - t_stage1}
 
         # ---------------- Stage 2: representative prototypes -------------
+        # the RoI head's hypothetical targets: stage 1's MC means
+        targets = {fid: (r['batch_rcnn_cls'], r['batch_rcnn_reg'])
+                   for fid, r in records.items() if 'batch_rcnn_cls' in r}
         start = time.time()
-        embeddings = self.grad_embeddings(k1_frames)
+        embeddings = self.grad_embeddings(k1_frames, targets) if targets \
+            else self.grad_embeddings(k1_frames)
         n_k2 = int(n_select * self.k2)
         sel_idx = kmeans_plusplus(embeddings, n_clusters=n_k2, random_state=0)
         k2_frames = [k1_frames[i] for i in sel_idx]
@@ -111,75 +125,52 @@ class CRBSampling(Strategy):
         return out
 
     # ---- stage 2 ----------------------------------------------------------
-    def grad_chunk(self):
-        """Frames loaded and voxelized together: ``ACTIVE_TRAIN.GRAD_CHUNK``,
-        else the pool loader's batch size, else 4."""
-        return int(self.cfg.ACTIVE_TRAIN.get('GRAD_CHUNK', 0)) \
-            or getattr(getattr(self.unlabelled_loader, 'batch_sampler', None),
-                       'batch_size', None) \
-            or getattr(self.unlabelled_loader, 'batch_size', None) or 4
-
-    def grad_embeddings(self, frame_ids):
-        """(len(frame_ids), Cin·A·C) float32: each frame's gradient of the
-        focal cls loss against its argmax labels with respect to
-        ``conv_cls.weight``, from a batch-1 training-mode forward (parity:
-        the JAX ``_build_grad_fn``'s single-stage branch).  The model's
-        parameters, buffers and training flags are as before."""
+    def grad_embeddings(self, frame_ids, targets=None):
+        """(len(frame_ids), D) float32: each frame's gradient embedding from a
+        batch-1 training-mode forward (the JAX ``_build_grad_fn``): with a
+        RoI head, at ``shared_fc_1`` against ``targets`` {frame id:
+        (batch_rcnn_cls, batch_rcnn_reg)}; else at ``conv_cls`` against the
+        frame's argmax labels.  The model's parameters, buffers, training
+        flags and ``requires_grad`` are as before."""
         model = self.model
-        if hasattr(model, 'roi_head'):
-            raise NotImplementedError('stage 2 over the RoI head (hypothetical '
-                                      f'targets at shared_fc_1) comes with {_LATER}')
-        dataset = self.unlabelled_set
-        geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
-                tuple(float(x) for x in dataset.point_cloud_range),
-                tuple(float(v) for v in dataset.voxel_size))
-        chunk = self.grad_chunk()
+        two_stage = hasattr(model, 'roi_head')
+        if two_stage and targets is None:
+            raise ValueError('stage 2 over a RoI head needs the stage-1 targets')
         generator = torch.Generator(device=model.device).manual_seed(GRAD_SEED)
         flags = [(m, m.training) for m in model.modules()]
         saved = [(b, b.clone()) for b in model.buffers()]
+        wanted = [(p, p.requires_grad) for p in model.parameters()]
         grads = []
         try:
             model.train()
-            for i0 in range(0, len(frame_ids), chunk):
-                fids = frame_ids[i0:i0 + chunk]
-                batch = prepare_device_batch(
-                    host_to_device_batch(self._load_frames(fids), model.device), *geom)
-                for j in range(len(fids)):
-                    # the head's targets are not read: no gt_boxes
-                    b1 = {k: v[j:j + 1] for k, v in batch.items()
-                          if k not in ('batch_size', 'gt_boxes')}
-                    b1['batch_size'] = 1
+            if two_stage:
+                # only the gradient's own weight, Flax's shared_fc_1 (the
+                # second shared layer), enters autograd
+                weight = [m for m in model.roi_head.shared_fc_layer
+                          if isinstance(m, torch.nn.Conv1d)][1].weight
+                for p, _ in wanted:
+                    p.requires_grad_(p is weight)
+            # a one-stage head's targets are not read: no gt_boxes
+            drop = () if two_stage else ('gt_boxes',)
+            for fid, b1 in zip(frame_ids, self.single_frames(frame_ids, drop)):
+                if two_stage:
+                    with torch.enable_grad():
+                        out = model(b1, generator)
+                        grads.append(shared_fc_grad(out, weight, *targets[fid]))
+                else:
                     with torch.no_grad():
                         out = model(b1, generator)
-                    grads.append(self._cls_weight_grad(out))
+                    labels = out['cls_preds'].reshape(1, -1, self.num_class).argmax(-1)
+                    grads.append(cls_weight_grad(model.dense_head, out, labels))
         finally:
             with torch.no_grad():
                 for buf, value in saved:
                     buf.copy_(value)
             for m, training in flags:
                 m.training = training
+            for p, req in wanted:
+                p.requires_grad_(req)
         return torch.stack(grads).cpu().numpy()
-
-    def _cls_weight_grad(self, out):
-        """The focal cls loss's gradient at ``conv_cls.weight`` for one
-        frame's forward ``out``, flattened in the Flax kernel's order."""
-        head = self.model.dense_head
-        conv = head.conv_cls
-        labels = out['cls_preds'].reshape(1, -1, self.num_class).argmax(-1)
-        weight = conv.weight.detach().requires_grad_()
-        params = {'weight': weight, 'bias': conv.bias.detach()}
-        with torch.enable_grad(), common.full_f32():
-            cls = head._conv_nhwc(lambda x: torch.func.functional_call(conv, params, (x,)),
-                                  out['spatial_features_2d'])
-            loss = ahs.get_cls_layer_loss(out, head, new_data={
-                'cls_preds': cls, 'box_cls_labels': labels})
-            (grad,) = torch.autograd.grad(loss, weight)
-        return grad.permute(2, 3, 1, 0).reshape(-1)      # (A·C, Cin, 1, 1) → (1, 1, Cin, A·C)
-
-    def _load_frames(self, frame_ids):
-        ds = self.unlabelled_set
-        ids = [str(p[0]) for p in self.pairs]
-        return ds.collate_batch([ds[ids.index(str(f))] for f in frame_ids])
 
     # ---- stage 3 ----------------------------------------------------------
     def _gpdb(self, k2_frames, density_list, label_list, num_class, n_select):
@@ -325,3 +316,40 @@ class CRBSampling(Strategy):
             alive[best] = False
             selected_frames.append(fids[best])
         return selected_frames
+
+
+def shared_fc_grad(out, weight, hyp_cls, hyp_reg):
+    """A training forward's hypothetical loss (JAX ``crb_sampling.py:368-385``:
+    the cls loss plus the mean of the reg loss against the stage-1 MC means,
+    the training RoIs paired with the TEST ones by index, sliced to the
+    shorter) differentiated at the shared layer's ``weight`` (out, in, 1),
+    flattened in the Flax kernel's (in, out) order."""
+    dev = out['rcnn_cls'].device
+    pred_cls = out['rcnn_cls'].reshape(-1)
+    tgt_cls = torch.from_numpy(np.array(hyp_cls, np.float32)).to(dev).reshape(-1)
+    r = min(pred_cls.shape[0], tgt_cls.shape[0])
+    code = out['rcnn_reg'].shape[-1]
+    pred_reg = out['rcnn_reg'].reshape(-1, code)
+    tgt_reg = torch.from_numpy(np.array(hyp_reg, np.float32)).to(dev).reshape(-1, code)
+    rr = min(pred_reg.shape[0], tgt_reg.shape[0])
+    with common.full_f32():
+        loss = rht.get_box_cls_layer_loss_hyp(pred_cls[:r], tgt_cls[:r]) \
+            + rht.get_box_reg_layer_loss_hyp(pred_reg[:rr], tgt_reg[:rr]).mean()
+        (grad,) = torch.autograd.grad(loss, weight)
+    return grad[:, :, 0].t().reshape(-1)
+
+
+def cls_weight_grad(head, out, labels):
+    """The anchor head's focal cls loss against ``labels`` (1, A) at
+    ``conv_cls.weight``, for one frame's forward ``out``, flattened in the
+    Flax kernel's (1, 1, Cin, A·C) order."""
+    conv = head.conv_cls
+    weight = conv.weight.detach().requires_grad_()
+    params = {'weight': weight, 'bias': conv.bias.detach()}
+    with torch.enable_grad(), common.full_f32():
+        cls = head._conv_nhwc(lambda x: torch.func.functional_call(conv, params, (x,)),
+                              out['spatial_features_2d'])
+        loss = ahs.get_cls_layer_loss(out, head, new_data={
+            'cls_preds': cls, 'box_cls_labels': labels})
+        (grad,) = torch.autograd.grad(loss, weight)
+    return grad.permute(2, 3, 1, 0).reshape(-1)      # (A·C, Cin, 1, 1) → (1, 1, Cin, A·C)

@@ -13,17 +13,23 @@ things explicitly: no voxelisation and no forward when no requested signal
 reads the model's output (``signals=()``: random's bookkeeping pass), and no
 post-processing (the NMS) unless a requested signal reads the predictions.
 
-The MC-dropout scorer (JAX ``strategy.py:113-146,189-199``) runs its one-stage
-branch: ``num_mc`` eval forwards that draw from one ``torch.Generator`` on the
-model's device, seeded ``MC_SEED`` once a scan (the JAX scan's
-``PRNGKey(0)``; SECOND draws nothing); the MC mean, the population variance
+The MC-dropout scorer (JAX ``strategy.py:113-151,189-206``) draws from one
+``torch.Generator`` on the model's device, seeded ``MC_SEED`` once a scan
+(the JAX scan's ``PRNGKey(0)``).  Its one-stage branch runs ``num_mc`` eval
+forwards (SECOND draws nothing): the MC mean, the population variance
 (``jnp.var``) of the sigmoid scores and of the boxes, and the logit of the
-clipped mean as ``batch_cls_preds``, which the NMS then ranks.  The
-two-stage branch (MC rounds inside the RoI head), ``loss_predictions`` and
-the RoI head's ``shared_features`` embeddings come with ROADMAP Queue 1 item
-12b; on a one-stage model ``batch_rcnn_cls`` / ``batch_rcnn_reg`` are
-accepted and emit nothing, as in JAX.  There is no mesh: the sharded scorer
-is item 15.
+clipped mean as ``batch_cls_preds``, which the NMS then ranks.  On a model
+with a RoI head one forward given the generator runs the MC rounds inside
+the head (``pvrcnn_head.py``): ``mc_cls_var`` is the variance of the rounds'
+sigmoid scores, ``mc_box_var`` that of the *encoded* ``rcnn_reg``,
+``batch_rcnn_cls`` the mean of the sigmoid scores (B, R, 1) and
+``batch_rcnn_reg`` the mean of ``rcnn_reg`` (CRB's stage-2 targets), while
+the predictions that the NMS ranks are round 1's, under live Dropout.  Any
+scan given a generator (BALD's single pass too) runs the head's rounds.
+``loss_predictions`` is the LossNet's output and ``embeddings`` on a RoI
+head with ``EMBEDDING_REQUIRED`` its ``shared_features``, (B, R·C); on a
+one-stage model ``batch_rcnn_*`` and ``loss_predictions`` are accepted and
+emit nothing, as in JAX.  There is no mesh: the sharded scorer is item 15.
 """
 
 from __future__ import annotations
@@ -41,7 +47,6 @@ from ..models import post_processing as pp
 from ..runtime.train import (host_to_device_batch, points_valid_mask,
                              prepare_device_batch)
 
-_LATER = 'ROADMAP Queue 1 item 12b'
 MC_SEED = 0            # the JAX scan's PRNGKey(0)
 
 
@@ -76,8 +81,8 @@ class Strategy:
     #: signals read from the model's output: without one of them the scorer
     #: runs no forward
     _MODEL_SIGNALS = _PRED_SIGNALS | {'confidence_entropy', 'embeddings',
-                                      'mc_cls_var', 'mc_box_var'}
-    _LATER_SIGNALS = frozenset({'loss_predictions'})
+                                      'mc_cls_var', 'mc_box_var', 'batch_rcnn_cls',
+                                      'batch_rcnn_reg', 'loss_predictions'}
 
     def __init__(self, model, labelled_loader, unlabelled_loader, rank,
                  active_label_dir, cfg):
@@ -109,16 +114,11 @@ class Strategy:
 
         ``signals``: the names to emit (None: every signal).  The per-frame
         gt statistics are always included (``save_points`` reads them).
-        ``mc_dropout``: ``num_mc`` forwards (one when ``num_mc`` ≤ 1), each
-        drawing from the generator; ``mc_cls_var`` and ``mc_box_var`` come
-        only from more than one."""
-        if mc_dropout and hasattr(self.model, 'roi_head'):
-            raise NotImplementedError('the MC-dropout scorer\'s two-stage branch '
-                                      f'comes with {_LATER}')
+        ``mc_dropout``: ``num_mc`` forwards (one when ``num_mc`` ≤ 1; one on a
+        model with a RoI head, whose rounds run inside it), each drawing from
+        the generator; ``mc_cls_var`` and ``mc_box_var`` come only from more
+        than one."""
         want = None if signals is None else frozenset(signals)
-        if want is not None and want & self._LATER_SIGNALS:
-            raise NotImplementedError(f'signals {sorted(want & self._LATER_SIGNALS)} '
-                                      f'come with {_LATER}')
         model = self.model
         post_cfg = self.cfg.MODEL.POST_PROCESSING
         num_class = self.num_class
@@ -130,9 +130,6 @@ class Strategy:
         def wanted(name):
             return want is None or name in want
 
-        if wanted('embeddings') and \
-                (self.cfg.MODEL.get('ROI_HEAD', None) or {}).get('EMBEDDING_REQUIRED', False):
-            raise NotImplementedError(f'shared_features embeddings come with {_LATER}')
         need_model = want is None or bool(want & self._MODEL_SIGNALS)
         need_preds = want is None or bool(want & self._PRED_SIGNALS)
 
@@ -144,6 +141,8 @@ class Strategy:
             # MC rounds: eval forwards, each drawing from the generator
             # (JAX strategy.py:133-146)
             out = model(batch, generator)
+            if out.get('rcnn_cls') is not None and out['rcnn_cls'].ndim == 3:
+                return two_stage(out)
             cls = [torch.sigmoid(out['batch_cls_preds'])]
             box = [out['batch_box_preds']]
             for _ in range(mc_rounds - 1):
@@ -158,6 +157,21 @@ class Strategy:
             out['mc_box_var'] = ((mc_box - mc_box.sum(0) / mc_rounds) ** 2).sum(0) \
                 / mc_rounds
             out['batch_cls_preds'] = torch.logit(torch.clamp(mean, 1e-6, 1 - 1e-6))
+            return out
+
+        def two_stage(out):
+            # the head's rounds, (S, B·R, ·); the predictions stay round 1's
+            # (JAX strategy.py:113-131)
+            b = out['batch_cls_preds'].shape[0]
+            mc_cls, reg = torch.sigmoid(out['rcnn_cls']), out['rcnn_reg']
+            s = mc_cls.shape[0]
+            mean, reg_mean = mc_cls.sum(0) / s, reg.sum(0) / s
+            out['mc_cls_mean'] = mean.reshape(b, -1, 1)
+            out['mc_cls_var'] = (((mc_cls - mean) ** 2).sum(0) / s).reshape(b, -1, 1)
+            out['mc_box_var'] = (((reg - reg_mean) ** 2).sum(0) / s).reshape(
+                b, -1, reg.shape[-1])
+            out['batch_rcnn_cls'] = out['mc_cls_mean']
+            out['batch_rcnn_reg'] = reg_mean.reshape(b, -1, reg.shape[-1])
             return out
 
         @torch.no_grad()
@@ -196,9 +210,18 @@ class Strategy:
                     sig['mc_cls_var'] = out['mc_cls_var'].mean(dim=(1, 2))
                 if wanted('mc_box_var'):
                     sig['mc_box_var'] = out['mc_box_var'].mean(dim=(1, 2))
+                if 'batch_rcnn_cls' in out and wanted('batch_rcnn_cls'):
+                    sig['batch_rcnn_cls'] = out['batch_rcnn_cls']
+                    sig['batch_rcnn_reg'] = out['batch_rcnn_reg']
+            if 'loss_predictions' in out and wanted('loss_predictions'):
+                sig['loss_predictions'] = out['loss_predictions'].reshape(-1)
             if wanted('embeddings'):
-                # single-stage: mean-pooled BEV features, (B, H, W, C) → (B, C)
-                sig['embeddings'] = out['spatial_features_2d'].mean(dim=(1, 2))
+                if 'shared_features' in out:
+                    sig['embeddings'] = out['shared_features'].reshape(
+                        out['shared_features'].shape[0], -1)
+                else:
+                    # single-stage: mean-pooled BEV features, (B, H, W, C) → (B, C)
+                    sig['embeddings'] = out['spatial_features_2d'].mean(dim=(1, 2))
             sig.update(pp.gt_class_stats(points, points_valid,
                                          device_batch['gt_boxes'], num_class))
             return sig
@@ -259,6 +282,39 @@ class Strategy:
             records[fid] = {k: stacked[k][i] for k in keys}
             self.save_points(fid, records[fid])
         return records
+
+    # ---- single frames (CRB's stage 2, BADGE's pass 2) ----------------------
+    def grad_chunk(self):
+        """Frames loaded and voxelized together: ``ACTIVE_TRAIN.GRAD_CHUNK``,
+        else the pool loader's batch size, else 4."""
+        return int(self.cfg.ACTIVE_TRAIN.get('GRAD_CHUNK', 0)) \
+            or getattr(getattr(self.unlabelled_loader, 'batch_sampler', None),
+                       'batch_size', None) \
+            or getattr(self.unlabelled_loader, 'batch_size', None) or 4
+
+    def _load_frames(self, frame_ids):
+        ds = self.unlabelled_set
+        ids = [str(p[0]) for p in self.pairs]
+        return ds.collate_batch([ds[ids.index(str(f))] for f in frame_ids])
+
+    def single_frames(self, frame_ids, drop=()):
+        """Yields each frame's batch-1 model input, in order: ``grad_chunk()``
+        frames are loaded, moved and voxelized together, then sliced; the
+        keys in ``drop`` are left out."""
+        dataset, device = self.unlabelled_set, self.model.device
+        geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
+                tuple(float(x) for x in dataset.point_cloud_range),
+                tuple(float(v) for v in dataset.voxel_size))
+        chunk = self.grad_chunk()
+        for i0 in range(0, len(frame_ids), chunk):
+            fids = frame_ids[i0:i0 + chunk]
+            batch = prepare_device_batch(
+                host_to_device_batch(self._load_frames(fids), device), *geom)
+            for j in range(len(fids)):
+                b1 = {k: v[j:j + 1] for k, v in batch.items()
+                      if k != 'batch_size' and k not in drop}
+                b1['batch_size'] = 1
+                yield b1
 
     # ---- bookkeeping (reference-parity surfaces) ---------------------------
     def save_points(self, frame_id, record):

@@ -19,6 +19,16 @@ pretrain and after each round, so that a diverged phase raises instead of
 training on.  A one-cycle schedule over ≤ 2 steps, NaN at every count (where
 the JAX loop trains a NaN model), already raises where ``torch.optim`` is
 given its first lr.
+
+With METHOD llal and a LossNet (``MODEL.ROI_HEAD.LOSS_NET``) each round first
+fits the LossNet for ``LOSS_NET_TRAIN_EPOCH`` epochs over the labelled pool
+(JAX ``active.py:80-156``; reference ``train_active_utils.py:242-296``), on a
+fresh optimizer of that length: a training forward, the margin-ranking loss
+of the predicted against the true per-frame losses, the backward to every
+parameter, every gradient outside ``loss_net`` multiplied by 0 (the JAX
+mask), then the clip and the update.  That is not a freeze: AdamW's decoupled
+weight decay still moves every parameter, and the forward's BN statistics
+are kept.
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 from ..datasets import build_active_dataloader, _identity_attrs, loader_batch_size
 from ..models.detectors import build_detector, flax_init
 from ..query_strategies import build_strategy
+from ..utils import common, loss_utils
 from ..utils.common import resolve_device
 from . import checkpoint as ckpt_rt
 from . import train as train_rt
@@ -114,6 +125,61 @@ def resume_dataset(labelled_loader, unlabelled_loader, active_label_dir,
         logger.info('resume_dataset: replayed %d selection rounds '
                     '(labelled pool %d)', len(pkls), len(labelled_loader.dataset))
     return labelled_loader, unlabelled_loader, len(pkls)
+
+
+def _in_loss_net(name):
+    """Whether parameter ``name`` lies in the RoI head's LossNet (the JAX
+    ``_loss_net_mask``)."""
+    return 'loss_net' in name.split('.')
+
+
+def make_lossnet_train_step(model, optimizer, dataset):
+    """The LossNet-only step (JAX ``make_lossnet_train_step``): ``step(state,
+    device_batch, generator)`` → (state, {'loss': margin-ranking loss}).
+    The true per-frame losses are the forward's ``compute_loss(reduce=False)``,
+    held out of the gradient; the gradients outside ``loss_net`` are
+    multiplied by 0 (a parameter that the loss does not reach gets a zero
+    gradient, as in JAX), so that only weight decay moves those."""
+    geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
+            tuple(float(x) for x in dataset.point_cloud_range),
+            tuple(float(v) for v in dataset.voxel_size))
+
+    def step(state, device_batch, generator=None):
+        model.train()
+        out = model(train_rt.prepare_device_batch(device_batch, *geom), generator)
+        per_frame, _ = model.compute_loss(out, reduce=False)
+        loss = loss_utils.loss_pred_loss(out['loss_predictions_train'], per_frame.detach())
+        optimizer.zero_grad()
+        with common.full_f32():
+            loss.backward()
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                elif not _in_loss_net(name):
+                    p.grad.mul_(0.0)
+        optimizer.step()
+        state.step += 1
+        return state, {'loss': loss.detach()}
+
+    return step
+
+
+def train_loss_net(state, model, labelled_loader, cfg, logger, generator):
+    """llal's LossNet fitting phase before a round's query: a fresh
+    optimizer over ``LOSS_NET_TRAIN_EPOCH`` epochs of the labelled loader.
+    Returns the state (its model updated in place)."""
+    epochs = int(cfg.MODEL.ROI_HEAD.get('LOSS_NET_TRAIN_EPOCH', 1))
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, max(len(labelled_loader), 1) * epochs,
+                                   model.parameters())
+    step = make_lossnet_train_step(model, optimizer, labelled_loader.dataset)
+    device = model.device
+    for e in range(epochs):
+        losses = [step(state, train_rt.host_to_device_batch(batch, device), generator)[1]['loss']
+                  for batch in labelled_loader]
+        logger.info('[llal] loss-net epoch %d loss %.4f', e,
+                    float(torch.stack(losses).mean()) if losses else float('nan'))
+    return state
 
 
 def check_finite(model, where):
@@ -225,8 +291,9 @@ def train_model_active(cfg, args, batch_size, logger, output_dir, ckpt_dir,
             continue
         if (active_cfg.METHOD == 'llal'
                 and cfg.MODEL.get('ROI_HEAD', {}).get('LOSS_NET', None)):
-            raise NotImplementedError('the LossNet fitting phase comes with '
-                                      'ROADMAP Queue 1 item 12b')
+            # fit the LossNet before querying (train_active_utils.py:242-296)
+            state = train_loss_net(state, model, labelled_loader, cfg, logger, generator)
+            check_finite(model, f'the LossNet fitting of round {round_idx + 1}')
         labelled_loader, unlabelled_loader, selected = select_active_labels(
             model, labelled_loader, unlabelled_loader, rank, logger,
             method=active_cfg.METHOD, cur_epoch=cur_epoch,

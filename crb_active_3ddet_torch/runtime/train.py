@@ -8,7 +8,8 @@ The step computes what the JAX ``make_train_step`` computes: the forward in
 training mode (BatchNorm on batch statistics, running statistics updated as
 Flax does), ``compute_loss``, the gradients (the sparse convs' backward runs
 the hand-written kernels, ``ops/cuda_kernels.py``), the global-norm clip and
-the optimizer update on its schedule (``runtime/optimization.py``).  The
+the optimizer update on its schedule (``runtime/optimization.py``), which
+decays every parameter, those the loss does not reach too.  The
 model and optimizer are updated in place; the step's losses stay on the
 device.  Single device: the JAX step's ``mesh`` form is not ported yet.
 """
@@ -115,6 +116,12 @@ def make_train_step(model, optimizer, dataset):
         optimizer.zero_grad()
         with common.full_f32():
             loss.backward()
+        with torch.no_grad():
+            # a parameter the loss does not reach (llal's LossNet) takes a
+            # zero gradient, as in JAX, so that AdamW's weight decay moves it
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
         optimizer.step()
         state.step += 1
         metrics = {k: v.detach() for k, v in tb.items()

@@ -22,6 +22,9 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     radius loop (``Dense_0, Dense_1`` branch 0, ``Dense_2, Dense_3`` branch
     1); ``SA_x_conv{i}`` become ``SA_layers.{k}`` in FEATURES_SOURCE order.
     The shared FC's input stays grid-major, as in the JAX package.
+  * llal's LossNet: ``roi_head.loss_net.conv_{k}`` / ``bn_{k}`` →
+    ``roi_head.loss_net.conv_layers.{k}.{0,1}`` (a Conv1d(C_k, 1, 1) and its
+    BatchNorm1d), ``linear`` → ``roi_head.loss_net.linear``.
 
 ``optax_to_optimizer_state`` moves the optimizer state of a JAX
 ``TrainState`` (Adam's ``mu``/``nu``/``count`` and the schedule's count)
@@ -133,6 +136,14 @@ def _point_branch(sd, params, batch_stats, model_cfg):
               (0,), out='cls_out')
     _fc_stack(sd, 'roi_head.reg_layers', rh, srh, 'reg', len(roi_cfg['REG_FC']),
               (0,), out='reg_out')
+    if 'loss_net' in rh:
+        ln, sln = rh['loss_net'], srh['loss_net']
+        for k in range(n_shared):
+            sd[f'roi_head.loss_net.conv_layers.{k}.0.weight'] = _dense(
+                ln[f'conv_{k}']['kernel'], 1)
+            _bn(sd, f'roi_head.loss_net.conv_layers.{k}.1', ln[f'bn_{k}'], sln[f'bn_{k}'])
+        sd['roi_head.loss_net.linear.weight'] = _dense(ln['linear']['kernel'])
+        sd['roi_head.loss_net.linear.bias'] = ln['linear']['bias']
 
 
 def pillar_vfe_from_flax(sd, params, batch_stats):

@@ -1,6 +1,6 @@
 """Loss functions (torch). Port of ``crb_active_3ddet_tpu/utils/loss_utils.py``
-:16-90, the anchor head's losses and the RoI head's BCE and corner loss
-(reference ``pcdet/utils/loss_utils.py``).
+:16-111, the anchor head's losses, the RoI head's BCE and corner loss
+(reference ``pcdet/utils/loss_utils.py``) and llal's margin-ranking loss.
 
 Every loss is elementwise or per anchor and returns an unreduced tensor, so
 that the caller applies the weighting and keeps the ``reduce=False``
@@ -87,3 +87,15 @@ def get_corner_loss_lidar(pred_bbox3d, gt_bbox3d):
     dist = torch.minimum(torch.linalg.norm(pred_corners - gt_corners, dim=-1),
                          torch.linalg.norm(pred_corners - gt_corners_flip, dim=-1))
     return smooth_l1_loss(dist, beta=1.0).mean(dim=1)
+
+
+def loss_pred_loss(input, target, margin: float = 1.0):
+    """llal's margin-ranking loss (reference ``roi_head_template.LossPredLoss``
+    :289-310): predicted losses (B,) against true ones (B,), frame i paired
+    with frame B/2 + i; an odd last frame is dropped (B = 1 gives the mean
+    of nothing, NaN, as in the JAX package)."""
+    half = input.shape[0] // 2
+    inp, tgt = input[:2 * half], target[:2 * half]
+    input_diff = inp[:half] - inp[half:]
+    one = torch.where(tgt[:half] - tgt[half:] > 0, 1.0, -1.0).to(input.dtype)
+    return torch.clamp(margin - one * input_diff, min=0).mean()

@@ -280,24 +280,28 @@ def test_slim_scorer_equals_full(scored, monkeypatch, signals, forwards, nms):
 
 
 def test_mc_dropout_and_later_signals_raise(scored):
-    """``loss_predictions`` (LossNet) still raises, with and without the
-    MC-dropout scorer, which itself runs (tests/test_torch_crb.py holds it
-    to JAX); on this one-stage model ``batch_rcnn_*`` emit nothing."""
+    """On this one-stage model (no LossNet, no RoI head) ``loss_predictions``
+    and ``batch_rcnn_*`` are accepted and emit nothing, with and without
+    the MC-dropout scorer, as in the JAX package (the MC-dropout scorer is
+    held to JAX in tests/test_torch_crb.py, the two-stage branch and the
+    LossNet's signal in tests/test_torch_pvrcnn_active.py)."""
     strat = scored.port_strategy('entropy')
     for mc in (False, True):
-        with pytest.raises(NotImplementedError, match='item 12b'):
-            strat.scan_pool(mc_dropout=mc, num_mc=5, signals=('loss_predictions',))
+        rec = strat.scan_pool(mc_dropout=mc, num_mc=5, signals=('loss_predictions',))
+        assert list(rec) == list(scored.trec)
+        assert all(set(r) == set(GT_STATS) for r in rec.values())
     rec = strat.scan_pool(signals=('batch_rcnn_cls', 'batch_rcnn_reg'))
     assert list(rec) == list(scored.trec)
     assert all(set(r) == set(GT_STATS) for r in rec.values())
+    llal = scored.port_strategy('llal')
+    with pytest.raises(RuntimeError, match='LossNet'):
+        llal.query(cur_epoch=0)
 
 
 def test_factory_names_and_later_strategies(scored):
+    """Every name of the JAX factory builds, each the JAX strategy's class."""
     assert tnames() == jnames()
-    for name in ('badge', 'llal'):
-        with pytest.raises(NotImplementedError, match='item 12b'):
-            scored.port_strategy(name)
-    for name in ('crb', 'montecarlo', 'bald'):
+    for name in tnames():
         assert type(scored.port_strategy(name)).__name__ == \
             type(scored.jax_strategy(name)).__name__
     with pytest.raises(KeyError):
