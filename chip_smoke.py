@@ -51,9 +51,9 @@ Run from the root of a checkout.  It
   8. runs the active-learning loop (``train_model_active``) on SECOND at the
      full width of second_synth_active_entropy.yaml, batch 4, under
      PyTorch's default precision settings (the port's f32 guard checked at
-     every convolution): pretrain from the JAX model's init, two rounds of
-     entropy scoring over the pool, selection and retraining from the init
-     weights; launches per train step and per scored pool batch exactly,
+     every convolution): pretrain from the JAX model's init, one round of
+     entropy scoring over the pool, selection and retraining from the
+     init weights; launches per train step and per scored pool batch exactly,
      every K1 and K2 call of the scans against its plain version, ms/step,
      ms per pool batch and scans/s, and the f32 K2 route timed at the first
      scan batch's 12 layers and a retrain step's 11 dgrads, each bit for bit
@@ -110,7 +110,24 @@ Run from the root of a checkout.  It
      mAP@0.5 > 0.60 on unseen easy scenes; ``gate_2``: CRB lands at least
      one more object frame a seed than random, over 16 seeds from one
      init), under torch's deterministic algorithms, so that they read the
-     same on every run of one card.  Each phase prints its wall time.
+     same on every run of one card;
+ 13. the port's CLIs (``crb_active_3ddet_torch/tools/``), each through its
+     ``main``: a seeded PV-RCNN (pv_rcnn_synth.yaml, full width) written
+     as an OpenPCDet ``.pth`` (spconv 2.x kernel layout, the RoI head's
+     first shared FC channel-major), converted by
+     ``import_openpcdet_ckpt.main`` and evaluated by ``test.main`` over two
+     test-split batches of 8, its detections bit-equal to those of the
+     seeded model loaded directly, on the kernel path (launches exactly 12
+     K2, 1 K3, 2 K1 masks, 1 K1 float a batch) and on the plain path (none);
+     SECOND (second_synth.yaml, full width) trained by ``train.main`` for
+     one epoch of 3 steps at batch 8, then resumed for a second (12/11/12
+     K2 a step, step count and checkpoints continued, every weight
+     finite); and in 11, from the seeded query's stage-1 records and
+     stage-2 embeddings (8, 65 536), one query each with CRB's kmeans,
+     birch and gmm clusterings (numpy copies of scikit-learn's; this
+     machine has no scikit-learn), their picks distinct and as many as
+     the JAX package's de-duplication and backfill give, each clustering
+     timed.  Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -3135,6 +3152,15 @@ def drive_pvrcnn_crb(dev):
     scored_classes = set(check_gpdb_forms(strat, got['records'], len(cfg.CLASS_NAMES), n_sel,
                                           'PV-RCNN'))
 
+    def clustered(name):
+        f32.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = name
+        try:
+            return build_strategy('crb', model, lab, unlab, 0, str(qdir), f32)
+        finally:
+            f32.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = 'kmeans++'
+    check_clusterings(clustered, got, n_sel, int(n_sel * a.ACTIVE_CONFIG.K2),
+                      'PV-RCNN seeded query')
+
     # ---- the kernels at the loop's MC scan and stage-2 inputs, timed ----
     layers = sparse_layers(model)
     results = [time_gather_gemm(f'pvrcnn_crb.gather_gemm[{lname}]', layer, f[None], rbk,
@@ -3503,6 +3529,195 @@ def gate_2(device, out_dir, pretrain_epochs=128):
     return crb_total, rand_total, per_seed, seconds
 
 
+# ---- the port's CLIs and OpenPCDet checkpoints ------------------------------
+
+CLI_SCENES = 2 * BATCH      # two test-split batches of 8 for the PV-RCNN test CLI
+CLI_TRAIN_SCENES = 3 * BATCH    # three SECOND train steps an epoch (the one-cycle
+                                # schedule is NaN over two)
+
+
+def openpcdet_state(model):
+    """``model``'s weights as an OpenPCDet ``model_state`` holds them: the
+    sparse conv kernels in spconv 2.x's native (Cout, kz, ky, kx, Cin)
+    layout, the RoI head's first shared FC channel-major (C·G³), no LossNet."""
+    from crb_active_3ddet_torch.utils.openpcdet_ckpt import SHARED_FC, channel_major
+    sparse = {f'{n}.weight' for n, m in model.named_modules()
+              if type(m).__name__ == 'SparseConv3d'}
+    sd = {}
+    for key, value in model.state_dict().items():
+        if '.loss_net.' in key:
+            continue
+        value = value.detach().cpu().clone()
+        if key in sparse:
+            k, ci, co = value.shape
+            taps = (3, 3, 3) if k == 27 else (k, 1, 1)
+            value = value.reshape(*taps, ci, co).permute(4, 0, 1, 2, 3).contiguous()
+        elif key == SHARED_FC:
+            value = channel_major(value, model.roi_head.grid_size ** 3).contiguous()
+        sd[key] = value
+    return sd
+
+
+def same_annos(got, want, tag):
+    """Two ``result.pkl`` detection lists equal: frames, class names, scores
+    and boxes bit for bit; returns the boxes kept."""
+    if [a['frame_id'] for a in got] != [a['frame_id'] for a in want]:
+        raise RuntimeError(f'{tag}: other frames')
+    for g, w in zip(got, want):
+        if list(g['name']) != list(w['name']) or not all(
+                np.array_equal(g[k], w[k]) for k in ('score', 'boxes_lidar')):
+            raise RuntimeError(f"{tag}: frame {g['frame_id']} detections differ")
+    return sum(len(a['name']) for a in got)
+
+
+def drive_pvrcnn_import(dev):
+    """The OpenPCDet import and the test CLI on PV-RCNN (pv_rcnn_synth.yaml at
+    full width, K2 bf16, batch 8, two test-split batches): a seeded model's
+    weights (``init_weights`` seed 0, box layer std 0.001, cls bias
+    CLS_BIAS) written as an OpenPCDet ``.pth`` (``openpcdet_state``),
+    converted by ``tools/import_openpcdet_ckpt.main`` and evaluated by
+    ``tools/test.main`` on the card: counters to 0 just before the CLI's
+    evaluation, read just after (a batch 12 K2, 1 K3, 2 K1 masks, 1 K1
+    float); its detections equal, bit for bit, those of ``eval_one_epoch``
+    on the seeded model loaded directly; the same again on the plain path
+    (no launch).  Both under ``reproducible``."""
+    import pickle
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime import eval as eval_rt
+    from crb_active_3ddet_torch.tools import import_openpcdet_ckpt, test as test_cli
+    sets = ['DATA_CONFIG.NUM_SCENES', str(CLI_SCENES)]
+    cfg = cfg_from_list(sets, load_config(PVRCNN_CFG))
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_openpcdet_'))
+    test_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, BATCH, workers=0,
+                                           training=False)
+    n_b, n = len(loader), len(SPARSE_LAYERS)
+    seeded = seeded_pvrcnn(cfg, test_set, 'cpu', seed=0, cls_bias=CLS_BIAS)
+    pth = out / 'pv_rcnn_openpcdet.pth'
+    torch.save({'model_state': openpcdet_state(seeded), 'epoch': 80, 'it': 1234,
+                'version': 'pcdet+0.5.2'}, pth)
+    t = time.perf_counter()
+    imported = import_openpcdet_ckpt.main(['--cfg_file', PVRCNN_CFG, '--ckpt', str(pth),
+                                           '--out', str(out / 'imported')])
+    import_s = time.perf_counter() - t
+    model = seeded.to(dev)
+    step = eval_rt.make_eval_step(model, test_set, cfg.MODEL.POST_PROCESSING,
+                                  len(cfg.CLASS_NAMES))
+    lines = []
+    for path, ctx in (('kernel', contextlib.nullcontext), ('plain', plain_versions)):
+        with reproducible(f'PV-RCNN test CLI, {path} path'), ctx():
+            counters(reset=True)
+            t = time.perf_counter()
+            ap = test_cli.main(['--cfg_file', PVRCNN_CFG, '--ckpt', imported, '--batch_size',
+                                str(BATCH), '--output_dir', str(out / path), '--set', *sets])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+            made, want = launch_delta({k: 0 for k in counters()},
+                                      **({} if path == 'plain' else dict(
+                                          n_k2=n * n_b, n_mask=2 * n_b, n_float=n_b, n_fps=n_b)))
+            if made != want:
+                raise RuntimeError(f'PV-RCNN test CLI ({path} path) over {n_b} batches launched '
+                                   f'{made}, expected {want}')
+            eval_rt.eval_one_epoch(step, test_set, loader, cfg.CLASS_NAMES, device=dev,
+                                   result_dir=out / f'direct_{path}')
+        got = pickle.loads((out / path / 'eval' / 'result.pkl').read_bytes())
+        want = pickle.loads((out / f'direct_{path}' / 'result.pkl').read_bytes())
+        kept = same_annos(got, want, f'PV-RCNN test CLI from the imported .pth, {path} path')
+        if not kept:
+            raise RuntimeError(f'PV-RCNN test CLI ({path} path): no box kept')
+        lines.append(f'{path} path: {cli_s:.1f} s, launches {made}, {kept} boxes over '
+                     f'{len(got)} frames equal to the directly loaded model\'s, mAP '
+                     f"{ap.get('mAP', float('nan')):.4f}")
+    log(f'PV-RCNN OpenPCDet .pth (spconv 2.x layout, channel-major shared FC) imported in '
+        f'{import_s:.1f} s; test CLI ' + '; '.join(lines))
+    shutil.rmtree(out)
+
+
+def drive_train_cli(dev):
+    """The train CLI on SECOND (second_synth.yaml at full width, bf16, batch 8,
+    CLI_TRAIN_SCENES train scenes: 3 steps an epoch): ``tools/train.main``
+    for one epoch, then with ``--epochs 2``, which resumes from
+    ``checkpoint_epoch_1.pth``; counters to 0 before each run and read
+    after it (12 K2, 11 dgrad, 12 wgrad a step, nothing else); the step
+    count continues (3, then 6), the checkpoints are epochs 1 and 2, every
+    parameter and buffer is finite."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.runtime import checkpoint as ckpt_rt
+    from crb_active_3ddet_torch.tools import train as train_cli
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_train_cli_'))
+    args = ['--cfg_file', SECOND_CFG, '--batch_size', str(BATCH), '--output_dir', str(out),
+            '--set', 'DATA_CONFIG.NUM_SCENES', str(CLI_TRAIN_SCENES)]
+    n, per_epoch = len(SPARSE_LAYERS), CLI_TRAIN_SCENES // BATCH
+    lines = []
+    for epochs in (1, 2):
+        counters(reset=True)
+        t = time.perf_counter()
+        state = train_cli.main(['--epochs', str(epochs), *args])
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t
+        made, want = launch_delta({k: 0 for k in counters()}, n_k2=n * per_epoch,
+                                  n_dgrad=(n - 1) * per_epoch, n_wgrad=n * per_epoch)
+        if made != want:
+            raise RuntimeError(f'train CLI (--epochs {epochs}) launched {made}, expected {want}')
+        if state.step != epochs * per_epoch or state.optimizer.count != state.step:
+            raise RuntimeError(f'train CLI (--epochs {epochs}): step {state.step}, optimizer '
+                               f'count {state.optimizer.count}')
+        bad = [k for k, v in state.model.state_dict().items()
+               if v.is_floating_point() and not bool(torch.isfinite(v).all())]
+        if bad:
+            raise RuntimeError(f'train CLI (--epochs {epochs}): non-finite {bad[:5]}')
+        lines.append(f'--epochs {epochs}: {s:.1f} s, step {state.step}, launches {made}')
+    ckpts = sorted(p.name for p in (out / 'ckpt').glob('*.pth'))
+    last = ckpt_rt.load_checkpoint(str(out / 'ckpt' / 'checkpoint_epoch_2.pth'))
+    if ckpts != ['checkpoint_epoch_1.pth', 'checkpoint_epoch_2.pth'] or \
+            (last['epoch'], last['step']) != (2, 2 * per_epoch):
+        raise RuntimeError(f'train CLI: checkpoints {ckpts}, last epoch {last["epoch"]} step '
+                           f'{last["step"]}')
+    log(f'SECOND train CLI, {CLI_TRAIN_SCENES} scenes at batch {BATCH}: ' + '; '.join(lines)
+        + f'; the second run resumed from checkpoint_epoch_1.pth; checkpoints {ckpts}; '
+        'every parameter and buffer finite')
+    shutil.rmtree(out)
+
+
+def check_clusterings(build, got, n_sel, n_k2, tag):
+    """CRB's other prototype selectors from one query's stage-1 records and
+    stage-2 embeddings (``got``, as ``spy_query`` keeps them): for each of
+    kmeans, birch and gmm (numpy copies of scikit-learn's, which this
+    machine need not have) ``build(name)``'s query over the same records
+    and embeddings; its picks distinct, K1·N frames, and as many as JAX's
+    de-dup and backfill give (a centre per cluster, a BIRCH subcluster
+    each, however many, the stage-1 ranking filling up to K2·N); the
+    clustering's host time at the embeddings' width."""
+    import importlib.util
+    from crb_active_3ddet_torch.query_strategies.crb_sampling import prototypes
+    emb, k1 = got['emb'], got['k1']
+    rows = dict(zip(k1, emb))
+    lines = []
+    for name in ('kmeans', 'birch', 'gmm'):
+        t = time.perf_counter()
+        idx = prototypes(name, emb, n_k2)
+        cluster_ms = (time.perf_counter() - t) * 1e3
+        strat = build(name)
+        strat.scan_pool = lambda *a, **k: got['records']
+        strat.grad_embeddings = lambda ids, *targets: np.stack([rows[f] for f in ids])
+        t = time.perf_counter()
+        sel = list(strat.query(cur_epoch=0))
+        query_ms = (time.perf_counter() - t) * 1e3
+        candidates = max(len(set(idx.tolist())), min(n_k2, len(k1)))
+        if len(set(sel)) != len(sel) or len(sel) != min(n_sel, candidates) \
+                or not set(sel) <= set(k1):
+            raise RuntimeError(f'{tag} {name}: picks {sel} from {candidates} candidates')
+        lines.append(f'{name} {cluster_ms:.1f} ms (nearest frames {idx.tolist()}, '
+                     f'{candidates} candidates; query without scan and stage 2 '
+                     f'{query_ms:.1f} ms) -> {sel}')
+    sklearn = importlib.util.find_spec('sklearn') is not None
+    log(f'{tag} clusterings over embeddings {emb.shape} (scikit-learn on this machine: '
+        f'{"present, unused" if sklearn else "absent"}): ' + '; '.join(lines))
+
+
 def active_k2_calls(dev):
     """The f32 gather-GEMM's calls (args, launches, out) at the AL loop's
     inputs: the 12 forward calls of the entropy scan's first pool batch
@@ -3698,7 +3913,9 @@ def main():
                      ['proposal_nms', 'nms'], ['recall'], n_iter=5)
     results += phase('PointPillars eval', drive_path, PILLAR_CFG, dev, 'pointpillar.', ['nms'],
                      ['recall'], n_iter=5)
+    phase('PV-RCNN OpenPCDet import and test CLI', drive_pvrcnn_import, dev)
     results += phase('SECOND train', drive_train, dev, SECOND_CFG, 'train.', TRAIN_TOL)
+    phase('SECOND train CLI', drive_train_cli, dev)
     # PV-RCNN trains from the JAX package's box layer init (init_weights)
     results += phase('PV-RCNN train', drive_train, dev, PVRCNN_CFG, 'pvrcnn_train.',
                      PVRCNN_TRAIN_TOL, box_std=0.001)
@@ -3710,7 +3927,9 @@ def main():
     phase('reduced SECOND train', check_reduced_train, dev, SECOND_CFG)
     phase('reduced PV-RCNN train', check_reduced_train, dev, PVRCNN_CFG, box_std=0.001)
     phase('reduced PointPillars train', check_reduced_train, dev, PILLAR_CFG)
-    results += phase('SECOND AL loop', drive_active, dev)
+    # one round (the other strategies' queries run over the same pool), to
+    # keep the script within its time with the CLI phases
+    results += phase('SECOND AL loop', drive_active, dev, rounds=1)
     # one round (the PV-RCNN and PointPillars CRB phases run the same query),
     # to keep the script within its time
     results += phase('SECOND CRB', drive_crb, dev, rounds=1)

@@ -6,8 +6,13 @@ CRBSampling`` (reference ``pcdet/query_strategies/crb_sampling.py``):
     the same signal set; each frame's label-histogram entropy; the top K1·N
     frames, ties in reverse pool order (``sorted`` then ``[::-1]``).
   Stage 2 (``:80-164``, ``:314-408``), representative prototypes: one
-    gradient embedding a frame, then k-means++ (``kmeans_pp.py``) down to
-    K2·N, de-duplicated and backfilled from the stage-1 ranking.  On a model
+    gradient embedding a frame, then the ``CLUSTERING`` option's prototypes
+    (``kmeans++``: the k-means++ seeds, ``kmeans_pp.py``; ``kmeans``,
+    ``birch``, ``gmm``: the centres of ``kmeans.py``, ``birch.py`` (its
+    subclusters, however many) and ``gaussian_mixture.py``, each mapped to
+    its nearest frame by ``scipy.cluster.vq.vq``) for K2·N frames,
+    de-duplicated and backfilled from the stage-1 ranking (JAX
+    ``:131-162``).  On a model
     with a RoI head (PV-RCNN) the gradient at ``roi_head.shared_fc_1`` (the
     second shared layer, Flax's name; flattened in the Flax kernel's (in,
     out) order) of the hypothetical cls loss plus the mean of the
@@ -34,9 +39,8 @@ conv is recomputed from the BEV features).  The JAX forward throws its
 updated BN statistics away (``mutable=['batch_stats']``); the port's
 BatchNorms update theirs in place, so every buffer is copied before and
 written back after, and the modules' training flags and the parameters'
-``requires_grad`` are restored.  The clusterings that need scikit-learn's
-estimators (``kmeans``, ``birch``, ``gmm``) come with ROADMAP Queue 1 item
-12c.
+``requires_grad`` are restored.  The clusterings are numpy copies of
+scikit-learn's estimators, which the card's machine does not have.
 """
 
 from __future__ import annotations
@@ -47,15 +51,19 @@ import numpy as np
 import scipy.special
 import scipy.stats
 import torch
+from scipy.cluster.vq import vq
 
 from ..models.dense_heads import anchor_head_single as ahs
 from ..models.roi_heads import roi_head_template as rht
 from ..utils import common
+from .birch import Birch
+from .gaussian_mixture import GaussianMixture
+from .kmeans import KMeans
 from .kmeans_pp import kmeans_plusplus
 from .strategy import Strategy
 
 GRAD_SEED = 1          # the JAX stage 2's PRNGKey(1)
-_LATER = 'ROADMAP Queue 1 item 12c'
+CLUSTERINGS = ('kmeans++', 'kmeans', 'birch', 'gmm')
 _STAGE1_SIGNALS = ('label_entropy', 'pred_density', 'pred_labels', 'pred_valid',
                    'batch_rcnn_cls', 'batch_rcnn_reg')
 
@@ -72,10 +80,7 @@ class CRBSampling(Strategy):
         self.bandwidth = active_cfg.get('BANDWDITH', active_cfg.get('BANDWIDTH', 5))
         self.prototype = active_cfg.get('CLUSTERING', 'kmeans++')
         self.alpha = 0.95
-        if self.prototype in ('kmeans', 'birch', 'gmm'):
-            raise NotImplementedError(f'CLUSTERING {self.prototype!r} needs scikit-learn\'s '
-                                      f'estimator; it comes with {_LATER}')
-        if self.prototype != 'kmeans++':
+        if self.prototype not in CLUSTERINGS:
             raise NotImplementedError(self.prototype)
 
     def query(self, leave_pbar=True, cur_epoch=None):
@@ -104,18 +109,8 @@ class CRBSampling(Strategy):
         embeddings = self.grad_embeddings(k1_frames, targets) if targets \
             else self.grad_embeddings(k1_frames)
         n_k2 = int(n_select * self.k2)
-        sel_idx = kmeans_plusplus(embeddings, n_clusters=n_k2, random_state=0)
-        k2_frames = [k1_frames[i] for i in sel_idx]
-        # a centre picker can return one frame twice when embeddings
-        # collapse: de-dup in cluster order, backfill from the stage-1 ranking
-        seen = set()
-        k2_frames = [f for f in k2_frames if not (f in seen or seen.add(f))]
-        for f in k1_frames:
-            if len(k2_frames) >= n_k2:
-                break
-            if f not in seen:
-                seen.add(f)
-                k2_frames.append(f)
+        sel_idx = prototypes(self.prototype, embeddings, n_k2)
+        k2_frames = dedup_backfill([k1_frames[i] for i in sel_idx], k1_frames, n_k2)
         self.stage_times['crb_stage2_s'] = time.time() - start
 
         # ---------------- Stage 3: greedy density balancing (GPDB) -------
@@ -316,6 +311,40 @@ class CRBSampling(Strategy):
             alive[best] = False
             selected_frames.append(fids[best])
         return selected_frames
+
+
+def prototypes(clustering, embeddings, n_k2):
+    """Stage 2's picks: row indices of ``embeddings`` (K1·N, D) for one of
+    ``CLUSTERINGS`` (JAX ``crb_sampling.py:131-145``); a centre maps to its
+    nearest row, so picks may repeat, and ``birch`` gives one pick a
+    subcluster, however many."""
+    if clustering == 'kmeans++':
+        return kmeans_plusplus(embeddings, n_clusters=n_k2, random_state=0)
+    if clustering == 'kmeans':
+        centres = KMeans(n_clusters=n_k2, random_state=0).fit(embeddings).cluster_centers_
+    elif clustering == 'birch':
+        centres = Birch(n_clusters=n_k2).fit(embeddings).subcluster_centers_
+    elif clustering == 'gmm':
+        centres = GaussianMixture(n_components=n_k2, random_state=0).fit(embeddings).means_
+    else:
+        raise NotImplementedError(clustering)
+    return vq(centres, embeddings)[0]
+
+
+def dedup_backfill(picked, ranked, n_k2):
+    """A centre picker can return one frame twice when embeddings collapse:
+    de-duplicate in cluster order, then backfill from the stage-1 ranking
+    up to ``n_k2`` frames (JAX ``crb_sampling.py:147-162``); more distinct
+    picks than ``n_k2`` (BIRCH) all stay."""
+    seen = set()
+    frames = [f for f in picked if not (f in seen or seen.add(f))]
+    for f in ranked:
+        if len(frames) >= n_k2:
+            break
+        if f not in seen:
+            seen.add(f)
+            frames.append(f)
+    return frames
 
 
 def shared_fc_grad(out, weight, hyp_cls, hyp_reg):

@@ -2,10 +2,12 @@
 ``sklearn/cluster/_kmeans.py _kmeans_plusplus`` as
 ``kmeans_plusplus(X, n_clusters, random_state=0)`` calls it, which CRB's
 stage 2 (``crb_active_3ddet_tpu/query_strategies/crb_sampling.py:133``) and
-BADGE use.  The port does not import scikit-learn.
+BADGE use, and as ``KMeans`` seeds itself (``kmeans.py``).  The port does not
+import scikit-learn.
 
 Unit sample weights; ``2 + int(log k)`` local trials a centre; one
-``np.random.RandomState(seed)`` drawn in sklearn's order (``choice`` for the
+``np.random.RandomState`` (a seed, or a state the caller draws on from)
+drawn in sklearn's order (``choice`` for the
 first centre, then ``uniform`` for each later one); candidates by
 ``searchsorted`` over the cumulative potential, clipped into range; the
 candidate that lowers the potential most wins (``argmin``, first on a tie).
@@ -35,16 +37,21 @@ def _chunks(n, size):
 def _sq_distances_upcast(x, y):
     """float32 x (m, d), y (n, d) → (m, n) float32 squared distances,
     computed in float64 chunks as sklearn's ``_euclidean_distances_upcast``
-    sizes them (about 10 % more memory than the operands, at least 10 MiB)."""
+    sizes them (about 10 % more memory than the operands, at least 10 MiB).
+    When ``y is x`` a block below the diagonal is the transpose of the block
+    above it, as in sklearn."""
     m, n, d = x.shape[0], y.shape[0], x.shape[1]
     maxmem = max(((m + n) * d + m * n) / 10, 10 * 2 ** 17)
     tmp = 2 * d
     size = max(int((-tmp + math.sqrt(tmp ** 2 + 4 * maxmem)) / 2), 1)
     out = np.empty((m, n), dtype=np.float32)
-    for xs in _chunks(m, size):
+    for i, xs in enumerate(_chunks(m, size)):
         xc = x[xs].astype(np.float64)
         xx = _row_norms_sq(xc)[:, None]
-        for ys in _chunks(n, size):
+        for j, ys in enumerate(_chunks(n, size)):
+            if y is x and j < i:
+                out[xs, ys] = out[ys, xs].T
+                continue
             yc = y[ys].astype(np.float64)
             dist = -2 * (xc @ yc.T)
             dist += xx
@@ -67,12 +74,14 @@ def _sq_distances(x, y, y_sq):
 
 def kmeans_plusplus(X, n_clusters, random_state=0):
     """Indices of ``n_clusters`` k-means++ seeds among the rows of X
-    (float32 or float64)."""
+    (float32 or float64); ``random_state`` a seed or a
+    ``np.random.RandomState`` to draw from."""
     X = np.asarray(X)
     n_samples = X.shape[0]
     if n_samples < n_clusters:
         raise ValueError(f'n_samples={n_samples} should be >= n_clusters={n_clusters}.')
-    rng = np.random.RandomState(random_state)
+    rng = random_state if isinstance(random_state, np.random.RandomState) \
+        else np.random.RandomState(random_state)
     weight = np.ones(n_samples, dtype=X.dtype)
     y_sq = _row_norms_sq(X) if X.dtype == np.float64 else None
     n_local_trials = 2 + int(np.log(n_clusters))

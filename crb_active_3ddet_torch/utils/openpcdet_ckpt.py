@@ -1,0 +1,151 @@
+"""OpenPCDet checkpoints into the port's models.
+
+Counterpart of ``crb_active_3ddet_tpu/utils/torch_ckpt.py:775
+map_openpcdet_state`` and ``:834 import_openpcdet_checkpoint`` (reference
+``pcdet/models/detectors/detector3d_template.py:455-536``,
+``load_params_from_file``) for the families the port runs: SECOND
+(``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), PointPillars
+(``PillarVFE``) and PV-RCNN (voxel set abstraction, point head, PV-RCNN
+head).  Another family raises, naming ROADMAP Queue 1 item 14.
+
+The port's parameter and buffer names are OpenPCDet's
+(``utils/flax_weights.py``), so a source tensor goes to the target of its
+own name; its layout is changed only where the two differ:
+  * sparse conv kernels, in any of the shipped orientations (spconv 1.x
+    (kz, ky, kx, Cin, Cout), spconv 2.x native (Cout, kz, ky, kx, Cin), or
+    (kz, ky, kx, Cout, Cin)), told apart by the channel positions as the
+    reference and the JAX importer (``torch_ckpt.py:228-248``) tell them,
+    become (K, Cin, Cout), taps row-major over (kz, ky, kx);
+  * a Linear and a k=1 Conv1d / Conv2d weight differ only in trailing unit
+    axes: reshaped to the port module's shape;
+  * ``roi_head.shared_fc_layer.0.weight``: OpenPCDet flattens the pooled
+    RoI grid channel-major (C·G³), the port grid-major (G³·C), as the JAX
+    RoI head does (``crb_active_3ddet_tpu/models/roi_heads/pvrcnn_head.py:97``);
+    its input axis is permuted.  (The JAX importer maps this weight without
+    the permutation.)
+  * BatchNorm weights and running statistics, ``num_batches_tracked``
+    included, are copied.
+A tensor whose shape still differs is skipped and reported, and every
+target without a source keeps its value (the reference's ``strict=False``;
+llal's LossNet, which OpenPCDet lacks, stays at its init).  Files are read
+with ``torch.load(weights_only=True)``: no pickled code runs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+FAMILIES = ('SECONDNet', 'PointPillar', 'PVRCNN')
+SHARED_FC = 'roi_head.shared_fc_layer.0.weight'
+
+
+def check_family(name):
+    if name not in FAMILIES:
+        raise NotImplementedError(
+            f'OpenPCDet import of {name}: the port imports {", ".join(FAMILIES)}; '
+            'the rest of the model zoo comes with ROADMAP Queue 1 item 14')
+
+
+def spconv_kernel(w, c_in, c_out):
+    """A 5-D spconv kernel in a shipped orientation → (K, Cin, Cout)."""
+    if w.ndim != 5:
+        raise ValueError(f'spconv kernels are 5-D, got {tuple(w.shape)}')
+    if w.shape[-2] == c_in and w.shape[-1] == c_out:
+        pass                                    # (k, k, k, in, out), spconv 1.x
+    elif w.shape[0] == c_out and w.shape[-1] == c_in:
+        w = w.permute(1, 2, 3, 4, 0)            # spconv 2.x native (out, k, k, k, in)
+    elif w.shape[-2] == c_out and w.shape[-1] == c_in:
+        w = w.permute(0, 1, 2, 4, 3)            # (k, k, k, out, in)
+    else:
+        raise ValueError(f'cannot orient spconv kernel {tuple(w.shape)} '
+                         f'for c_in={c_in}, c_out={c_out}')
+    return w.reshape(-1, c_in, c_out)
+
+
+def grid_major(w, grid_points):
+    """The first shared FC's (Cout, C·G³[, 1]) channel-major weight → the
+    port's grid-major (Cout, G³·C[, 1])."""
+    c_out, n_in = w.shape[:2]
+    c = n_in // grid_points
+    return w.reshape(c_out, c, grid_points, *w.shape[2:]).transpose(1, 2) \
+        .reshape(w.shape)
+
+
+def channel_major(w, grid_points):
+    """The inverse of ``grid_major``: the port's layout → OpenPCDet's."""
+    c_out, n_in = w.shape[:2]
+    c = n_in // grid_points
+    return w.reshape(c_out, grid_points, c, *w.shape[2:]).transpose(1, 2) \
+        .reshape(w.shape)
+
+
+def _squeeze_trailing(shape):
+    shape = list(shape)
+    while len(shape) > 2 and shape[-1] == 1:
+        shape.pop()
+    return tuple(shape)
+
+
+def _convert(key, src, tgt, grid_points):
+    """``src`` in the target's layout, or None when no rule makes it fit."""
+    if tgt.ndim == 3 and src.ndim == 5 and key.startswith('backbone_3d.'):
+        try:
+            return spconv_kernel(src, tgt.shape[1], tgt.shape[2])
+        except ValueError:
+            return None
+    if key == SHARED_FC and grid_points and src.numel() == tgt.numel():
+        src = grid_major(src, grid_points)
+    if src.shape == tgt.shape:
+        return src
+    if src.numel() == tgt.numel() and _squeeze_trailing(src.shape) == _squeeze_trailing(tgt.shape):
+        return src.reshape(tgt.shape)
+    return None
+
+
+def map_openpcdet_state(sd, model):
+    """An OpenPCDet ``model_state`` (name → tensor) onto ``model``'s state
+    dict.  Returns (state dict, report): every target of ``model`` is in the
+    state dict (those without a usable source at their current value), on
+    the CPU.  ``report``: ``mapped`` (targets written), ``mismatched``
+    ((name, source shape, target shape) skipped), ``unmatched_target``
+    (targets kept) and ``unused_source`` (source names the model lacks)."""
+    check_family(model.model_cfg['NAME'])
+    roi_head = getattr(model, 'roi_head', None)
+    grid_points = roi_head.grid_size ** 3 if roi_head is not None else None
+    target = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    out = dict(target)
+    report = {'mapped': [], 'mismatched': [], 'unmatched_target': [], 'unused_source': []}
+    for key, tgt in target.items():
+        src = sd.get(key)
+        if not isinstance(src, torch.Tensor):
+            report['unmatched_target'].append(key)
+            continue
+        src = src.detach().cpu()
+        value = _convert(key, src, tgt, grid_points)
+        if value is None:
+            report['mismatched'].append((key, tuple(src.shape), tuple(tgt.shape)))
+            report['unmatched_target'].append(key)
+            continue
+        out[key] = value.to(tgt.dtype).contiguous()
+        report['mapped'].append(key)
+    report['unused_source'] = sorted(k for k in sd if k not in target)
+    return out, report
+
+
+def load_openpcdet_file(path):
+    """(model_state, meta) of a ``.pth``: its ``model_state`` or, for a bare
+    state dict, the whole file; ``meta`` its ``epoch``, ``it`` and
+    ``version`` where it has them."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=True)
+    if 'model_state' not in ckpt:
+        return ckpt, {}
+    return ckpt['model_state'], {k: ckpt[k] for k in ('epoch', 'it', 'version') if k in ckpt}
+
+
+def import_openpcdet_checkpoint(path, model):
+    """Read an OpenPCDet ``.pth`` and load its weights into ``model`` (in
+    place, on the model's device).  Returns (report, meta)."""
+    sd, meta = load_openpcdet_file(path)
+    state, report = map_openpcdet_state(sd, model)
+    model.load_state_dict(state)
+    return report, meta

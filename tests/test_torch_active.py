@@ -149,8 +149,20 @@ class Scored:
                          self.junlab, 0, str(self.jdir), self.jc)
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """This module's torch ops run on one thread: the scorer's NMS runs as
+    its plain version, thousands of small ops a pool batch, and on 8
+    threads each op waits at its thread barrier while the suite's workers
+    share the cores (the file then took ~970 s of a tier-1 run)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope='module')
-def scored(tmp_path_factory):
+def scored(tmp_path_factory, one_torch_thread):
     return Scored(tmp_path_factory.mktemp('scored'))
 
 

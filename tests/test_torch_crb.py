@@ -20,6 +20,7 @@ JAX query returns ``np.str_``, the port plain ``str``: compared as ``str``).
 """
 
 import random
+import warnings
 
 import jax
 import numpy as np
@@ -386,13 +387,19 @@ def _common(pair, seed):
 
 @pytest.mark.parametrize('seed', [0, 1, 2, 3])
 @pytest.mark.parametrize('gpdb_device', [True, False])
-def test_query_selects_the_jax_ids(pair, monkeypatch, seed, gpdb_device):
+@pytest.mark.parametrize('clustering', ['kmeans++', 'kmeans', 'birch', 'gmm'])
+def test_query_selects_the_jax_ids(pair, monkeypatch, seed, gpdb_device, clustering):
     """From one common set of records and embeddings both CRB queries pick
-    the same ids; the embeddings reach JAX through its per-chunk gradient
-    function, the port through ``grad_embeddings``."""
+    the same ids, for each ``CLUSTERING`` (the JAX query's scikit-learn
+    estimators, the port's numpy copies); the embeddings reach JAX through
+    its per-chunk gradient function, the port through ``grad_embeddings``.
+    Seed 2's equal embeddings collapse every clustering to one frame, which
+    the stage-1 ranking backfills."""
     records, emb = _common(pair, seed)
     jc, tc = _cfg(jload, 'crb'), _cfg(tload, 'crb')
     jc.ACTIVE_TRAIN.GPDB_DEVICE = tc.ACTIVE_TRAIN.GPDB_DEVICE = gpdb_device
+    jc.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = clustering
+    tc.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = clustering
     jstrat, tstrat = pair.jax_strategy(cfg=jc), pair.port_strategy(cfg=tc)
     loaded = []
     for strat in (jstrat, tstrat):
@@ -401,8 +408,10 @@ def test_query_selects_the_jax_ids(pair, monkeypatch, seed, gpdb_device):
     jstrat._grad_fns[2] = lambda v, b, r, t: np.stack([emb[str(f)] for f in loaded[-1]])
     monkeypatch.setattr(tstrat, 'grad_embeddings',
                         lambda ids: np.stack([emb[f] for f in ids]))
-    want = [str(f) for f in jstrat.query(cur_epoch=0)]
-    got = tstrat.query(cur_epoch=0)
+    with warnings.catch_warnings():
+        warnings.simplefilter('ignore')     # fewer clusters than asked, in both
+        want = [str(f) for f in jstrat.query(cur_epoch=0)]
+        got = tstrat.query(cur_epoch=0)
     assert got == want and len(set(got)) == 2
     assert all(type(f) is str for f in got)
     assert set(tstrat.stage_times) == set(jstrat.stage_times) == {
@@ -451,15 +460,18 @@ def test_query_leaves_every_buffer_and_parameter(pair):
 
 
 def test_later_parts_raise(pair):
-    """The clusterings that need scikit-learn's estimators raise, naming
-    ROADMAP item 12c; stage 2 over a RoI head needs stage 1's targets; the
-    MC scorer builds for a model with a RoI head (its two-stage branch is
-    held to JAX in tests/test_torch_pvrcnn_active.py)."""
+    """Every clustering of the JAX package builds (numpy copies of
+    scikit-learn's estimators) and an unknown one raises; stage 2 over a RoI
+    head needs stage 1's targets; the MC scorer builds for a model with a
+    RoI head (its two-stage branch is held to JAX in
+    tests/test_torch_pvrcnn_active.py)."""
     cfg = _cfg(tload, 'crb')
     for name in ('kmeans', 'birch', 'gmm'):
         cfg.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = name
-        with pytest.raises(NotImplementedError, match='item 12c'):
-            pair.port_strategy(cfg=cfg)
+        assert pair.port_strategy(cfg=cfg).prototype == name
+    cfg.ACTIVE_TRAIN.ACTIVE_CONFIG.CLUSTERING = 'dbscan'
+    with pytest.raises(NotImplementedError, match='dbscan'):
+        pair.port_strategy(cfg=cfg)
     strat = pair.port_strategy()
     strat.model = type('TwoStage', (), {'roi_head': None})()
     with pytest.raises(ValueError, match='stage-1 targets'):

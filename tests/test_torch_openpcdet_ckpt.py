@@ -1,0 +1,207 @@
+"""The port's OpenPCDet checkpoint import (``utils/openpcdet_ckpt.py``)
+against the JAX package's (``crb_active_3ddet_tpu/utils/torch_ckpt.py``).
+
+Fabricated OpenPCDet state dicts (OpenPCDet's names and layouts, seeded
+values; the pattern of ``tests/test_torch_import.py``'s
+``_fabricate_second_state_dict``) for the reduced SECOND
+(``test_torch_second_eval.py``), PointPillars (``test_torch_pointpillar.py``)
+and PV-RCNN with a LossNet (``test_torch_pvrcnn_active.py``), with the
+sparse conv kernels in spconv 1.x's (kz, ky, kx, Cin, Cout) and 2.x's native
+(Cout, kz, ky, kx, Cin) layouts.  Each ``.pth`` goes through the JAX importer
+into Flax trees of zeros shaped by ``jax.eval_shape`` of the JAX model's
+init (traced, not compiled), then ``flax_to_state_dict``, and through the
+port's importer into the port model: equal key for key and bit for bit, but
+for ``roi_head.shared_fc_layer.0.weight``, which the port permutes from
+OpenPCDet's channel-major input (C·G³) to its grid-major one (G³·C) and the
+JAX importer does not.  That the permutation is right is held to
+OpenPCDet's own product: the imported layer on grid-major pooled features
+equals the source weight on the same features flattened channel-major.
+"""
+
+import copy
+import functools
+import pickle
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from crb_active_3ddet_tpu.config import load_config as jload
+from crb_active_3ddet_tpu.datasets import build_dataloader as jbuild
+from crb_active_3ddet_tpu.models.detectors import build_detector as jdet
+from crb_active_3ddet_tpu.runtime import train as jtrain
+from crb_active_3ddet_tpu.utils import torch_ckpt as jckpt
+
+from crb_active_3ddet_torch.config import load_config as tload
+from crb_active_3ddet_torch.datasets import build_dataloader as tbuild
+from crb_active_3ddet_torch.models.detectors import build_detector as tdet
+from crb_active_3ddet_torch.utils import openpcdet_ckpt as ockpt
+from crb_active_3ddet_torch.utils.flax_weights import flax_to_state_dict
+
+import test_torch_pointpillar
+import test_torch_pvrcnn_active
+import test_torch_second_eval
+
+META = {'epoch': 80, 'it': 37120, 'version': 'pcdet+0.5.2+0000000'}
+
+
+def _pvrcnn(load):
+    c = test_torch_pvrcnn_active._cfg(load, 'llal')
+    c.DATA_CONFIG.NUM_SCENES = 2
+    return c
+
+
+CONFIGS = {
+    'second': lambda load: test_torch_second_eval._reduced(load, False),
+    'pointpillar': test_torch_pointpillar._reduced,
+    'pvrcnn': _pvrcnn,
+}
+
+
+@functools.lru_cache(maxsize=None)
+def _models(family):
+    """(JAX params and batch_stats of zeros, the port model, the JAX
+    MODEL config) of one family."""
+    jc, tc = CONFIGS[family](jload), CONFIGS[family](tload)
+    jset, jloader, _ = jbuild(jc.DATA_CONFIG, jc.CLASS_NAMES, 1, workers=0, training=False)
+    tset, _, _ = tbuild(tc.DATA_CONFIG, tc.CLASS_NAMES, 1, workers=0, training=False)
+    jmodel = jdet(jc.MODEL, num_class=len(jc.CLASS_NAMES), dataset=jset)
+    geom = (jset.voxel_cfg, tuple(int(g) for g in jset.grid_size),
+            tuple(float(x) for x in jset.point_cloud_range),
+            tuple(float(v) for v in jset.voxel_size))
+    host = jtrain.host_to_device_batch(next(iter(jloader)))
+    shapes = jax.eval_shape(
+        lambda r, h: jmodel.init(r, jtrain.prepare_device_batch(h, *geom), training=False),
+        jax.random.PRNGKey(0), host)
+    zeros = jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes)
+    tmodel = tdet(tc.MODEL, num_class=len(tc.CLASS_NAMES), dataset=tset, device='cpu')
+    return zeros['params'], zeros['batch_stats'], tmodel, jc.MODEL
+
+
+def _fabricate(model, layout, seed):
+    """A seeded OpenPCDet ``model_state`` for ``model``'s architecture:
+    OpenPCDet's names (the port's), its sparse conv kernels in ``layout``
+    (in the 2.x case also the point head's first Linear weight with a k=1
+    Conv1d's trailing axis), its BN variances positive, no LossNet, and its
+    ``global_step``."""
+    rng = np.random.RandomState(seed)
+    sd = {'global_step': torch.tensor([1234])}
+    sparse = {f'{n}.weight' for n, m in model.named_modules()
+              if type(m).__name__ == 'SparseConv3d'}
+    for key, t in model.state_dict().items():
+        if '.loss_net.' in key:
+            continue
+        if key.endswith('num_batches_tracked'):
+            sd[key] = torch.tensor(int(rng.randint(1, 10 ** 6)))
+            continue
+        shape = tuple(t.shape)
+        if key in sparse:
+            k, ci, co = shape
+            taps = (3, 3, 3) if k == 27 else (k, 1, 1)
+            shape = (*taps, ci, co) if layout == '1.x' else (co, *taps, ci)
+        value = rng.randn(*shape) * 0.05
+        if key.endswith('running_var'):
+            value = 0.5 + rng.rand(*shape)
+        sd[key] = torch.from_numpy(value.astype(np.float32))
+    if layout == '2.x' and 'point_head.cls_layers.0.weight' in sd:
+        # a Linear weight as a k=1 Conv1d stores it
+        sd['point_head.cls_layers.0.weight'] = sd['point_head.cls_layers.0.weight'][..., None]
+    return sd
+
+
+CASES = [('second', '1.x'), ('second', '2.x'), ('pointpillar', '1.x'),
+         ('pvrcnn', '1.x'), ('pvrcnn', '2.x')]
+
+
+@pytest.mark.parametrize('family, layout', CASES)
+def test_import_equals_the_jax_import(tmp_path, family, layout):
+    params, stats, model, model_cfg = _models(family)
+    sd = _fabricate(model, layout, seed=len(family) + len(layout))
+    path = tmp_path / 'openpcdet.pth'
+    torch.save({'model_state': sd, 'optimizer_state': {'state': {}}, **META}, path)
+
+    jp, js, jreport, jmeta = jckpt.import_openpcdet_checkpoint(str(path), params, stats)
+    want = flax_to_state_dict(jp, js, model_cfg)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    report, meta = ockpt.import_openpcdet_checkpoint(str(path), model)
+    got = model.state_dict()
+
+    assert meta == jmeta == META
+    assert not report['mismatched'] and not jreport['mismatched']
+    loss_net = [k for k in got if '.loss_net.' in k]
+    assert bool(loss_net) == (family == 'pvrcnn')
+    assert report['unmatched_target'] == loss_net
+    assert all(p.startswith('roi_head.loss_net.') for p in
+               (x.replace('/', '.') for x in jreport['unmatched_target']))
+    assert len(jreport['unmatched_target']) == (len(jckpt._flatten(params['roi_head']['loss_net'])) +
+                                                len(jckpt._flatten(stats['roi_head']['loss_net']))
+                                                if family == 'pvrcnn' else 0)
+    assert report['unused_source'] == ['global_step']
+    assert set(got) == set(want)
+    for key in loss_net:
+        assert torch.equal(got[key], before[key]), key
+    for key, value in want.items():
+        if '.loss_net.' in key:
+            continue
+        if key.endswith('num_batches_tracked'):
+            assert torch.equal(got[key], sd[key]), key      # JAX keeps none
+        elif key == ockpt.SHARED_FC:
+            permuted = ockpt.grid_major(value, model.roi_head.grid_size ** 3)
+            assert torch.equal(got[key], permuted)
+            assert not torch.equal(got[key], value)
+        else:
+            assert got[key].dtype == value.dtype and torch.equal(got[key], value), key
+    assert report['mapped'] == [k for k in got if '.loss_net.' not in k]
+
+
+def test_shared_fc_equals_openpcdets_product(tmp_path):
+    """OpenPCDet's head views the pooled grid (B·R, G³, C) as (B·R, C·G³, 1)
+    after a permute: the imported grid-major layer on (B·R, G³·C, 1) gives
+    the same product (both in float64, so that the two summation orders
+    agree far inside the tolerance)."""
+    params, stats, model, _ = _models('pvrcnn')
+    sd = _fabricate(model, '2.x', seed=5)
+    path = tmp_path / 'openpcdet.pth'
+    torch.save({'model_state': sd}, path)
+    ockpt.import_openpcdet_checkpoint(str(path), model)
+    g3 = model.roi_head.grid_size ** 3
+    w = sd[ockpt.SHARED_FC]
+    c = w.shape[1] // g3
+    pooled = torch.from_numpy(np.random.RandomState(0).randn(6, g3, c))
+    layer = model.roi_head.shared_fc_layer[0]
+    with torch.no_grad():
+        got = copy.deepcopy(layer).double()(pooled.reshape(6, g3 * c, 1))
+        want = torch.nn.functional.conv1d(pooled.permute(0, 2, 1).reshape(6, c * g3, 1),
+                                          w.double())
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=0)
+    assert torch.equal(ockpt.channel_major(layer.weight.detach(), g3), w)
+
+
+def test_bare_state_dict_and_weights_only(tmp_path):
+    _, _, model, _ = _models('second')
+    sd = _fabricate(model, '2.x', seed=9)
+    path = tmp_path / 'bare.pth'
+    torch.save(sd, path)
+    loaded, meta = ockpt.load_openpcdet_file(str(path))
+    assert meta == {} and set(loaded) == set(sd)
+    assert all(torch.equal(loaded[k], v) for k, v in sd.items())
+    # a pickled object is refused: the file is read with weights_only=True
+    torch.save({'model_state': sd, 'cfg': functools.partial(print, 'x')}, path)
+    with pytest.raises(pickle.UnpicklingError):
+        ockpt.load_openpcdet_file(str(path))
+
+
+def test_unported_families_and_bad_kernels_raise():
+    for name in ('CenterPoint', 'PartA2Net', 'VoxelRCNN', 'PointRCNN'):
+        stub = type('Stub', (), {'model_cfg': {'NAME': name}})()
+        with pytest.raises(NotImplementedError, match='item 14'):
+            ockpt.map_openpcdet_state({}, stub)
+    with pytest.raises(ValueError, match='cannot orient'):
+        ockpt.spconv_kernel(torch.zeros(3, 3, 3, 5, 6), 4, 6)
+    _, _, model, _ = _models('second')
+    sd = _fabricate(model, '1.x', seed=3)
+    sd['dense_head.conv_cls.weight'] = sd['dense_head.conv_cls.weight'][:1]
+    _, report = ockpt.map_openpcdet_state(sd, model)
+    assert [m[0] for m in report['mismatched']] == ['dense_head.conv_cls.weight']
+    assert report['unmatched_target'] == ['dense_head.conv_cls.weight']
