@@ -49,7 +49,8 @@ Run from the root of a checkout.  It
      terms, gradients, updated parameters, BN statistics; PV-RCNN's from
      one set of RoI targets, without Dropout);
   8. runs the active-learning loop (``train_model_active``) on SECOND at the
-     full width of second_synth_active_entropy.yaml, batch 4, under
+     full width of second_synth_active_entropy.yaml (its pool cut to 20
+     scenes, one round), batch 4, under
      PyTorch's default precision settings (the port's f32 guard checked at
      every convolution): pretrain from the JAX model's init, one round of
      entropy scoring over the pool, selection and retraining from the
@@ -88,7 +89,8 @@ Run from the root of a checkout.  It
      confidence, random and llal queries over the round-1 pool with their
      launches exactly; the kernels timed at the scans' and at a LossNet
      step's inputs; a reduced f32 scan and LossNet step card vs CPU;
- 11. runs CRB on PV-RCNN likewise: per MC-scored pool batch one forward
+ 11. runs CRB on PV-RCNN likewise (20 scenes, one round): per MC-scored
+     pool batch one forward
      (the RoI head's 5 rounds inside it: 12 K2, 1 K3, 2 K1 masks), per
      stage-2 frame a batch-1 training forward whose hypothetical loss is
      differentiated at shared_fc_1 (12 K2, 1 K3, 1 K1 mask, 1 K1 float),
@@ -127,7 +129,28 @@ Run from the root of a checkout.  It
      birch and gmm clusterings (numpy copies of scikit-learn's; this
      machine has no scikit-learn), their picks distinct and as many as
      the JAX package's de-duplication and backfill give, each clustering
-     timed.  Each phase prints its wall time.
+     timed;
+ 14. CRB on PV-RCNN at the paper's own config, active-kitti_models/
+     pv_rcnn_active_crb.yaml (2 048 keypoints, 40 000 voxels and 45 000
+     points at test, 16 000 / 18 000 in training, K2 bf16, batch 2), over
+     a KITTI-layout tree (``write_kitti_tree``: 24 train and 8 val frames
+     of 100 000-120 000 points, a 64-beam scan of a road between walls and
+     the synthetic generator's objects, labels at every difficulty, road
+     planes, PNGs), cut in depth only (``KITTI_DEPTH``; the learning rate
+     of the 4-step schedule ``KITTI_LR``): the port's info
+     builder (``create_kitti_infos``, the gt database), the frames' sizes
+     against the buffers (K3 past its narrow 24 576-point instance);
+     ``tools/train.main`` (pretrain, one CRB round, retrain) with launches
+     exactly and every K1, K2 and K3 call of its train steps, MC scans and
+     stage 2 against its plain version; ``tools/test.main`` on the val
+     split on the kernel path (its calls against their plain versions) and
+     on the plain path, the official KITTI result printed and the two
+     paths' differing boxes counted; the retrained model on every val batch
+     with K2 on its f32 route, kernel path against plain path ahead of the
+     NMS (``KITTI_F32_TOL``); the val ground truth with
+     distinct scores through the eval (AP 100 from 41 valid objects); the
+     kernels timed at the path's shapes (``kitti.``, ``kitti_train.``,
+     ``kitti_grad.``, ``kitti_test.``).  Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -246,9 +269,11 @@ SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
                  'conv3.0', 'conv3.1', 'conv3.2', 'conv4.0', 'conv4.1',
                  'conv4.2', 'conv_out']
 # (N, K, valid) of the small FPS checks; the first three are those of the JAX
-# package's own parity test
+# package's own parity test; then each side of the narrow instance's 24 576
+# points and KITTI's 45 000-point test buffer, partly and scarcely valid
 FPS_SMALL = [(300, 32, 300), (1024, 256, 640), (129, 64, 129),
              (64, 100, 5), (64, 16, 0), (1, 4, 1), (2049, 64, 2049),
+             (24576, 64, 24576), (24577, 64, 24577), (45000, 512, 30000), (45000, 64, 5),
              ('capacity', 48, 'capacity')]
 
 
@@ -314,15 +339,24 @@ def plain_versions():
 
 
 @contextlib.contextmanager
-def recording(caller, attr, calls, count=lambda: 0):
+def recording(caller, attr, calls, count=lambda: 0, clone=False):
     """Append (args, launches, result) of every call ``caller.attr`` makes
-    to calls; ``count()`` reads the launch counter of the kernel behind it."""
+    to calls; ``count()`` reads the launch counter of the kernel behind it.
+    With ``clone`` the tensors are kept as copies (a train step's optimizer
+    updates its weights in place after the call)."""
     real = getattr(caller, attr)
+
+    def kept(x):
+        if not clone:
+            return x
+        if isinstance(x, tuple):
+            return tuple(kept(a) for a in x)
+        return x.detach().clone() if torch.is_tensor(x) else x
 
     def record(*args):
         before = count()
         out = real(*args)
-        calls.append((args, count() - before, out))
+        calls.append((kept(args), count() - before, kept(out)))
         return out
     setattr(caller, attr, record)
     try:
@@ -496,7 +530,18 @@ def sparse_layers(model):
         m for m in backbone.modules() if type(m).__name__ == 'SparseConvLayer']
 
 
-def check_kernel_path(model, vox):
+def real_voxels(points, dataset):
+    """(points inside ``dataset``'s range, the voxels they occupy) of one
+    frame's (N, 3+) points."""
+    pcr = np.asarray(dataset.point_cloud_range, np.float64)
+    gsz = np.asarray(dataset.grid_size, np.int64)
+    c = np.floor((points[:, :3] - pcr[:3]) / np.asarray(dataset.voxel_size, np.float64))
+    c = c.astype(np.int64)
+    ok = (c >= 0).all(1) & (c < gsz[None]).all(1)
+    return int(ok.sum()), len(np.unique((c[ok, 2] * gsz[1] + c[ok, 1]) * gsz[0] + c[ok, 0]))
+
+
+def check_kernel_path(model, vox, tol=None):
     """The same batch through the plain versions on the card, held against
     the kernel path before any NMS.  Continuous tensors are compared as they
     are; the decoded boxes' heading modulo π, since a direction-bin argmax
@@ -504,7 +549,9 @@ def check_kernel_path(model, vox):
     must be a near-tie within the dir logits' own difference.  PV-RCNN: the
     keypoints must be equal (the FPS is exact); the RoI stage is run on both
     paths' point features from the kernel path's RoIs, because a near-tie in
-    the proposal NMS may pick other RoIs, after which nothing compares."""
+    the proposal NMS may pick other RoIs, after which nothing compares.
+    ``tol``, where given, is the limit at every tensor (else the bf16
+    limits of ``E2E_TOL`` and ``POINT_TOL``)."""
     two_stage = hasattr(model, 'roi_head')
     pillars = not hasattr(model, 'backbone_3d')
     with torch.no_grad():
@@ -527,6 +574,8 @@ def check_kernel_path(model, vox):
         log(f'kernel path vs plain: keypoints equal; RoI sets equal: {same_rois}')
         tols.update(POINT_TOL)
         del tols['batch_box_preds']       # the roi head's: other RoIs on ref
+    if tol is not None:
+        tols = dict.fromkeys(tols, tol)
     errs, diffs = {}, {}
     for key in tols:
         errs[key], diffs[key] = rel_err(out[key], ref[key],
@@ -534,8 +583,9 @@ def check_kernel_path(model, vox):
         log(f'kernel path vs plain, {key} {tuple(ref[key].shape)}: max |diff|/(1+|ref|) '
             f'= {errs[key]:.3e} (tol {tols[key]:.0e}), max |diff| {diffs[key]:.3e}')
     nb = model.dense_head.model_cfg['NUM_DIR_BINS']
-    da = out['dir_cls_preds'].reshape(BATCH, -1, nb).float()
-    db = ref['dir_cls_preds'].reshape(BATCH, -1, nb).float()
+    b = out['dir_cls_preds'].shape[0]
+    da = out['dir_cls_preds'].reshape(b, -1, nb).float()
+    db = ref['dir_cls_preds'].reshape(b, -1, nb).float()
     flip = da.argmax(-1) != db.argmax(-1)
     top2 = db.topk(2, dim=-1).values
     gap = (top2[..., 0] - top2[..., 1])[flip]
@@ -877,8 +927,8 @@ def time_fps(name, points, valid, k, n_launch):
     for n, kk, nv in FPS_SMALL:
         if n == 'capacity':
             n = nv = cuda_fps.max_points()
-            if n < 18432:
-                raise RuntimeError(f'FPS capacity {n} shrank below 18432')
+            if n < 45000:
+                raise RuntimeError(f'FPS capacity {n} is below KITTI\'s 45 000-point buffer')
         for snapped in (False, True):
             rng = np.random.RandomState(n + kk)
             pts = (rng.randint(-8, 9, (3, n, 3)) / 8 if snapped
@@ -896,11 +946,14 @@ def time_fps(name, points, valid, k, n_launch):
                           warmup=2, iters=10)
     b, n, _ = points.shape
     nbytes = points.numel() * 4 + valid.numel() + b * k * 4
+    # each step updates the running distances of every frame's valid points
+    n_valid = int(valid.sum())
     entry = _entry(name, 'crb_active_3ddet_torch/csrc/fps.cu',
                    'crb_active_3ddet_tpu/ops/pallas_kernels.py:148', n_launch, err, ms,
-                   plain_ms, nbytes, b * (k - 1) * n * FPS_OPS_PER_POINT_STEP,
+                   plain_ms, nbytes, (k - 1) * n_valid * FPS_OPS_PER_POINT_STEP,
                    PEAK[torch.float32])
-    log(f'{name} ({b}, {n}) -> {k}: equal to the plain version (also at '
+    log(f'{name} ({b}, {n}) -> {k}, valid points a frame {valid.sum(1).tolist()}: equal to '
+        f'the plain version (also at '
         f'{len(FPS_SMALL)} other shapes, N = 1 up to the capacity '
         f'{cuda_fps.max_points()}, random and snapped); fewest distinct '
         f'keypoints in a frame {distinct}; kernel {ms:.4f} ms ({one_ms:.4f} ms for '
@@ -1032,16 +1085,8 @@ def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
     if not ((kept > 0).all() and (kept <= alive).all()
             and (two_stage or (kept < alive).all())):
         raise RuntimeError(f'NMS check: kept {kept.tolist()} alive {alive.tolist()}')
-    pcr = np.asarray(dataset.point_cloud_range, np.float64)
-    vsz = np.asarray(dataset.voxel_size, np.float64)
-    gsz = np.asarray(dataset.grid_size, np.int64)
-    max_real = 0
-    for f in range(BATCH):
-        pts = host['points'][f, :host['num_points'][f], :3]
-        c = np.floor((pts - pcr[:3]) / vsz).astype(np.int64)
-        ok = (c >= 0).all(1) & (c < gsz[None]).all(1)
-        max_real = max(max_real, len(np.unique((c[ok, 2] * gsz[1] + c[ok, 1])
-                                               * gsz[0] + c[ok, 0])))
+    max_real = max(real_voxels(host['points'][f, :host['num_points'][f], :3], dataset)[1]
+                   for f in range(BATCH))
     cap = dataset.voxel_cfg['max_voxels']
     unit = 'pillars' if not n_sparse else 'voxels'
     log(f'{name} eval step: {step_s * 1e3:.2f} ms/step mean of {n_iter}, '
@@ -1842,7 +1887,7 @@ def watched_epochs(real_epoch, out, round_starts, rows):
 
 
 def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_LAYERS,
-                 rounds=None):
+                 rounds=None, scenes=None):
     """The AL loop, ``train_model_active``, at the full width and sizes of
     ``cfg_file`` (SECOND: 32 scenes, 8 labelled, 2 rounds of 4; PointPillars:
     64 scenes, 16 labelled, 2 rounds of 8; batch 4, 2 epochs a round), from
@@ -1866,9 +1911,9 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     live boxes; a profiled scan and the same scan timed with the f32 guard
     lifted (TF32); a retrain step's launches; the scan's K2 at the loop's
     inputs, timed.  Last, a reduced f32 scan on the card against the CPU.
-    ``rounds`` cuts the file's budget to that many rounds.  Entries and log
-    lines are named by ``prefix``.  Returns the kernels'
-    JSON entries."""
+    ``rounds`` cuts the file's budget to that many rounds, ``scenes`` its
+    scenes (so the pool) to that many.  Entries and log lines are named by
+    ``prefix``.  Returns the kernels' JSON entries."""
     import logging
     import pickle
     import random
@@ -1892,6 +1937,8 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     a = cfg.ACTIVE_TRAIN
     if rounds:                    # fewer rounds than the file's budget
         a.TOTAL_BUDGET_NUMS = int(a.SELECT_NUMS) * rounds
+    if scenes:                    # a smaller pool than the file's
+        cfg.DATA_CONFIG.NUM_SCENES = scenes
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
     pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
     n_rounds = int(a.TOTAL_BUDGET_NUMS) // n_sel
@@ -2236,7 +2283,7 @@ def check_gpdb_forms(strat, recs, num_class, n_sel, tag, need_class=False):
 
 
 def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, every_class=True,
-              rounds=None):
+              rounds=None, scenes=None):
     """CRB: ``train_model_active`` on ``cfg_file`` with METHOD crb (set in
     code: PointPillars runs its entropy file) at its full width and sizes
     (K1 2, K2 1, kmeans++), from ``flax_init``, under PyTorch's default
@@ -2256,7 +2303,8 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     f32 query on the card against the CPU.  GPDB's two forms must be held
     over every class (``every_class``) or one at least, by the seeded or
     the reduced query's densities.  ``rounds`` cuts the file's budget to
-    that many rounds.  Returns the kernels' JSON entries."""
+    that many rounds, ``scenes`` its scenes to that many.  Returns the
+    kernels' JSON entries."""
     import logging
     import shutil
     import tempfile
@@ -2276,6 +2324,8 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     a.METHOD = 'crb'
     if rounds:                    # fewer rounds than the file's budget
         a.TOTAL_BUDGET_NUMS = int(a.SELECT_NUMS) * rounds
+    if scenes:                    # a smaller pool than the file's
+        cfg.DATA_CONFIG.NUM_SCENES = scenes
     if int(cfg.MODEL.get('SAMPLING_ROUND', MC_FORWARDS)) != MC_FORWARDS:
         raise RuntimeError(f'{cfg_file} runs another number of MC forwards')
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
@@ -2522,6 +2572,8 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
 # predictions adds the final NMS.  The MC strategies run one forward: the
 # head's rounds are inside it.  BADGE's pass 1 runs the dense path alone
 # (K2 only) once a pool batch and its pass 2 once a pool frame.
+# the PV-RCNN CRB phase's scenes: 8 labelled, a pool of 12 (stage 1 keeps 8)
+PVRCNN_CRB_SCENES = 20
 PVRCNN_SCAN = {'entropy': (1, 2), 'confidence': (1, 1), 'random': (0, 0), 'coreset': (1, 1),
                'montecarlo': (1, 1), 'bald': (1, 2), 'llal': (1, 1), 'crb': (1, 2),
                'badge': (0, 0)}
@@ -2559,22 +2611,23 @@ def pvrcnn_al_cfg(method):
 
 
 @contextlib.contextmanager
-def kernel_calls(rec):
+def kernel_calls(rec, clone=False):
     """Record (args, launches, result) of every call of the forward kernels'
     wrappers into ``rec``: K2 ('k2'), K1's mask ('mask') and float entry
-    ('float'), K3 ('fps'), and the NMS fixpoint ('fix', no kernel)."""
+    ('float'), K3 ('fps'), and the NMS fixpoint ('fix', no kernel); with
+    ``clone`` as copies."""
     from crb_active_3ddet_torch.ops import (cuda_fps, cuda_kernels, cuda_overlap, iou3d,
                                             nms, pointnet2)
     for kind in KINDS + ('fix',):
         rec.setdefault(kind, [])
     with recording(cuda_kernels, 'sparse_conv_gather_gemm', rec['k2'],
-                   lambda: cuda_kernels.launches), \
-            recording(nms, 'nms_mask', rec['mask'], lambda: cuda_overlap.mask_launches), \
-            recording(nms, '_fixpoint_words', rec['fix']), \
+                   lambda: cuda_kernels.launches, clone), \
+            recording(nms, 'nms_mask', rec['mask'], lambda: cuda_overlap.mask_launches, clone), \
+            recording(nms, '_fixpoint_words', rec['fix'], clone=clone), \
             recording(iou3d, 'boxes_overlap_bev_cuda', rec['float'],
-                      lambda: cuda_overlap.launches), \
+                      lambda: cuda_overlap.launches, clone), \
             recording(pointnet2, 'farthest_point_sample_cuda', rec['fps'],
-                      lambda: cuda_fps.launches):
+                      lambda: cuda_fps.launches, clone):
         yield rec
 
 
@@ -2949,61 +3002,54 @@ def drive_pvrcnn_active(dev):
     return results
 
 
-def drive_pvrcnn_crb(dev):
-    """CRB on PV-RCNN (``pvrcnn_al_cfg('crb')``, full width, batch 4, bf16
-    as the file sets it), from ``flax_init``: counters to 0, the loop (2
-    rounds), counters read (per train step as ``drive_pvrcnn_active``; per
-    MC-scored pool batch one forward, whose RoI head runs the 5 rounds: 12
-    K2, 1 K3, 2 K1 masks; per stage-2 frame a batch-1 training forward: 12
-    K2, 1 K3, 1 K1 mask at the TRAIN proposals, 1 K1 float in the proposal
-    targets); every call of the MC scans and of stage 2 against its plain
-    version; every buffer and parameter equal before and after each query,
-    the training flags and ``requires_grad`` restored; stage times.  Then,
-    over the round-1 pool at seeded weights with K2's f32 route (bit-equal
-    to its plain version, so that the two paths must agree), the query on
-    the kernel path against the plain path, stage 2 from one RoI sample a
-    frame (``given_targets``): stage-1 records equal, the K1·N frames equal, embeddings within
-    CRB_EMB_TOL of their norm, picks equal; GPDB's device form against its
-    host oracle; the kernels timed
-    at the MC scan's and stage 2's inputs (``pvrcnn_crb.``,
-    ``pvrcnn_crb_grad.``); last a reduced f32 query card vs CPU.  Returns
-    the kernels' JSON entries."""
-    import logging
-    import shutil
-    from pathlib import Path
-    from crb_active_3ddet_torch.query_strategies import build_strategy
+@contextlib.contextmanager
+def watched_crb(tag, hold_steps=False):
+    """While open, watch a PV-RCNN CRB loop (``train_model_active`` with
+    METHOD crb): train epochs count their steps (with ``hold_steps`` every
+    K1, K2 and K3 call of each step is held against its plain version);
+    each MC scan is checked per pool batch (one forward, whose RoI head
+    runs the 5 rounds: 12 K2, 1 K3, 2 K1 masks) and every call of it held
+    against its plain version; each stage 2 likewise per frame (a batch-1
+    training forward: 12 K2, 1 K3, 1 K1 mask at the TRAIN proposals, 1 K1
+    float in the proposal targets) with the training flags and
+    ``requires_grad`` restored; each query leaves every buffer and
+    parameter equal.  Yields the records: ``steps`` (and each epoch's in
+    ``epochs``), ``scans``, ``grads``,
+    ``queries``, ``train`` (the steps' summaries), the first scan's,
+    stage 2's and train step's calls and the pretrained loaders."""
     from crb_active_3ddet_torch.query_strategies.crb_sampling import CRBSampling
     from crb_active_3ddet_torch.query_strategies.strategy import Strategy
-    from crb_active_3ddet_torch.runtime import active
     from crb_active_3ddet_torch.runtime import train as train_rt
-    from crb_active_3ddet_torch.utils.common import set_random_seed
-    cfg = pvrcnn_al_cfg('crb')
-    a = cfg.ACTIVE_TRAIN
-    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
-    k1n = int(a.ACTIVE_CONFIG.K1 * n_sel)
     n = len(SPARSE_LAYERS)
-    log(f'==== PV-RCNN CRB: {PVRCNN_CFG} with {CRB_CFG}\'s ACTIVE_TRAIN, batch {bs}, '
-        f'{int(a.TOTAL_BUDGET_NUMS) // n_sel} rounds of {n_sel}, K1 {a.ACTIVE_CONFIG.K1}, '
-        f'K2 {a.ACTIVE_CONFIG.K2}, SAMPLING_ROUND {cfg.MODEL.ROI_HEAD.SAMPLING_ROUND} ====')
-    torch.backends.cudnn.allow_tf32 = True
-    logger = logging.getLogger('chip_smoke.pvrcnn_crb')
-    logger.addHandler(logging.NullHandler())
-    logger.propagate = False
-    out = Path(tempfile.mkdtemp(prefix='chip_smoke_pvrcnn_crb_'))
-    (out / 'ckpt').mkdir()
-    scans, grads, queries, pretrained, steps = [], [], [], {}, [0]
-    first_scan, first_grad = {}, {}
+    w = {'steps': 0, 'epochs': [], 'scans': [], 'grads': [], 'queries': [], 'train': [],
+         'loaders': None, 'first_scan': {}, 'first_grad': {}, 'first_step': {}}
     real_scan, real_grads, real_query = (Strategy.scan_pool, CRBSampling.grad_embeddings,
                                          CRBSampling.query)
     real_epoch = train_rt.train_one_epoch
 
     def epoch(state, step, loader, *args, **kw):
-        steps[0] += len(loader)
-        return real_epoch(state, step, loader, *args, **kw)
+        w['steps'] += len(loader)
+        w['epochs'].append(len(loader))
+        if not hold_steps:
+            return real_epoch(state, step, loader, *args, **kw)
+
+        def held(*a, **k):
+            rec = {}
+            with kernel_calls(rec, clone=True):
+                out = step(*a, **k)
+            with torch.no_grad():
+                w['train'].append(calls_vs_plain(rec, f'{tag} train step {len(w["train"])}'))
+            log(f"{tag} train step {len(w['train'])}: loss {float(out[1]['loss']):.4f}; "
+                + summary(w['train'][-1]))
+            if not w['first_step']:
+                w['first_step'].update(mask=rec['mask'][0], fix=rec['fix'][0],
+                                       float=rec['float'][0], fps=rec['fps'][0])
+            return out
+        return real_epoch(state, held, loader, *args, **kw)
 
     def scan(self, *args, **kw):
-        if not pretrained:
-            pretrained.update(loaders=(self.labelled_loader, self.unlabelled_loader))
+        if w['loaders'] is None:
+            w['loaders'] = (self.labelled_loader, self.unlabelled_loader)
         rec, before = {}, counters()
         torch.cuda.synchronize()
         t = time.perf_counter()
@@ -3014,14 +3060,14 @@ def drive_pvrcnn_crb(dev):
         f, m = PVRCNN_SCAN['crb']
         made, want = launch_delta(before, n_k2=n * f * n_b, n_mask=m * n_b, n_fps=f * n_b)
         if made != want:
-            raise RuntimeError(f'PV-RCNN MC scan of {n_b} batches launched {made}, '
+            raise RuntimeError(f'{tag} MC scan of {n_b} batches launched {made}, '
                                f'expected {want}')
-        scans.append({'batches': n_b, 'ms': ms, 'made': made,
-                      'alive': [int(c[0][1].sum()) for c in rec['mask'][1::2]],
-                      **calls_vs_plain(rec, 'PV-RCNN MC scan')})
-        if not first_scan:
-            first_scan.update(k2=rec['k2'][:n], masks=rec['mask'][:2], fix=rec['fix'][:2],
-                              fps=rec['fps'][0])
+        w['scans'].append({'batches': n_b, 'ms': ms, 'made': made,
+                           'alive': [int(c[0][1].sum()) for c in rec['mask'][1::2]],
+                           **calls_vs_plain(rec, f'{tag} MC scan')})
+        if not w['first_scan']:
+            w['first_scan'].update(k2=rec['k2'][:n], masks=rec['mask'][:2], fix=rec['fix'][:2],
+                                   fps=rec['fps'][0])
         return records
 
     def grad_embeddings(self, ids, targets=None):
@@ -3035,18 +3081,18 @@ def drive_pvrcnn_crb(dev):
         ms = (time.perf_counter() - t) * 1e3
         if flags != [m.training for m in self.model.modules()] or \
                 wanted != [p.requires_grad for p in self.model.parameters()]:
-            raise RuntimeError('PV-RCNN stage 2 left other training flags or requires_grad')
+            raise RuntimeError(f'{tag} stage 2 left other training flags or requires_grad')
         made, want = launch_delta(before, n_k2=n * len(ids), n_mask=len(ids),
                                   n_float=len(ids), n_fps=len(ids))
         if made != want:
-            raise RuntimeError(f'PV-RCNN stage 2 over {len(ids)} frames launched {made}, '
+            raise RuntimeError(f'{tag} stage 2 over {len(ids)} frames launched {made}, '
                                f'expected {want}')
-        grads.append({'frames': len(ids), 'ms': ms, 'shape': emb.shape,
-                      'finite': bool(np.isfinite(emb).all()),
-                      **calls_vs_plain(rec, 'PV-RCNN stage 2')})
-        if not first_grad:
-            first_grad.update(k2=rec['k2'][:n], mask=rec['mask'][0], fix=rec['fix'][0],
-                              float=rec['float'][0], fps=rec['fps'][0])
+        w['grads'].append({'frames': len(ids), 'ms': ms, 'shape': emb.shape,
+                           'finite': bool(np.isfinite(emb).all()),
+                           **calls_vs_plain(rec, f'{tag} stage 2')})
+        if not w['first_grad']:
+            w['first_grad'].update(k2=rec['k2'][:n], mask=rec['mask'][0], fix=rec['fix'][0],
+                                   float=rec['float'][0], fps=rec['fps'][0])
         return emb
 
     def query(self, *args, **kw):
@@ -3057,44 +3103,46 @@ def drive_pvrcnn_crb(dev):
         ms = (time.perf_counter() - t) * 1e3
         after = self.model.state_dict()
         if not all(torch.equal(after[k], v) for k, v in before.items()):
-            raise RuntimeError('the PV-RCNN CRB query changed the model\'s buffers or '
+            raise RuntimeError(f'the {tag} CRB query changed the model\'s buffers or '
                                'parameters')
-        queries.append({'ms': ms, 'times': dict(self.stage_times), 'sel': list(sel),
-                        'batches': len(self.unlabelled_loader),
-                        'pool': len(self.unlabelled_loader.dataset)})
+        w['queries'].append({'ms': ms, 'times': dict(self.stage_times), 'sel': list(sel),
+                             'batches': len(self.unlabelled_loader),
+                             'pool': len(self.unlabelled_loader.dataset)})
         return sel
 
-    set_random_seed(666)
-    counters(reset=True)
     train_rt.train_one_epoch, Strategy.scan_pool = epoch, scan
     CRBSampling.grad_embeddings, CRBSampling.query = grad_embeddings, query
     try:
-        t = time.perf_counter()
-        active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
-                                  device=dev)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t
+        yield w
     finally:
         train_rt.train_one_epoch, Strategy.scan_pool = real_epoch, real_scan
         CRBSampling.grad_embeddings, CRBSampling.query = real_grads, real_query
-    counts = counters()
-    scored = sum(r['batches'] for r in scans)
-    frames = sum(g['frames'] for g in grads)
-    _, expected = launch_delta({k: 0 for k in counts}, n_k2=n * (steps[0] + scored + frames),
-                               n_dgrad=(n - 1) * steps[0], n_wgrad=n * steps[0],
-                               n_mask=steps[0] + 2 * scored + frames,
-                               n_float=steps[0] + frames, n_fps=steps[0] + scored + frames)
-    log(f'PV-RCNN CRB loop: {loop_s:.1f} s; launches {counts} over {steps[0]} train steps, '
+
+
+def report_crb(w, counts, k1n, loop_s, tag):
+    """Check a watched CRB loop's launch counts in all (``counts``, read
+    after it) and its rounds (a stage 2 of K1·N = ``k1n`` frames and a
+    query a scan); log each round."""
+    n = len(SPARSE_LAYERS)
+    steps = w['steps']
+    scored = sum(r['batches'] for r in w['scans'])
+    frames = sum(g['frames'] for g in w['grads'])
+    _, expected = launch_delta({k: 0 for k in counts}, n_k2=n * (steps + scored + frames),
+                               n_dgrad=(n - 1) * steps, n_wgrad=n * steps,
+                               n_mask=steps + 2 * scored + frames,
+                               n_float=steps + frames, n_fps=steps + scored + frames)
+    log(f'{tag} CRB loop: {loop_s:.1f} s; launches {counts} over {steps} train steps, '
         f'{scored} MC-scored pool batches and {frames} stage-2 frames')
     if counts != expected:
-        raise RuntimeError(f'PV-RCNN CRB loop launches {counts}, expected {expected}')
-    if len(queries) != len(scans) or len(grads) != len(scans) or \
+        raise RuntimeError(f'{tag} CRB loop launches {counts}, expected {expected}')
+    scans, grads, queries = w['scans'], w['grads'], w['queries']
+    if not scans or len(queries) != len(scans) or len(grads) != len(scans) or \
             not all(g['finite'] and g['frames'] == k1n for g in grads):
-        raise RuntimeError(f'PV-RCNN CRB loop: {len(scans)} scans, {len(grads)} stage 2s, '
+        raise RuntimeError(f'{tag} CRB loop: {len(scans)} scans, {len(grads)} stage 2s, '
                            f'{len(queries)} queries')
     for i, (q, s, g) in enumerate(zip(queries, scans, grads)):
         tm = q['times']
-        log(f"PV-RCNN CRB round {i + 1} query: pool {q['pool']} frames in {q['batches']} "
+        log(f"{tag} CRB round {i + 1} query: pool {q['pool']} frames in {q['batches']} "
             f"batches, {q['ms']:.2f} ms wall; stage 1 {tm['crb_stage1_s'] * 1e3:.2f} ms (the "
             f"scan alone {s['ms'] / s['batches']:.2f} ms per pool batch with this script's "
             f"recording; launches per batch {({k: v // s['batches'] for k, v in s['made'].items()})}; "
@@ -3103,10 +3151,60 @@ def drive_pvrcnn_crb(dev):
             f"{g['ms'] / g['frames']:.2f} ms a frame; {summary(g)}), stage 3 "
             f"{tm['crb_stage3_s'] * 1e3:.2f} ms; every buffer and parameter equal before and "
             f"after; selected {q['sel']}")
+    return scored, frames
+
+
+def drive_pvrcnn_crb(dev):
+    """CRB on PV-RCNN (``pvrcnn_al_cfg('crb')``, full width, batch 4, bf16
+    as the file sets it, ``PVRCNN_CRB_SCENES`` scenes), from ``flax_init``:
+    counters to 0, the loop (one round) under ``watched_crb``, counters
+    read (per train step as ``drive_pvrcnn_active``).  Then, over the
+    round-1 pool at seeded weights with K2's f32 route (bit-equal to its
+    plain version, so that the two paths must agree), the query on the
+    kernel path against the plain path, stage 2 from one RoI sample a
+    frame (``given_targets``): stage-1 records equal, the K1·N frames
+    equal, embeddings within CRB_EMB_TOL of their norm, picks equal; GPDB's
+    device form against its host oracle; the kernels timed at the MC scan's
+    and stage 2's inputs (``pvrcnn_crb.``, ``pvrcnn_crb_grad.``); last a
+    reduced f32 query card vs CPU.  Returns the kernels' JSON entries."""
+    import logging
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+    from crb_active_3ddet_torch.runtime import active
+    from crb_active_3ddet_torch.utils.common import set_random_seed
+    cfg = pvrcnn_al_cfg('crb')
+    # the KITTI phase runs the same model and strategy at the paper's config:
+    # a smaller pool and one round here keep the script in time
+    cfg.DATA_CONFIG.NUM_SCENES = PVRCNN_CRB_SCENES
+    a = cfg.ACTIVE_TRAIN
+    bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
+    k1n = int(a.ACTIVE_CONFIG.K1 * n_sel)
+    log(f'==== PV-RCNN CRB: {PVRCNN_CFG} with {CRB_CFG}\'s ACTIVE_TRAIN, '
+        f'{PVRCNN_CRB_SCENES} scenes, batch {bs}, one round of {n_sel}, K1 '
+        f'{a.ACTIVE_CONFIG.K1}, K2 {a.ACTIVE_CONFIG.K2}, SAMPLING_ROUND '
+        f'{cfg.MODEL.ROI_HEAD.SAMPLING_ROUND} ====')
+    a.TOTAL_BUDGET_NUMS = n_sel
+    torch.backends.cudnn.allow_tf32 = True
+    logger = logging.getLogger('chip_smoke.pvrcnn_crb')
+    logger.addHandler(logging.NullHandler())
+    logger.propagate = False
+    out = Path(tempfile.mkdtemp(prefix='chip_smoke_pvrcnn_crb_'))
+    (out / 'ckpt').mkdir()
+    set_random_seed(666)
+    counters(reset=True)
+    with watched_crb('PV-RCNN') as w:
+        t = time.perf_counter()
+        active.train_model_active(cfg, None, bs, logger, out, out / 'ckpt', workers=0,
+                                  device=dev)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    scored, frames = report_crb(w, counters(), k1n, loop_s, 'PV-RCNN')
+    first_scan, first_grad = w['first_scan'], w['first_grad']
 
     # ---- kernel path against plain path at seeded weights, K2 on its f32
     # route ----
-    lab, unlab = pretrained['loaders']
+    lab, unlab = w['loaders']
     qdir = out / 'queries'
     qdir.mkdir()
     f32 = pvrcnn_al_cfg('crb')
@@ -3871,6 +3969,512 @@ def ablate_wgrad(dev):
                  ('as built', 'no gather', 'no fma', 'neither'))
 
 
+# ---- KITTI: a KITTI-layout tree, and CRB on PV-RCNN over it ----------------
+
+KITTI_CFG = 'tools/cfgs/active-kitti_models/pv_rcnn_active_crb.yaml'
+KITTI_CLASSES = ('Car', 'Pedestrian', 'Cyclist')
+KITTI_IMAGE_SHAPES = ((375, 1242), (370, 1224), (374, 1238), (376, 1241))
+# the scanner's height over the road and the camera's place against it (the
+# axes of calibration_kitti.dummy_calibration; offsets as on the KITTI car)
+KITTI_GROUND_Z = -1.73
+KITTI_VELO_TO_CAM_T = (-0.004, -0.076, -0.272)
+KITTI_P2_T = (44.86, 0.2163, 0.00275)
+HDL64_ELEVATION = (-24.8, 2.0)      # degrees, 64 beams between
+
+
+def kitti_calib_matrices(image_shape):
+    """(P2, R0, Tr_velo_to_cam) float32 of a frame whose image is
+    ``image_shape`` (H, W): ``dummy_calibration``'s geometry with the
+    camera's offsets."""
+    h, w = image_shape
+    p2 = np.array([[700.0, 0, w / 2, KITTI_P2_T[0]], [0, 700.0, h / 2, KITTI_P2_T[1]],
+                   [0, 0, 1, KITTI_P2_T[2]]], np.float32)
+    tr = np.array([[0, -1, 0, KITTI_VELO_TO_CAM_T[0]], [0, 0, -1, KITTI_VELO_TO_CAM_T[1]],
+                   [1, 0, 0, KITTI_VELO_TO_CAM_T[2]]], np.float32)
+    return p2, np.eye(3, dtype=np.float32), tr
+
+
+def write_png(path, height, width):
+    """An RGB PNG of ``height`` x ``width`` written with zlib and struct."""
+    import struct
+    import zlib
+
+    def chunk(tag, data):
+        return (struct.pack('>I', len(data)) + tag + data
+                + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
+    row = b'\x00' + bytes(range(256)) * (3 * width // 256) + bytes(3 * width % 256)
+    with open(path, 'wb') as f:
+        f.write(b'\x89PNG\r\n\x1a\n'
+                + chunk(b'IHDR', struct.pack('>IIBBBBB', width, height, 8, 2, 0, 0, 0))
+                + chunk(b'IDAT', zlib.compress(row * height))
+                + chunk(b'IEND', b''))
+
+
+def ring_scan(rng, n_points, pc_range):
+    """A 64-beam scan of a road between walls: (n_points, 4) float32 points
+    with intensity, rays over 360 degrees of azimuth, three times as dense
+    over the front quarter, that return from the ground
+    (``KITTI_GROUND_Z``) or a wall 3.5 m high (two along the road, at a
+    third of the range's half width, and one across it at 0.7 of its
+    length) within the range's reach, with 2 cm of noise.  The camera sees
+    a quarter to a third of the points (a uniform scan gives it a seventh:
+    its image spans 17 of the beams' 27 degrees of elevation and 83 of
+    360 degrees of azimuth), so that a frame of 100 000 points fills more
+    than the 24 576 points of the narrow FPS instance."""
+    x0, y0, _, x1, y1, _ = pc_range
+    reach = float(np.hypot(x1, max(abs(y0), abs(y1))))
+    wall, front = max(abs(y0), abs(y1)) / 3, 0.7 * x1
+    elev = np.deg2rad(np.linspace(*HDL64_ELEVATION, 64))
+
+    def cast(n_az):
+        az = np.linspace(-np.pi, np.pi, n_az, endpoint=False)
+        ahead = az[np.abs(az) < np.pi / 4]
+        az = np.concatenate([az] + [ahead + k * np.pi / (1.5 * n_az) for k in (1, 2)])
+        e, a = np.meshgrid(elev, az, indexing='ij')
+        d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+        with np.errstate(divide='ignore', invalid='ignore'):
+            t_ground = np.where(d[:, 2] < 0, KITTI_GROUND_Z / d[:, 2], np.inf)
+            t_wall = np.minimum(
+                np.where(np.abs(d[:, 1]) > 1e-6, wall / np.abs(d[:, 1]), np.inf),
+                np.where(d[:, 0] > 1e-6, front / d[:, 0], np.inf))
+        t_wall = np.where(t_wall * d[:, 2] <= KITTI_GROUND_Z + 3.5, t_wall, np.inf)
+        t = np.minimum(t_ground, t_wall)
+        hit = t <= reach
+        return d[hit] * t[hit, None]
+
+    if n_points == 0:
+        return np.zeros((0, 4), np.float32)
+    pts = cast(2048)
+    pts = cast(int(np.ceil(2048 * n_points / max(len(pts), 1) * 1.05)))
+    keep = np.sort(rng.choice(len(pts), size=min(n_points, len(pts)), replace=False))
+    pts = pts[keep] + rng.normal(0, 0.02, (len(keep), 3))
+    return np.concatenate([pts, rng.uniform(0, 1, (len(keep), 1))], 1).astype(np.float32)
+
+
+def write_kitti_tree(root, n_train=24, n_val=8, points=(100_000, 120_000),
+                     pc_range=(0, -40, -3, 70.4, 40, 1), object_range=None, max_objects=12,
+                     val_objects=None, min_separation=0.0):
+    """A KITTI-layout tree under ``root``: ``training/{velodyne, label_2,
+    calib, image_2, planes}`` and ``ImageSets/{train, val}.txt`` (frames
+    000000.. train, then val).  A frame of between ``points`` raw points
+    is a ``ring_scan`` and the port's synthetic generator's objects
+    (Car, Pedestrian, Cyclist; Cars twice as likely) drawn in
+    ``object_range`` (default ``pc_range``), of which the ones that the
+    camera sees (their image box at least 2 pixels wide and high, 1 m
+    ahead) are kept and labelled; centres at least ``min_separation``
+    apart; up to ``val_objects`` (default
+    ``max_objects``) in a val frame.  Labels are in the camera frame
+    through the frame's calibration, with truncation and occlusion varied
+    (so that every difficulty occurs) and one DontCare region; image sizes
+    cycle through ``KITTI_IMAGE_SHAPES`` (PNGs written with zlib); every
+    other frame has a road plane.  Deterministic: frame i draws from seed i.
+    Returns the frame ids (train, val)."""
+    from pathlib import Path
+    from crb_active_3ddet_torch.datasets.kitti.calibration_kitti import Calibration
+    from crb_active_3ddet_torch.datasets.synthetic import _make_scene
+    from crb_active_3ddet_torch.ops.points_in_boxes import points_in_boxes_numpy
+    from crb_active_3ddet_torch.utils import box_utils
+    root = Path(root)
+    split_dir = root / 'training'
+    for sub in ('velodyne', 'label_2', 'calib', 'image_2', 'planes'):
+        (split_dir / sub).mkdir(parents=True, exist_ok=True)
+    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+    ids = [f'{i:06d}' for i in range(n_train + n_val)]
+    names = ['Car', 'Car', 'Pedestrian', 'Cyclist']
+    # (truncation, occlusion) per object, in turn: easy, easy, moderate, hard
+    levels = ((0.0, 0), (0.1, 0), (0.2, 1), (0.4, 2))
+    for i, fid in enumerate(ids):
+        rng = np.random.RandomState(i)
+        shape = KITTI_IMAGE_SHAPES[i % len(KITTI_IMAGE_SHAPES)]
+        p2, r0, tr = kitti_calib_matrices(shape)
+        calib = Calibration({'P2': p2, 'P3': p2.copy(), 'R0': r0, 'Tr_velo2cam': tr})
+        n_obj = max_objects if i < n_train else (val_objects or max_objects)
+        objects, boxes, labels = _make_scene(rng, names, object_range or pc_range, num_bg=0,
+                                             max_objects=n_obj, min_separation=min_separation)
+        cam = box_utils.boxes3d_lidar_to_kitti_camera(boxes, calib)
+        img = box_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib, image_shape=shape)
+        seen = (cam[:, 2] > 1) & (img[:, 2] - img[:, 0] >= 2) & (img[:, 3] - img[:, 1] >= 2)
+        inside = points_in_boxes_numpy(objects[:, :3], boxes)
+        objects = objects[inside[:, seen].any(1) | ~inside.any(1)]
+        boxes, labels, cam, img = boxes[seen], labels[seen], cam[seen], img[seen]
+        scan = ring_scan(rng, max(int(rng.randint(*points)) - len(objects), 0), pc_range)
+        np.concatenate([scan, objects]).astype(np.float32).tofile(
+            split_dir / 'velodyne' / f'{fid}.bin')
+        lines = []
+        for j, (b, c, bb, name) in enumerate(zip(boxes, cam, img, labels)):
+            trunc, occ = levels[j % len(levels)]
+            alpha = -np.arctan2(-b[1], b[0]) + c[6]
+            lines.append(f'{name} {trunc:.2f} {occ} {alpha:.2f} {bb[0]:.2f} {bb[1]:.2f} '
+                         f'{bb[2]:.2f} {bb[3]:.2f} {c[4]:.2f} {c[5]:.2f} {c[3]:.2f} '
+                         f'{c[0]:.2f} {c[1]:.2f} {c[2]:.2f} {c[6]:.2f}')
+        lines.append(f'DontCare -1 -1 -10 {shape[1] * 0.4:.2f} {shape[0] * 0.45:.2f} '
+                     f'{shape[1] * 0.45:.2f} {shape[0] * 0.5:.2f} -1 -1 -1 -1000 -1000 -1000 -10')
+        (split_dir / 'label_2' / f'{fid}.txt').write_text('\n'.join(lines) + '\n')
+        rows = [('P0', p2), ('P1', p2), ('P2', p2), ('P3', p2), ('R0_rect', r0),
+                ('Tr_velo_to_cam', tr), ('Tr_imu_to_velo', tr)]
+        (split_dir / 'calib' / f'{fid}.txt').write_text(''.join(
+            f'{key}: ' + ' '.join(repr(float(v)) for v in m.reshape(-1)) + '\n'
+            for key, m in rows))
+        write_png(split_dir / 'image_2' / f'{fid}.png', *shape)
+        if i % 2 == 0:
+            d = -KITTI_GROUND_Z + KITTI_VELO_TO_CAM_T[1]
+            (split_dir / 'planes' / f'{fid}.txt').write_text(
+                f'# Plane\nWidth 4\nHeight 1\n{0.0:e} {-1.0:e} {0.0:e} {d:e}\n')
+    (root / 'ImageSets' / 'train.txt').write_text('\n'.join(ids[:n_train]) + '\n')
+    (root / 'ImageSets' / 'val.txt').write_text('\n'.join(ids[n_train:]) + '\n')
+    return ids[:n_train], ids[n_train:]
+
+
+KITTI_FRAMES = (24, 8)                  # train, val
+KITTI_POINTS = (100_000, 120_000)       # raw points a frame, an HDL-64 scan
+KITTI_OBJECT_RANGE = (0, -20, -3, 45, 20, 1)
+KITTI_VAL_OBJECTS = 30                  # so that a class reaches 41 valid objects
+# the paper's config cut in depth only: 8 labelled frames for one pretrain
+# epoch (4 steps at batch 2), one round of 2 picks from the 16-frame pool
+# (stage 1 keeps K1·N = 10, stage 2 K2·N = 6), one retrain epoch (10 frames,
+# 5 steps)
+KITTI_DEPTH = {'PRE_TRAIN_SAMPLE_NUMS': 8, 'PRE_TRAIN_EPOCH_NUMS': 1, 'SELECT_NUMS': 2,
+               'TOTAL_BUDGET_NUMS': 2, 'SELECT_LABEL_EPOCH_INTERVAL': 1}
+# the one change that is not of depth: the file's one-cycle peaks at LR 0.01
+# after 40 % of its steps, hundreds of steps in a real run but the second of
+# these 4; there Adam's first steps (each weight moved by about the rate)
+# overflow the box decoder, and the pretrained model's NaN box sizes reach
+# CRB's density prior (int(NaN) raises, in the JAX package too).  A 12-step
+# pretrain at 0.01 trains to finite losses but its pool scan still decodes
+# NaN sizes (H100 80GB HBM3, 700 W).  The synthetic AL configs' rate keeps
+# the 4-step schedule finite
+KITTI_LR = 0.003
+# test.main's detections, kernel path against plain path: K2's sums in
+# another order move the RPN's scores by rounding, which reorders the 9-step
+# model's near-tied proposals, so that some RoIs and their boxes come and go
+# (in bf16 and in f32 alike).  The boxes pair up by class within
+# KITTI_PAIR_M of each other's centre and the unpaired ones are counted.
+KITTI_PAIR_M = 0.1
+# the retrained model ahead of its NMS with K2 on its f32 route, kernel path
+# against plain path (``check_kernel_path``): max |diff| / (1 + |ref|) at each
+# tensor.  K2's f32 route and the f32 matmul of the plain version part by
+# their summation order alone (3.7e-8 read in the test CLI's f32 run on an
+# H100 80GB HBM3 at 700 W), which the later f32 layers carry at rounding
+# size; the limit leaves two orders of magnitude above f32 rounding.
+KITTI_F32_TOL = 1e-4
+FPS_NARROW = 24576      # points a frame of the FPS kernel's narrow instance
+KITTI_FULL_CELLS = 1    # (class, difficulty) cells of the val split that must read AP 100
+
+
+def kitti_valid_objects(infos, cls, difficulty):
+    """Objects of ``cls`` that the KITTI eval counts at ``difficulty`` (0, 1,
+    2: its clean_data limits on occlusion, truncation and image height)."""
+    n = 0
+    for info in infos:
+        a = info['annos']
+        h = a['bbox'][:, 3] - a['bbox'][:, 1]
+        n += int(((a['name'] == cls) & (a['occluded'] <= (0, 1, 2)[difficulty])
+                  & (a['truncated'] <= (0.15, 0.3, 0.5)[difficulty])
+                  & (h > (40, 25, 25)[difficulty])).sum())
+    return n
+
+
+def gt_as_detections(infos, scores):
+    """Each frame's labelled objects (not DontCare) as KITTI detections with
+    the given scores (one array a frame)."""
+    dets = []
+    for info, s in zip(infos, scores):
+        a = info['annos']
+        keep = a['name'] != 'DontCare'
+        dets.append({**{k: a[k][keep] for k in ('name', 'bbox', 'location', 'dimensions',
+                                                 'rotation_y', 'alpha', 'truncated',
+                                                 'occluded')},
+                     'score': s[:int(keep.sum())]})
+    return dets
+
+
+def perfect_ap(n):
+    """R40 AP of detections equal to ``n`` valid objects with distinct
+    scores: the 41-point sampling reaches every recall point from 41
+    objects on; below, one point an object."""
+    return 100.0 if n >= 41 else 100.0 * max(n - 1, 0) / 40
+
+
+def detections_apart(got, want):
+    """Two ``result.pkl`` detection lists of the same frames: boxes pair up
+    greedily by class within KITTI_PAIR_M of each other's centre.  Returns
+    (boxes in each, unpaired boxes, the paired boxes' largest score and box
+    differences, headings modulo pi)."""
+    n_got = n_want = unpaired = 0
+    d_score = d_box = 0.0
+    for g, w in zip(got, want):
+        if g['frame_id'] != w['frame_id']:
+            raise RuntimeError('test CLI: the two paths saw other frames')
+        n_got, n_want = n_got + len(g['name']), n_want + len(w['name'])
+        bg, bw = np.asarray(g['boxes_lidar'], np.float64), np.asarray(w['boxes_lidar'], np.float64)
+        dist = np.linalg.norm(bg[:, None, :3] - bw[None, :, :3], axis=-1)
+        dist[np.asarray(g['name'])[:, None] != np.asarray(w['name'])[None, :]] = np.inf
+        paired = 0
+        for i in np.argsort(-np.asarray(g['score'])):
+            j = int(np.argmin(dist[i])) if dist.shape[1] else -1
+            if j < 0 or dist[i, j] > KITTI_PAIR_M:
+                continue
+            dist[:, j] = np.inf
+            paired += 1
+            d_score = max(d_score, abs(float(g['score'][i]) - float(w['score'][j])))
+            turn = (bg[i, 6] - bw[j, 6] + np.pi / 2) % np.pi - np.pi / 2
+            d_box = max(d_box, float(np.abs(bg[i, :6] - bw[j, :6]).max()), abs(turn))
+        unpaired += len(g['name']) + len(w['name']) - 2 * paired
+    return n_got, n_want, unpaired, d_score, d_box
+
+
+def kitti_frame_sizes(cfg):
+    """Per frame of the tree (train then val, as a test-mode loader reads
+    them: the pool scan, the eval): points the camera sees inside the
+    range, and the real voxels among them; against the test buffers."""
+    import pickle
+    from pathlib import Path
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0, training=False)
+    with open(Path(cfg.DATA_CONFIG.DATA_PATH) / 'kitti_infos_trainval.pkl', 'rb') as f:
+        infos = pickle.load(f)
+    sizes = []
+    for info in infos:
+        fid = info['point_cloud']['lidar_idx']
+        pts, calib = ds.get_lidar(fid), ds.get_calib(fid)
+        fov = ds.get_fov_flag(calib.lidar_to_rect(pts[:, :3]), info['image']['image_shape'],
+                              calib)
+        sizes.append(real_voxels(pts[fov], ds))
+    seen, voxels = (list(x) for x in zip(*sizes))
+    return seen, voxels, ds.data_processor.max_points_per_frame, ds.voxel_cfg['max_voxels']
+
+
+def drive_kitti(dev):
+    """CRB on PV-RCNN over a KITTI-layout tree at the paper's own config
+    (active-kitti_models/pv_rcnn_active_crb.yaml: every width as the file
+    sets it, 2 048 keypoints, K2 bf16, buffers of 40 000 voxels / 45 000
+    points at test and 16 000 / 18 000 in training, batch 2), cut in depth
+    only (``KITTI_DEPTH``; and ``KITTI_LR``), through the port's entry points:
+    ``write_kitti_tree`` (``KITTI_FRAMES``), then the info builder
+    (``create_kitti_infos``), the frames' sizes against the buffers (one at
+    least past the narrow FPS instance's 24 576 points, none truncated);
+    ``tools/train.main`` under ``watched_crb`` with every train step's K1,
+    K2 and K3 calls held too, the launches exactly; ``tools/test.main``
+    on the val split with the retrained checkpoint on the kernel path (12
+    K2, 1 K3, 2 K1 masks, 1 K1 float a batch, every call against its plain
+    version) and on the plain path, the official KITTI result printed and
+    the paths' differing boxes counted; the retrained model on every val
+    batch with K2 on its f32 route, kernel path against plain path ahead of
+    the NMS (``check_kernel_path`` at ``KITTI_F32_TOL``); the val
+    split's ground truth fed back with distinct scores through
+    ``KittiDataset.evaluation`` (the eval's C++ built here by g++); the
+    kernels timed at the path's shapes (``kitti.`` prefix).  Returns the
+    kernels' JSON entries."""
+    import pickle
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    from crb_active_3ddet_torch.runtime import eval as eval_rt
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    from crb_active_3ddet_torch.tools import test as test_cli
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_kitti_'))
+    root = work / 'kitti'
+    n_train, n_val = KITTI_FRAMES
+    cfg = load_config(KITTI_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    t = time.perf_counter()
+    write_kitti_tree(root, n_train, n_val, KITTI_POINTS, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                     object_range=KITTI_OBJECT_RANGE, val_objects=KITTI_VAL_OBJECTS,
+                     min_separation=3.0)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, workers=8)
+    infos_s = time.perf_counter() - t
+    seen, voxels, cap_points, cap_voxels = kitti_frame_sizes(cfg)
+    log(f'==== KITTI: {KITTI_CFG} over a tree of {n_train} train and {n_val} val frames of '
+        f'{KITTI_POINTS[0]}-{KITTI_POINTS[1]} raw points, written in {write_s:.1f} s; '
+        f'create_kitti_infos (infos and gt database) {infos_s:.1f} s; points the camera sees '
+        f'in range per frame {seen} (buffer {cap_points}), real voxels {voxels} (buffer '
+        f'{cap_voxels}); {sum(s > FPS_NARROW for s in seen)} frames past the narrow FPS '
+        f'instance\'s {FPS_NARROW} points ====')
+    if max(seen) > cap_points or max(voxels) > cap_voxels:
+        raise RuntimeError('KITTI: a test buffer truncates a frame')
+    if max(seen) <= FPS_NARROW:
+        raise RuntimeError('KITTI: no frame runs K3 past its narrow instance')
+
+    # ---- the AL loop through the train CLI ----
+    depth = [x for k, v in KITTI_DEPTH.items() for x in (f'ACTIVE_TRAIN.{k}', str(v))]
+    out = work / 'train'
+    args = ['--cfg_file', KITTI_CFG, '--output_dir', str(out), '--set',
+            'DATA_CONFIG.DATA_PATH', str(root), 'OPTIMIZATION.LR', str(KITTI_LR), *depth]
+    a = load_config(KITTI_CFG).ACTIVE_TRAIN
+    k1n = int(a.ACTIVE_CONFIG.K1) * KITTI_DEPTH['SELECT_NUMS']
+    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default, as a user runs it
+    counters(reset=True)
+    with watched_crb('KITTI', hold_steps=True) as w:
+        t = time.perf_counter()
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    torch.backends.cudnn.allow_tf32 = False
+    scored, frames = report_crb(w, counters(), k1n, loop_s, 'KITTI')
+    if min(w['epochs']) < 3 or len(w['train']) != w['steps']:
+        raise RuntimeError(f"KITTI: epochs of {w['epochs']} steps, {len(w['train'])} held")
+    worst = max(w['train'], key=lambda s: s['k2_err'])
+    log(f"KITTI train steps: epochs of {w['epochs']} steps at batch 2; every step's calls "
+        f"against their plain versions: {summary(worst)} (the step with the largest K2 "
+        f"error); bits off in K1 words over all steps {sum(s['mask_bits'] for s in w['train'])}")
+    model = state.model
+    sel = w['queries'][0]['sel']
+    if len(set(sel)) != len(sel):
+        raise RuntimeError(f'KITTI: the query picked {sel}')
+
+    # ---- the test CLI on the val split, kernel path and plain path ----
+    last = KITTI_DEPTH['PRE_TRAIN_EPOCH_NUMS'] + KITTI_DEPTH['SELECT_LABEL_EPOCH_INTERVAL']
+    ckpt = out / 'ckpt' / f'checkpoint_epoch_{last}.pth'
+    real_eval = eval_rt.eval_one_epoch
+    runs = {}
+    for path in ('kernel', 'plain'):
+        rec, got = {}, {}
+
+        def evaluated(*ea, **ek):
+            got['res'] = real_eval(*ea, **ek)
+            return got['res']
+        targs = ['--cfg_file', KITTI_CFG, '--ckpt', str(ckpt), '--output_dir',
+                 str(work / f'test_{path}'), '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
+        counters(reset=True)
+        eval_rt.eval_one_epoch = evaluated
+        try:
+            with (plain_versions() if path == 'plain' else kernel_calls(rec)):
+                t = time.perf_counter()
+                test_cli.main(targs)
+                torch.cuda.synchronize()
+                test_s = time.perf_counter() - t
+        finally:
+            eval_rt.eval_one_epoch = real_eval
+        with open(work / f'test_{path}' / 'eval' / 'result.pkl', 'rb') as f:
+            annos = pickle.load(f)
+        n_b = -(-len(annos) // 2)
+        made, want = launch_delta({k: 0 for k in counters()},
+                                  **({} if path == 'plain' else dict(
+                                      n_k2=len(SPARSE_LAYERS) * n_b, n_fps=n_b, n_mask=2 * n_b,
+                                      n_float=n_b)))
+        if made != want:
+            raise RuntimeError(f'KITTI test CLI ({path} path) launched {made}, expected {want}')
+        runs[path] = {'annos': annos, 'ap_str': got['res'][0], 'ap': got['res'][1],
+                      's': test_s, 'rec': rec}
+        log(f'KITTI test CLI, {path} path: {len(annos)} val frames in {n_b} batches, '
+            f'{test_s:.1f} s, launches {made}; '
+            f"{sum(len(x['name']) for x in annos)} boxes kept")
+    s = calls_vs_plain(runs['kernel']['rec'], 'KITTI test CLI')
+    log(f"KITTI test CLI, kernel path: {summary(s)}; official KITTI result:\n"
+        + runs['kernel']['ap_str'])
+    n_got, n_want, unpaired, d_score, d_box = detections_apart(runs['kernel']['annos'],
+                                                               runs['plain']['annos'])
+    ap_diff = max(abs(float(runs['kernel']['ap'][k]) - float(runs['plain']['ap'][k]))
+                  for k in runs['kernel']['ap'] if k != 'sec_per_example')
+    log(f'KITTI test CLI, kernel path against plain path (counted, no limit: K2\'s bf16 '
+        f'rounding reorders near-tied proposals): {n_got} and {n_want} boxes, {unpaired} '
+        f'without a partner within {KITTI_PAIR_M} m ({unpaired / max(n_got + n_want, 1):.4f} '
+        f'of all); paired boxes: scores within {d_score:.3e}, boxes within {d_box:.3e}; '
+        f'largest AP difference {ap_diff:.4f}')
+    if n_got == 0:
+        raise RuntimeError('KITTI test CLI: the kernel path kept no box')
+
+    # ---- the retrained model ahead of its NMS on every val batch, K2 on its
+    # f32 route: kernel path against plain path ----
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                                training=False)
+    model = state.model.eval()
+    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
+    saved = [c.get('USE_BF16', False) for c in cfgs]
+    k2_apart = []
+    try:
+        for c in cfgs:
+            c['USE_BF16'] = False
+        for i, host in enumerate(test_loader):
+            batch = host_to_device_batch(host, dev)
+            vox = prepare_device_batch(batch, test_set.voxel_cfg, test_set.grid_size,
+                                       test_set.point_cloud_range, test_set.voxel_size)
+            log(f'KITTI val batch {i}, K2 f32, ahead of the NMS (limit {KITTI_F32_TOL:.0e}):')
+            rec = {}
+            with kernel_calls(rec):
+                check_kernel_path(model, vox, tol=KITTI_F32_TOL)
+            s = calls_vs_plain(rec, f'KITTI val batch {i} f32')
+            k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(SPARSE_LAYERS,
+                                                                         rec['k2'])
+                             if not torch.equal(got, subm_conv3d_gather(f, rbk, w))])
+            log(f'KITTI val batch {i} f32, kernel path: {summary(s)}')
+    finally:
+        for c, v in zip(cfgs, saved):
+            c['USE_BF16'] = v
+    log(f'KITTI f32: sparse conv layers whose K2 output is not bit-equal to its plain '
+        f'version (torch.matmul), per val batch: {k2_apart}')
+
+    # ---- the eval on the val split's ground truth, distinct scores ----
+    infos = test_set.kitti_infos
+    counts = [int((i['annos']['name'] != 'DontCare').sum()) for i in infos]
+    scores = np.split(np.linspace(1.0, 0.01, sum(counts)), np.cumsum(counts)[:-1])
+    t = time.perf_counter()
+    _, ap = test_set.evaluation(gt_as_detections(infos, scores), cfg.CLASS_NAMES)
+    eval_s = time.perf_counter() - t
+    cells, full = [], 0
+    for cls in cfg.CLASS_NAMES:
+        for d, level in enumerate(('easy', 'moderate', 'hard')):
+            n = kitti_valid_objects(infos, cls, d)
+            want = perfect_ap(n)
+            got_ap = [float(ap[f'{cls}_{m}/{level}_R40']) for m in ('bev', '3d')]
+            if any(abs(x - want) > 1e-9 for x in got_ap):
+                raise RuntimeError(f'KITTI eval on ground truth: {cls} {level} ({n} valid) '
+                                   f'reads {got_ap}, expected {want}')
+            full += want == 100.0
+            cells.append(f'{cls} {level} {n}: {got_ap[1]:.2f}')
+    log(f'KITTI eval of the val ground truth with distinct scores ({eval_s:.2f} s, the C++ '
+        f'built by g++ here): 3D and BEV R40 AP per class, difficulty and valid objects '
+        f'{"; ".join(cells)} (100 from 41 valid objects, 100 (n - 1) / 40 below)')
+    if full < KITTI_FULL_CELLS:
+        raise RuntimeError(f'KITTI eval: {full} classes and difficulties reached 41 valid '
+                           f'objects, fewer than {KITTI_FULL_CELLS}')
+
+    # ---- the kernels at the path's shapes, timed ----
+    layers = sparse_layers(model)
+    first_scan, first_grad, first_step = w['first_scan'], w['first_grad'], w['first_step']
+    steps = w['steps']
+    results = [time_gather_gemm(f'kitti.gather_gemm[{lname}]', layer, f[None], rbk, scored,
+                                cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
+                                                             first_scan['k2'])]
+    for tag, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), first_scan['masks'], first_scan['fix']):
+        results.append(time_mask(f'kitti.nms_mask[{tag}]', boxes, alive, thresh, scored,
+                                 fix[2][1], f'KITTI MC scan {tag}'))
+    (points, valid, k), _, _ = first_scan['fps']
+    results.append(time_fps('kitti.fps', points, valid, k, scored))
+    (boxes, alive, thresh), _, _ = first_step['mask']
+    results.append(time_mask('kitti_train.nms_mask[proposal_nms]', boxes, alive, thresh, steps,
+                             first_step['fix'][2][1], 'KITTI train proposal_nms'))
+    (a_, b_), _, _ = first_step['float']
+    results.append(time_overlap('kitti_train.overlap_bev[roi_targets]', a_, b_, steps,
+                                'KITTI train roi_targets'))
+    (points, valid, k), _, _ = first_step['fps']
+    results.append(time_fps('kitti_train.fps', points, valid, k, steps))
+    (boxes, alive, thresh), _, _ = first_grad['mask']
+    results.append(time_mask('kitti_grad.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             frames, first_grad['fix'][2][1], 'KITTI stage 2 proposal_nms'))
+    (a_, b_), _, _ = first_grad['float']
+    results.append(time_overlap('kitti_grad.overlap_bev[roi_targets]', a_, b_, frames,
+                                'KITTI stage 2 roi_targets'))
+    (points, valid, k), _, _ = first_grad['fps']
+    results.append(time_fps('kitti_grad.fps', points, valid, k, frames))
+    (a_, b_), _, _ = runs['kernel']['rec']['float'][0]
+    results.append(time_overlap('kitti_test.overlap_bev[recall]', a_, b_,
+                                len(runs['kernel']['rec']['float']), 'KITTI test recall'))
+    w.clear()
+    runs.clear()
+    shutil.rmtree(work)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -3927,14 +4531,15 @@ def main():
     phase('reduced SECOND train', check_reduced_train, dev, SECOND_CFG)
     phase('reduced PV-RCNN train', check_reduced_train, dev, PVRCNN_CFG, box_std=0.001)
     phase('reduced PointPillars train', check_reduced_train, dev, PILLAR_CFG)
-    # one round (the other strategies' queries run over the same pool), to
-    # keep the script within its time with the CLI phases
-    results += phase('SECOND AL loop', drive_active, dev, rounds=1)
-    # one round (the PV-RCNN and PointPillars CRB phases run the same query),
-    # to keep the script within its time
-    results += phase('SECOND CRB', drive_crb, dev, rounds=1)
+    # one round and 20 scenes (a pool of 12: the other strategies' queries
+    # run over the same pool), to keep the script within its time
+    results += phase('SECOND AL loop', drive_active, dev, rounds=1, scenes=20)
+    # one round and 20 scenes (the PV-RCNN, KITTI and PointPillars CRB phases
+    # run the same query), to keep the script within its time
+    results += phase('SECOND CRB', drive_crb, dev, rounds=1, scenes=20)
     results += phase('PV-RCNN AL loop', drive_pvrcnn_active, dev)
     results += phase('PV-RCNN CRB', drive_pvrcnn_crb, dev)
+    results += phase('KITTI: PV-RCNN CRB at the paper\'s config', drive_kitti, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each (SECOND's phases run
     # the same strategies over two), to keep the script within its time

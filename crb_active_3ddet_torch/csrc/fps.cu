@@ -21,8 +21,14 @@
 //   * one thread block CLUSTER of 8 blocks a frame (grid = (8, B), one launch
 //     for the whole batch), so eight SMs share a frame's pass.  Block r owns
 //     the r-th eighth of the frame's points; coordinates and running minimum
-//     distances live in registers (24 points a thread), nothing in shared
-//     memory but the exchange slots;
+//     distances live in registers (PT points a thread), nothing in shared
+//     memory but the exchange slots.  PT is a template parameter with two
+//     instances: 24 (24 576 points a frame, the synthetic and train buffers)
+//     and 44 (45 056 points, KITTI's 45 000-point test buffer); the launch
+//     takes the smaller one that holds the frame, so a frame of at most
+//     24 576 points runs as it always did.  At 44 a thread holds 176 floats
+//     of points and distances under __launch_bounds__(128, 1), within the
+//     255 registers a thread may have;
 //   * 128 threads a block: one warp a scheduler.  Every warp repeats the
 //     reduction's operations, so more warps a block cost more dispatch slots a
 //     step than their shorter pass saves (1 024 threads x 3 points a thread
@@ -129,11 +135,15 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
 constexpr int CL = 8;                       // blocks a frame (portable maximum)
 constexpr int THREADS = 128;                // one warp a scheduler
 constexpr int WARPS = THREADS / 32;
-constexpr int PT = 24;                      // points a thread
-constexpr int MAX_POINTS = CL * THREADS * PT;
+constexpr int PT_NARROW = 24;               // points a thread, up to 24 576 a frame
+constexpr int PT_WIDE = 44;                 // up to 45 056 a frame
 constexpr int SLOTS = CL * WARPS;           // candidates a step
 static_assert(SLOTS == 32, "the final reduction reads one candidate a lane");
 
+template <int PT>
+constexpr int capacity() { return CL * THREADS * PT; }
+
+template <int PT>
 __global__ void __cluster_dims__(CL, 1, 1) __launch_bounds__(THREADS, 1)
 fps_kernel(const float* __restrict__ points, const unsigned char* __restrict__ valid,
            int* __restrict__ out, int n, int k) {
@@ -234,20 +244,29 @@ fps_kernel(const float* __restrict__ points, const unsigned char* __restrict__ v
   cluster.sync();        // no block leaves while another may still write to it
 }
 
+// Points a thread of the instance that a frame of N points runs on (0: none).
+int points_per_thread(int N) {
+  return N <= capacity<PT_NARROW>() ? PT_NARROW : N <= capacity<PT_WIDE>() ? PT_WIDE : 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Most points a frame may hold (the per-thread register arrays' capacity).
-int fps_max_points() { return MAX_POINTS; }
+// Most points a frame may hold (the wide instance's register arrays).
+int fps_max_points() { return capacity<PT_WIDE>(); }
 
 // points (B, N, 3) f32, valid (B, N) bytes (0 = padding), out (B, K) int32.
 int fps_launch(const float* points, const unsigned char* valid, int* out, int B,
                int N, int K, void* stream) {
   if (B == 0 || K == 0) return 0;
-  if (N < 1 || N > MAX_POINTS || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  fps_kernel<<<dim3(CL, B), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      points, valid, out, N, K);
+  const int pt = points_per_thread(N);
+  if (N < 1 || pt == 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pt == PT_NARROW)
+    fps_kernel<PT_NARROW><<<dim3(CL, B), THREADS, 0, s>>>(points, valid, out, N, K);
+  else
+    fps_kernel<PT_WIDE><<<dim3(CL, B), THREADS, 0, s>>>(points, valid, out, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,9 +10,10 @@ a frame without valid points returns index 0 throughout).
 
 On CUDA tensors the wrapper launches the kernel once for the whole batch (or
 raises): a cluster of 8 thread blocks a frame, each holding an eighth of the
-frame's points in registers, at most ``max_points()`` a frame.  On CPU tensors
-it runs the plain version below, a K-step loop with the same arithmetic
-written out the same way.  The selection is exact: one differing index would
+frame's points in registers, at most ``max_points()`` (45 056) a frame.  The
+kernel has two instances, 24 and 44 points a thread; a frame of at most
+24 576 points runs on the first.  On CPU tensors it runs the plain version
+below, a K-step loop with the same arithmetic written out the same way.  The selection is exact: one differing index would
 change every later one.  ``launches`` counts kernel launches.
 """
 

@@ -468,11 +468,13 @@ def _fps_points(seed, n, snapped):
                                     (129, 64, 129), (18000, 1024, 17000),
                                     (64, 100, 5), (64, 16, 0), (1, 4, 1),
                                     (7, 12, 7), (2049, 64, 2049),
+                                    (24576, 64, 24576), (24577, 64, 24577),
+                                    (45000, 2048, 30000),
                                     ('capacity', 48, 'capacity')])
 def test_fps_kernel_equals_plain(cuda_device, n, k, nv, snapped):
     if n == 'capacity':
         n = nv = cuda_fps.max_points()
-        assert n >= 18432
+        assert n >= 45000
     pts = np.stack([_fps_points(s, n, snapped) for s in range(3)])
     valid = np.broadcast_to(np.arange(n) < nv, (3, n)).copy()
     p, v = _t(pts).to(cuda_device), _t(valid).to(cuda_device)
@@ -502,8 +504,16 @@ def test_fps_kernel_valid_points_in_one_eighth(cuda_device, part, snapped):
 
 
 @pytest.mark.cuda
+def test_fps_kernel_instances(cuda_device):
+    """The wide instance (44 points a thread) holds KITTI's 45 000-point test
+    buffer; ``test_fps_kernel_equals_plain`` runs both sides of the narrow
+    instance's 24 576."""
+    assert cuda_fps.max_points() == 45056
+
+
+@pytest.mark.cuda
 def test_fps_kernel_refuses_too_many_points(cuda_device):
-    n = 30000
+    n = 50000
     p = torch.zeros(1, n, 3, device=cuda_device)
     with pytest.raises(ValueError, match='at most'):
         cuda_fps.farthest_point_sample_cuda(

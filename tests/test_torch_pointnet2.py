@@ -94,6 +94,36 @@ def test_fps_plain_equals_scan_at_edge_sizes(n, k, snapped):
     assert len(set(got.tolist())) == min(n, k)
 
 
+@pytest.fixture
+def one_torch_thread():
+    """Torch ops on one thread: the plain FPS is ~20 000 small ops at this
+    size, and on 8 threads each waits at its barrier while the suite's
+    workers share the cores (each case took ~450 s of a 6-worker run
+    so, against 2-8 s alone)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+def test_fps_plain_equals_scan_at_kitti_test_buffer(snapped, one_torch_thread):
+    """KITTI's 45 000-point test buffer (past the kernel's narrow instance
+    of 24 576 points a frame), partly valid, 2 048 keypoints: the plain
+    version against the JAX scan, exactly, with the tie rule deciding steps
+    on the snapped points."""
+    n, k, nv = 45000, 2048, 30000
+    pts = _points(45, n, snapped)
+    valid = np.zeros(n, bool)
+    valid[np.random.RandomState(4).permutation(n)[:nv]] = True
+    got = tpn2.farthest_point_sample(_t(pts)[None], _t(valid)[None], k)[0].numpy()
+    scan = np.asarray(jpn2.farthest_point_sample(jnp.asarray(pts), jnp.asarray(valid), k))
+    np.testing.assert_array_equal(got, scan)
+    assert valid[got].all() and len(set(got.tolist())) == k
+    if snapped:
+        assert _tied_steps(pts, valid, got) >= k // 8
+
+
 @pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
 @pytest.mark.parametrize('part', [0, 3, 7])
 def test_fps_plain_valid_points_in_one_eighth(part, snapped):
