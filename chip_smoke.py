@@ -49,8 +49,8 @@ Run from the root of a checkout.  It
      terms, gradients, updated parameters, BN statistics; PV-RCNN's from
      one set of RoI targets, without Dropout);
   8. runs the active-learning loop (``train_model_active``) on SECOND at the
-     full width of second_synth_active_entropy.yaml (its pool cut to 20
-     scenes, one round), batch 4, under
+     full width of second_synth_active_entropy.yaml (cut to 16 scenes, a
+     pool of 8, and one round), batch 4, under
      PyTorch's default precision settings (the port's f32 guard checked at
      every convolution): pretrain from the JAX model's init, one round of
      entropy scoring over the pool, selection and retraining from the
@@ -65,8 +65,8 @@ Run from the root of a checkout.  It
      weights and cls bias on the kernel path against the plain path (live
      boxes and an untied top-4 box_entropy required, every anchor's cls
      logit equal), a profiled scan, and a reduced f32 scan card vs CPU;
-  9. runs the loop again with CRB (second_synth_active_crb.yaml, same
-     sizes but one round, K1 2, K2 1, kmeans++): per MC-scored pool batch 5 forwards (60
+  9. runs the loop again with CRB (second_synth_active_crb.yaml, 16 scenes,
+     one round, K1 2, K2 1, kmeans++): per MC-scored pool batch 5 forwards (60
      K2) and one K1 mask at the NMS over the MC-mean scores, per stage-2
      frame one batch-1 training-mode forward (12 K2); every K1 and K2 call
      of the scans and of stage 2 against its plain version; every buffer
@@ -78,8 +78,9 @@ Run from the root of a checkout.  It
      ``crb_grad.``), and a reduced f32 CRB query card vs CPU;
  10. runs the AL loop on PV-RCNN (``pvrcnn_al_cfg``: pv_rcnn_synth.yaml at
      full width, K2 on its bf16 route, with the ACTIVE_TRAIN sizes of
-     second_synth_active_crb.yaml, batch 4) with METHOD llal: before each
-     round's query the LossNet is fitted over 2 epochs of the labelled
+     second_synth_active_crb.yaml, batch 4; 16 scenes, one round) with
+     METHOD llal: before the round's query the LossNet is fitted over 2
+     epochs of the labelled
      pool; launches exactly per train step and per LossNet step (12 K2,
      11 dgrad, 12 wgrad, 1 K3, 1 K1 mask, 1 K1 float) and per scored pool
      batch (12 K2, 1 K3, 1 K1 mask), every K1, K2 and K3 call of the scans
@@ -106,13 +107,14 @@ Run from the root of a checkout.  It
      before the NMS; the peak of real pillars against the 8 000-pillar
      buffer), the train step (no hand-written kernel launched), a reduced
      eval and train step card vs CPU (in 7), and 8 and 9 on
-     pointpillar_synth_active_entropy.yaml, one round each (CRB with METHOD
+     pointpillar_synth_active_entropy.yaml, 40 scenes and one round each (CRB with METHOD
      crb set in code; no K2 launch, stage 2 none); last the two detection-quality
      gates of tests/test_detection_quality.py with the port (``gate_1``:
      mAP@0.5 > 0.60 on unseen easy scenes; ``gate_2``: CRB lands at least
      one more object frame a seed than random, over 16 seeds from one
-     init), under torch's deterministic algorithms, so that they read the
-     same on every run of one card;
+     init, the seeds shared out to ``GATE_WORKERS`` processes),
+     under torch's deterministic algorithms, so that they read the same on
+     every run of one card;
  13. the port's CLIs (``crb_active_3ddet_torch/tools/``), each through its
      ``main``: a seeded PV-RCNN (pv_rcnn_synth.yaml, full width) written
      as an OpenPCDet ``.pth`` (spconv 2.x kernel layout, the RoI head's
@@ -133,7 +135,7 @@ Run from the root of a checkout.  It
  14. CRB on PV-RCNN at the paper's own config, active-kitti_models/
      pv_rcnn_active_crb.yaml (2 048 keypoints, 40 000 voxels and 45 000
      points at test, 16 000 / 18 000 in training, K2 bf16, batch 2), over
-     a KITTI-layout tree (``write_kitti_tree``: 24 train and 8 val frames
+     a KITTI-layout tree (``write_kitti_tree``: 18 train and 8 val frames
      of 100 000-120 000 points, a 64-beam scan of a road between walls and
      the synthetic generator's objects, labels at every difficulty, road
      planes, PNGs), cut in depth only (``KITTI_DEPTH``; the learning rate
@@ -150,7 +152,23 @@ Run from the root of a checkout.  It
      NMS (``KITTI_F32_TOL``); the val ground truth with
      distinct scores through the eval (AP 100 from 41 valid objects); the
      kernels timed at the path's shapes (``kitti.``, ``kitti_train.``,
-     ``kitti_grad.``, ``kitti_test.``).  Each phase prints its wall time.
+     ``kitti_grad.``, ``kitti_test.``);
+ 15. the same at the paper's Waymo config, active-waymo_models/
+     pv_rcnn_active_crb.yaml (4 096 keypoints from the raw points, 5 point
+     features, 3 classes, 150 000 voxels and 180 000 points, K2 bf16, batch
+     2), over a Waymo-layout tree (``write_waymo_tree``: 14 train and 4 val
+     frames of 190 000-230 000 raw points, a 64-beam scan over a flat court
+     with NLZ flags and objects of the three classes and signs), cut in depth
+     only (``WAYMO_DEPTH``; ``WAYMO_LR``): the gt database
+     (``create_groundtruth_database``), the frames' sizes against the buffers
+     (every frame past the FPS register instances' 45 056 points, so that K3
+     runs its cluster-of-16 route), ``tools/train.main`` under the same
+     watch, one train step's stages, ``ball_query`` time and peak memory,
+     ``tools/test.main`` on both paths with the KITTI-style result, the f32
+     check ahead of the NMS (``WAYMO_F32_TOL``), the val ground truth through
+     ``WaymoDataset.evaluation`` (3D moderate R40 ``perfect_ap(n)``), the
+     kernels at the path's shapes (``waymo.``, ``waymo_train.``,
+     ``waymo_grad.``, ``waymo_test.``).  Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -175,6 +193,7 @@ blocks and the kernel's resident blocks per SM).
 from __future__ import annotations
 
 import contextlib
+import copy
 import ctypes
 import json
 import os
@@ -274,6 +293,7 @@ SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
 FPS_SMALL = [(300, 32, 300), (1024, 256, 640), (129, 64, 129),
              (64, 100, 5), (64, 16, 0), (1, 4, 1), (2049, 64, 2049),
              (24576, 64, 24576), (24577, 64, 24577), (45000, 512, 30000), (45000, 64, 5),
+             (45057, 64, 45057), (100000, 128, 70000), (180000, 64, 180000),
              ('capacity', 48, 'capacity')]
 
 
@@ -927,8 +947,8 @@ def time_fps(name, points, valid, k, n_launch):
     for n, kk, nv in FPS_SMALL:
         if n == 'capacity':
             n = nv = cuda_fps.max_points()
-            if n < 45000:
-                raise RuntimeError(f'FPS capacity {n} is below KITTI\'s 45 000-point buffer')
+            if n < 180000:
+                raise RuntimeError(f'FPS capacity {n} is below Waymo\'s 180 000-point buffer')
         for snapped in (False, True):
             rng = np.random.RandomState(n + kk)
             pts = (rng.randint(-8, 9, (3, n, 3)) / 8 if snapped
@@ -2574,6 +2594,7 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
 # (K2 only) once a pool batch and its pass 2 once a pool frame.
 # the PV-RCNN CRB phase's scenes: 8 labelled, a pool of 12 (stage 1 keeps 8)
 PVRCNN_CRB_SCENES = 20
+PVRCNN_AL_SCENES = 16      # 8 labelled, a pool of 8
 PVRCNN_SCAN = {'entropy': (1, 2), 'confidence': (1, 1), 'random': (0, 0), 'coreset': (1, 1),
                'montecarlo': (1, 1), 'bald': (1, 2), 'llal': (1, 1), 'crb': (1, 2),
                'badge': (0, 0)}
@@ -2736,6 +2757,10 @@ def drive_pvrcnn_active(dev):
     from crb_active_3ddet_torch.runtime.optimization import build_optimizer
     from crb_active_3ddet_torch.utils.common import set_random_seed
     cfg = pvrcnn_al_cfg('llal')
+    # one round over a pool of 8, to keep the script within its time (the
+    # KITTI and Waymo phases run the model at the paper's configs)
+    cfg.DATA_CONFIG.NUM_SCENES = PVRCNN_AL_SCENES
+    cfg.ACTIVE_TRAIN.TOTAL_BUDGET_NUMS = cfg.ACTIVE_TRAIN.SELECT_NUMS
     a = cfg.ACTIVE_TRAIN
     bs, n_sel = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU), int(a.SELECT_NUMS)
     pre, interval = int(a.PRE_TRAIN_EPOCH_NUMS), int(a.SELECT_LABEL_EPOCH_INTERVAL)
@@ -3016,13 +3041,17 @@ def watched_crb(tag, hold_steps=False):
     parameter equal.  Yields the records: ``steps`` (and each epoch's in
     ``epochs``), ``scans``, ``grads``,
     ``queries``, ``train`` (the steps' summaries), the first scan's,
-    stage 2's and train step's calls and the pretrained loaders."""
+    stage 2's and train step's calls (with ``hold_steps`` its dgrad and
+    wgrad calls too), the pretrained loaders, and the peak device memory of
+    a held train step (``peak_step``) and of a scan (``peak_scan``)."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.query_strategies.crb_sampling import CRBSampling
     from crb_active_3ddet_torch.query_strategies.strategy import Strategy
     from crb_active_3ddet_torch.runtime import train as train_rt
     n = len(SPARSE_LAYERS)
     w = {'steps': 0, 'epochs': [], 'scans': [], 'grads': [], 'queries': [], 'train': [],
-         'loaders': None, 'first_scan': {}, 'first_grad': {}, 'first_step': {}}
+         'loaders': None, 'first_scan': {}, 'first_grad': {}, 'first_step': {},
+         'peak_step': 0, 'peak_scan': 0}
     real_scan, real_grads, real_query = (Strategy.scan_pool, CRBSampling.grad_embeddings,
                                          CRBSampling.query)
     real_epoch = train_rt.train_one_epoch
@@ -3034,16 +3063,28 @@ def watched_crb(tag, hold_steps=False):
             return real_epoch(state, step, loader, *args, **kw)
 
         def held(*a, **k):
-            rec = {}
-            with kernel_calls(rec, clone=True):
+            rec, dcalls, wcalls = {}, [], []
+            first = not w['first_step']
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            backward = contextlib.ExitStack()
+            if first:
+                backward.enter_context(recording(cuda_kernels, 'gather_gemm_dgrad', dcalls,
+                                                 clone=True))
+                backward.enter_context(recording(cuda_kernels, 'gather_gemm_wgrad', wcalls,
+                                                 clone=True))
+            with kernel_calls(rec, clone=True), backward:
                 out = step(*a, **k)
+            torch.cuda.synchronize()
+            w['peak_step'] = max(w['peak_step'], torch.cuda.max_memory_allocated())
             with torch.no_grad():
                 w['train'].append(calls_vs_plain(rec, f'{tag} train step {len(w["train"])}'))
             log(f"{tag} train step {len(w['train'])}: loss {float(out[1]['loss']):.4f}; "
                 + summary(w['train'][-1]))
-            if not w['first_step']:
+            if first:
                 w['first_step'].update(mask=rec['mask'][0], fix=rec['fix'][0],
-                                       float=rec['float'][0], fps=rec['fps'][0])
+                                       float=rec['float'][0], fps=rec['fps'][0],
+                                       dgrad=dcalls, wgrad=wcalls)
             return out
         return real_epoch(state, held, loader, *args, **kw)
 
@@ -3052,10 +3093,12 @@ def watched_crb(tag, hold_steps=False):
             w['loaders'] = (self.labelled_loader, self.unlabelled_loader)
         rec, before = {}, counters()
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         with kernel_calls(rec):
             records = real_scan(self, *args, **kw)
         ms = (time.perf_counter() - t) * 1e3
+        w['peak_scan'] = max(w['peak_scan'], torch.cuda.max_memory_allocated())
         n_b = len(self.unlabelled_loader)
         f, m = PVRCNN_SCAN['crb']
         made, want = launch_delta(before, n_k2=n * f * n_b, n_mask=m * n_b, n_fps=f * n_b)
@@ -3154,6 +3197,36 @@ def report_crb(w, counts, k1n, loop_s, tag):
     return scored, frames
 
 
+def stage2_witnesses(model, lab, unlab, qdir, cfg, cache, ref):
+    """Two more seeded CRB queries over the pool and RoI samples of the
+    kernel-vs-plain check, to tell a kernel fault from the stage-2
+    embeddings' sensitivity to rounding: the plain path with K2's plain
+    version summed in f64 and rounded to f32 (another rounding of the same
+    products), and the kernel path with K2 alone on its plain version (K1
+    and K3 on their kernels).  Returns {name: each stage-2 row's max |diff|
+    from the plain path's (``ref``, ``spy_query``) over its norm, or None
+    where stage 1 kept other frames}."""
+    from unittest import mock
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    from crb_active_3ddet_torch.query_strategies import build_strategy
+
+    def f64_sum(f, rbk, w):
+        return subm_conv3d_gather(f.double(), rbk, w.double()).to(f.dtype)
+    norm = np.maximum(np.linalg.norm(ref['emb'], axis=1), 1e-30)
+    errs = {}
+    for name, path, k2 in (('plain path, K2 summed in f64', plain_versions(), f64_sum),
+                           ('kernel path, K2 plain', contextlib.nullcontext(),
+                            subm_conv3d_gather)):
+        strat = build_strategy('crb', model, lab, unlab, 0, str(qdir), cfg)
+        given_targets(strat, model, cache)
+        with path, mock.patch.object(cuda_kernels, 'sparse_conv_gather_gemm', k2):
+            _, seen = spy_query(strat)
+        errs[name] = (np.abs(seen['emb'] - ref['emb']).max(axis=1) / norm
+                      if seen['k1'] == ref['k1'] else None)
+    return errs
+
+
 def drive_pvrcnn_crb(dev):
     """CRB on PV-RCNN (``pvrcnn_al_cfg('crb')``, full width, batch 4, bf16
     as the file sets it, ``PVRCNN_CRB_SCENES`` scenes), from ``flax_init``:
@@ -3163,7 +3236,8 @@ def drive_pvrcnn_crb(dev):
     plain version, so that the two paths must agree), the query on the
     kernel path against the plain path, stage 2 from one RoI sample a
     frame (``given_targets``): stage-1 records equal, the K1·N frames
-    equal, embeddings within CRB_EMB_TOL of their norm, picks equal; GPDB's
+    equal, embeddings within CRB_EMB_TOL of their norm (with the readings
+    of ``stage2_witnesses`` beside them), picks equal; GPDB's
     device form against its host oracle; the kernels timed at the MC scan's
     and stage 2's inputs (``pvrcnn_crb.``, ``pvrcnn_crb_grad.``); last a
     reduced f32 query card vs CPU.  Returns the kernels' JSON entries."""
@@ -3243,6 +3317,13 @@ def drive_pvrcnn_crb(dev):
         f'samples drawn in it), stage 1 {tm["crb_stage1_s"] * 1e3:.2f}, stage 2 '
         f'{tm["crb_stage2_s"] * 1e3:.2f}, stage 3 {tm["crb_stage3_s"] * 1e3:.2f}; selected '
         f'{sel_k} on the kernel path, {sel_p} on the plain path')
+    witness = stage2_witnesses(model, lab, unlab, qdir, f32, cache, ref)
+
+    def rows(e):
+        return 'other K1 frames' if e is None else str([float(f'{x:.3e}') for x in e])
+    log('PV-RCNN stage 2, each row\'s max |diff| over its norm against the plain path: '
+        f'kernel path {rows(emb_err)}; '
+        + '; '.join(f'{name} {rows(e)}' for name, e in witness.items()))
     if not (emb_err <= CRB_EMB_TOL).all() or not (norm > 0).all():
         raise RuntimeError('PV-RCNN stage 2 embeddings differ kernel path vs plain')
     if sel_k != sel_p:
@@ -3343,6 +3424,7 @@ GATE_MAP = 0.60             # gate 1: mAP@0.5 on unseen scenes must exceed it
 # 9 vs 9 over seeds 0-2 (``tests/gate_readings.py``, PERF.md); its recorded
 # 14 vs 7 came from unseeded draws.  ``gate_2`` prints seeds 0-2 on their own.
 GATE_SEEDS = tuple(range(16))
+GATE_WORKERS = 4            # processes that run gate 2's seeds side by side
 GATE_INIT_SEED = 0
 GATE_MARGIN = len(GATE_SEEDS)   # gate 2: crb_total >= rand_total + GATE_MARGIN
 JAX_GATE_SEEDS = (0, 1, 2)      # the JAX test's seeds, reported on their own
@@ -3598,14 +3680,34 @@ def chance_pass_probability(pool, objects, picks, n_seeds, margin):
     return float(total[n_seeds * picks + margin:].sum())
 
 
+def gate_seeds(seeds, device, out_dir, pretrain_epochs, tf32):
+    """``gate_al_seed`` for each of ``seeds`` under ``reproducible``, on one
+    torch thread, with TF32 for matmuls and cuDNN as ``tf32`` gives it;
+    returns {seed: its picks}.  Each of ``gate_2``'s worker processes runs
+    one share of the seeds."""
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_num_threads(1)
+    with reproducible(f'gate 2 seeds {list(seeds)}'):
+        return {s: gate_al_seed(s, device, out_dir, pretrain_epochs) for s in seeds}
+
+
 def gate_2(device, out_dir, pretrain_epochs=128):
     """Gate 2 over GATE_SEEDS (``gate_al_seed``): fails unless crb_total >
     rand_total and crb_total >= rand_total + GATE_MARGIN; prints the totals
-    over JAX_GATE_SEEDS too.  Runs ``reproducible``.  Returns (crb_total,
-    rand_total, per seed, seconds)."""
+    over JAX_GATE_SEEDS too.  ``GATE_WORKERS`` spawned processes run the
+    seeds side by side, each its share under ``reproducible`` on one torch
+    thread (``gate_seeds``): the seeds are independent (each sets every
+    generator and trains from one init, so a seed reads the same in any
+    process), and their steps are host-bound, so the card has room for
+    them.  Returns (crb_total, rand_total, per seed, seconds)."""
+    import multiprocessing
     t = time.perf_counter()
-    with reproducible('gate 2'):
-        per_seed = {s: gate_al_seed(s, device, out_dir, pretrain_epochs) for s in GATE_SEEDS}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    shares = [GATE_SEEDS[i::GATE_WORKERS] for i in range(GATE_WORKERS)]
+    with multiprocessing.get_context('spawn').Pool(GATE_WORKERS) as pool:
+        parts = pool.starmap(gate_seeds, [(share, device, out_dir, pretrain_epochs, tf32)
+                                          for share in shares])
+    per_seed = {s: part[s] for s in GATE_SEEDS for part in parts if s in part}
     crb_total = sum(p['crb'] for p in per_seed.values())
     rand_total = sum(p['random'] for p in per_seed.values())
     seconds = time.perf_counter() - t
@@ -4125,24 +4227,24 @@ def write_kitti_tree(root, n_train=24, n_val=8, points=(100_000, 120_000),
     return ids[:n_train], ids[n_train:]
 
 
-KITTI_FRAMES = (24, 8)                  # train, val
+KITTI_FRAMES = (18, 8)                  # train, val
 KITTI_POINTS = (100_000, 120_000)       # raw points a frame, an HDL-64 scan
 KITTI_OBJECT_RANGE = (0, -20, -3, 45, 20, 1)
 KITTI_VAL_OBJECTS = 30                  # so that a class reaches 41 valid objects
-# the paper's config cut in depth only: 8 labelled frames for one pretrain
-# epoch (4 steps at batch 2), one round of 2 picks from the 16-frame pool
-# (stage 1 keeps K1·N = 10, stage 2 K2·N = 6), one retrain epoch (10 frames,
-# 5 steps)
-KITTI_DEPTH = {'PRE_TRAIN_SAMPLE_NUMS': 8, 'PRE_TRAIN_EPOCH_NUMS': 1, 'SELECT_NUMS': 2,
+# the paper's config cut in depth only: 6 labelled frames for one pretrain
+# epoch (3 steps at batch 2), one round of 2 picks from the 12-frame pool
+# (stage 1 keeps K1·N = 10, stage 2 K2·N = 6), one retrain epoch (8 frames,
+# 4 steps)
+KITTI_DEPTH = {'PRE_TRAIN_SAMPLE_NUMS': 6, 'PRE_TRAIN_EPOCH_NUMS': 1, 'SELECT_NUMS': 2,
                'TOTAL_BUDGET_NUMS': 2, 'SELECT_LABEL_EPOCH_INTERVAL': 1}
 # the one change that is not of depth: the file's one-cycle peaks at LR 0.01
 # after 40 % of its steps, hundreds of steps in a real run but the second of
-# these 4; there Adam's first steps (each weight moved by about the rate)
+# a few here; there Adam's first steps (each weight moved by about the rate)
 # overflow the box decoder, and the pretrained model's NaN box sizes reach
 # CRB's density prior (int(NaN) raises, in the JAX package too).  A 12-step
 # pretrain at 0.01 trains to finite losses but its pool scan still decodes
 # NaN sizes (H100 80GB HBM3, 700 W).  The synthetic AL configs' rate keeps
-# the 4-step schedule finite
+# a schedule of a few steps finite
 KITTI_LR = 0.003
 # test.main's detections, kernel path against plain path: K2's sums in
 # another order move the RPN's scores by rounding, which reorders the 9-step
@@ -4244,6 +4346,172 @@ def kitti_frame_sizes(cfg):
     return seen, voxels, ds.data_processor.max_points_per_frame, ds.voxel_cfg['max_voxels']
 
 
+def crb_through_train_cli(tag, args, k1n):
+    """``tools/train.main(args)``, one CRB round of PV-RCNN at a paper's
+    config, under ``watched_crb`` with every train step's calls held too
+    and under PyTorch's default cuDNN TF32 setting, as a user runs it: the
+    launches and the round checked (``report_crb``; stage 2 over ``k1n``
+    frames), every schedule at least 3 steps, distinct picks.  Returns (the
+    train state, the watch's records, MC-scored pool batches, stage-2
+    frames)."""
+    from crb_active_3ddet_torch.tools import train as train_cli
+    torch.backends.cudnn.allow_tf32 = True
+    counters(reset=True)
+    with watched_crb(tag, hold_steps=True) as w:
+        t = time.perf_counter()
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+        loop_s = time.perf_counter() - t
+    torch.backends.cudnn.allow_tf32 = False
+    scored, frames = report_crb(w, counters(), k1n, loop_s, tag)
+    if min(w['epochs']) < 3 or len(w['train']) != w['steps']:
+        raise RuntimeError(f"{tag}: epochs of {w['epochs']} steps, {len(w['train'])} held")
+    worst = max(w['train'], key=lambda s: s['k2_err'])
+    log(f"{tag} train steps: epochs of {w['epochs']} steps at batch 2; every step's calls "
+        f"against their plain versions: {summary(worst)} (the step with the largest K2 "
+        f"error); bits off in K1 words over all steps {sum(s['mask_bits'] for s in w['train'])}; "
+        f"peak device memory of a train step {w['peak_step'] / 2**30:.2f} GiB, of the MC "
+        f"scan {w['peak_scan'] / 2**30:.2f} GiB")
+    sel = w['queries'][0]['sel']
+    if len(set(sel)) != len(sel):
+        raise RuntimeError(f'{tag}: the query picked {sel}')
+    return state, w, scored, frames
+
+
+def test_cli_paths(tag, cfg_file, ckpt, work, sets):
+    """``tools/test.main`` with ``ckpt`` over the val split (``--set sets``)
+    on the kernel path and on the plain path: launches exactly (a batch of
+    2: 12 K2, 1 K3, 2 K1 masks, 1 K1 float on the kernel path, none on the
+    plain one), every kernel call against its plain version, the
+    dataset's evaluation printed, and the two paths' detections counted
+    apart (no limit: K2's rounding reorders a briefly trained model's
+    near-tied proposals).  Returns the kernel path's call records."""
+    import pickle
+    from crb_active_3ddet_torch.runtime import eval as eval_rt
+    from crb_active_3ddet_torch.tools import test as test_cli
+    real_eval = eval_rt.eval_one_epoch
+    runs = {}
+    for path in ('kernel', 'plain'):
+        rec, got = {}, {}
+
+        def evaluated(*ea, **ek):
+            got['res'] = real_eval(*ea, **ek)
+            return got['res']
+        targs = ['--cfg_file', cfg_file, '--ckpt', str(ckpt), '--output_dir',
+                 str(work / f'test_{path}'), '--set', *sets]
+        counters(reset=True)
+        eval_rt.eval_one_epoch = evaluated
+        try:
+            with (plain_versions() if path == 'plain' else kernel_calls(rec)):
+                t = time.perf_counter()
+                test_cli.main(targs)
+                torch.cuda.synchronize()
+                test_s = time.perf_counter() - t
+        finally:
+            eval_rt.eval_one_epoch = real_eval
+        with open(work / f'test_{path}' / 'eval' / 'result.pkl', 'rb') as f:
+            annos = pickle.load(f)
+        n_b = -(-len(annos) // 2)
+        made, want = launch_delta({k: 0 for k in counters()},
+                                  **({} if path == 'plain' else dict(
+                                      n_k2=len(SPARSE_LAYERS) * n_b, n_fps=n_b, n_mask=2 * n_b,
+                                      n_float=n_b)))
+        if made != want:
+            raise RuntimeError(f'{tag} test CLI ({path} path) launched {made}, expected {want}')
+        runs[path] = {'annos': annos, 'ap_str': got['res'][0], 'ap': got['res'][1], 'rec': rec}
+        log(f'{tag} test CLI, {path} path: {len(annos)} val frames in {n_b} batches, '
+            f'{test_s:.1f} s, launches {made}; '
+            f"{sum(len(x['name']) for x in annos)} boxes kept")
+    s = calls_vs_plain(runs['kernel']['rec'], f'{tag} test CLI')
+    log(f"{tag} test CLI, kernel path: {summary(s)}; the dataset's evaluation:\n"
+        + runs['kernel']['ap_str'])
+    n_got, n_want, unpaired, d_score, d_box = detections_apart(runs['kernel']['annos'],
+                                                               runs['plain']['annos'])
+    ap_diff = max(abs(float(runs['kernel']['ap'][k]) - float(runs['plain']['ap'][k]))
+                  for k in runs['kernel']['ap'] if k != 'sec_per_example')
+    log(f'{tag} test CLI, kernel path against plain path (counted, no limit): {n_got} and '
+        f'{n_want} boxes, {unpaired} without a partner within {KITTI_PAIR_M} m '
+        f'({unpaired / max(n_got + n_want, 1):.4f} of all); paired boxes: scores within '
+        f'{d_score:.3e}, boxes within {d_box:.3e}; largest AP difference {ap_diff:.4f}')
+    if n_got == 0:
+        raise RuntimeError(f'{tag} test CLI: the kernel path kept no box')
+    return runs['kernel']['rec']
+
+
+def f32_ahead_of_nms(model, cfg, dev, tag):
+    """``model`` on every val batch of ``cfg`` with K2 on its f32 route,
+    kernel path against plain path ahead of the NMS (``check_kernel_path``
+    at ``KITTI_F32_TOL``), every kernel call against its plain version; logs
+    the layers whose K2 output is not bit-equal to its plain version
+    (``torch.matmul``).  Returns the val dataset."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                                training=False)
+    model.eval()
+    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
+    saved = [c.get('USE_BF16', False) for c in cfgs]
+    k2_apart = []
+    try:
+        for c in cfgs:
+            c['USE_BF16'] = False
+        for i, host in enumerate(test_loader):
+            batch = host_to_device_batch(host, dev)
+            vox = prepare_device_batch(batch, test_set.voxel_cfg, test_set.grid_size,
+                                       test_set.point_cloud_range, test_set.voxel_size)
+            log(f'{tag} val batch {i}, K2 f32, ahead of the NMS (limit {KITTI_F32_TOL:.0e}):')
+            rec = {}
+            with kernel_calls(rec):
+                check_kernel_path(model, vox, tol=KITTI_F32_TOL)
+            s = calls_vs_plain(rec, f'{tag} val batch {i} f32')
+            k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(SPARSE_LAYERS,
+                                                                         rec['k2'])
+                             if not torch.equal(got, subm_conv3d_gather(f, rbk, w))])
+            log(f'{tag} val batch {i} f32, kernel path: {summary(s)}')
+    finally:
+        for c, v in zip(cfgs, saved):
+            c['USE_BF16'] = v
+    log(f'{tag} f32: sparse conv layers whose K2 output is not bit-equal to its plain '
+        f'version (torch.matmul), per val batch: {k2_apart}')
+    return test_set
+
+
+def crb_path_rows(prefix, tag, w, model, scored, frames, test_rec):
+    """The kernels timed at a CRB path's inputs: the first MC-scored batch,
+    train step and stage-2 frame that ``watched_crb`` recorded (``w``) and
+    the test CLI's first recall record: K2 at each sparse conv layer of the
+    scan, K1's NMS masks and float entries, K3, named ``<prefix>.``,
+    ``<prefix>_train.``, ``<prefix>_grad.`` and ``<prefix>_test.``, logged
+    under ``tag``.  Returns their JSON entries."""
+    first_scan, first_grad, first_step = w['first_scan'], w['first_grad'], w['first_step']
+    steps = w['steps']
+    results = [time_gather_gemm(f'{prefix}.gather_gemm[{lname}]', layer, f[None], rbk, scored,
+                                cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, sparse_layers(model),
+                                                             first_scan['k2'])]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), first_scan['masks'], first_scan['fix']):
+        results.append(time_mask(f'{prefix}.nms_mask[{name}]', boxes, alive, thresh, scored,
+                                 fix[2][1], f'{tag} MC scan {name}'))
+    (points, valid, k), _, _ = first_scan['fps']
+    results.append(time_fps(f'{prefix}.fps', points, valid, k, scored))
+    for kind, at, n_launch in (('train', first_step, steps), ('grad', first_grad, frames)):
+        where = 'train' if kind == 'train' else 'stage 2'
+        (boxes, alive, thresh), _, _ = at['mask']
+        results.append(time_mask(f'{prefix}_{kind}.nms_mask[proposal_nms]', boxes, alive, thresh,
+                                 n_launch, at['fix'][2][1], f'{tag} {where} proposal_nms'))
+        (a_, b_), _, _ = at['float']
+        results.append(time_overlap(f'{prefix}_{kind}.overlap_bev[roi_targets]', a_, b_,
+                                    n_launch, f'{tag} {where} roi_targets'))
+        (points, valid, k), _, _ = at['fps']
+        results.append(time_fps(f'{prefix}_{kind}.fps', points, valid, k, n_launch))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap(f'{prefix}_test.overlap_bev[recall]', a_, b_,
+                                len(test_rec['float']), f'{tag} test recall'))
+    return results
+
+
 def drive_kitti(dev):
     """CRB on PV-RCNN over a KITTI-layout tree at the paper's own config
     (active-kitti_models/pv_rcnn_active_crb.yaml: every width as the file
@@ -4265,17 +4533,10 @@ def drive_kitti(dev):
     ``KittiDataset.evaluation`` (the eval's C++ built here by g++); the
     kernels timed at the path's shapes (``kitti.`` prefix).  Returns the
     kernels' JSON entries."""
-    import pickle
     import shutil
     from pathlib import Path
     from crb_active_3ddet_torch.config import load_config
-    from crb_active_3ddet_torch.datasets import build_dataloader
     from crb_active_3ddet_torch.datasets.kitti.kitti_dataset import create_kitti_infos
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
-    from crb_active_3ddet_torch.runtime import eval as eval_rt
-    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
-    from crb_active_3ddet_torch.tools import test as test_cli
-    from crb_active_3ddet_torch.tools import train as train_cli
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_kitti_'))
     root = work / 'kitti'
     n_train, n_val = KITTI_FRAMES
@@ -4309,107 +4570,15 @@ def drive_kitti(dev):
             'DATA_CONFIG.DATA_PATH', str(root), 'OPTIMIZATION.LR', str(KITTI_LR), *depth]
     a = load_config(KITTI_CFG).ACTIVE_TRAIN
     k1n = int(a.ACTIVE_CONFIG.K1) * KITTI_DEPTH['SELECT_NUMS']
-    torch.backends.cudnn.allow_tf32 = True          # PyTorch's default, as a user runs it
-    counters(reset=True)
-    with watched_crb('KITTI', hold_steps=True) as w:
-        t = time.perf_counter()
-        state = train_cli.main(args)
-        torch.cuda.synchronize()
-        loop_s = time.perf_counter() - t
-    torch.backends.cudnn.allow_tf32 = False
-    scored, frames = report_crb(w, counters(), k1n, loop_s, 'KITTI')
-    if min(w['epochs']) < 3 or len(w['train']) != w['steps']:
-        raise RuntimeError(f"KITTI: epochs of {w['epochs']} steps, {len(w['train'])} held")
-    worst = max(w['train'], key=lambda s: s['k2_err'])
-    log(f"KITTI train steps: epochs of {w['epochs']} steps at batch 2; every step's calls "
-        f"against their plain versions: {summary(worst)} (the step with the largest K2 "
-        f"error); bits off in K1 words over all steps {sum(s['mask_bits'] for s in w['train'])}")
-    model = state.model
-    sel = w['queries'][0]['sel']
-    if len(set(sel)) != len(sel):
-        raise RuntimeError(f'KITTI: the query picked {sel}')
+    state, w, scored, frames = crb_through_train_cli('KITTI', args, k1n)
 
-    # ---- the test CLI on the val split, kernel path and plain path ----
+    # ---- the test CLI on the val split; the retrained model ahead of its
+    # NMS with K2 on its f32 route ----
     last = KITTI_DEPTH['PRE_TRAIN_EPOCH_NUMS'] + KITTI_DEPTH['SELECT_LABEL_EPOCH_INTERVAL']
-    ckpt = out / 'ckpt' / f'checkpoint_epoch_{last}.pth'
-    real_eval = eval_rt.eval_one_epoch
-    runs = {}
-    for path in ('kernel', 'plain'):
-        rec, got = {}, {}
-
-        def evaluated(*ea, **ek):
-            got['res'] = real_eval(*ea, **ek)
-            return got['res']
-        targs = ['--cfg_file', KITTI_CFG, '--ckpt', str(ckpt), '--output_dir',
-                 str(work / f'test_{path}'), '--set', 'DATA_CONFIG.DATA_PATH', str(root)]
-        counters(reset=True)
-        eval_rt.eval_one_epoch = evaluated
-        try:
-            with (plain_versions() if path == 'plain' else kernel_calls(rec)):
-                t = time.perf_counter()
-                test_cli.main(targs)
-                torch.cuda.synchronize()
-                test_s = time.perf_counter() - t
-        finally:
-            eval_rt.eval_one_epoch = real_eval
-        with open(work / f'test_{path}' / 'eval' / 'result.pkl', 'rb') as f:
-            annos = pickle.load(f)
-        n_b = -(-len(annos) // 2)
-        made, want = launch_delta({k: 0 for k in counters()},
-                                  **({} if path == 'plain' else dict(
-                                      n_k2=len(SPARSE_LAYERS) * n_b, n_fps=n_b, n_mask=2 * n_b,
-                                      n_float=n_b)))
-        if made != want:
-            raise RuntimeError(f'KITTI test CLI ({path} path) launched {made}, expected {want}')
-        runs[path] = {'annos': annos, 'ap_str': got['res'][0], 'ap': got['res'][1],
-                      's': test_s, 'rec': rec}
-        log(f'KITTI test CLI, {path} path: {len(annos)} val frames in {n_b} batches, '
-            f'{test_s:.1f} s, launches {made}; '
-            f"{sum(len(x['name']) for x in annos)} boxes kept")
-    s = calls_vs_plain(runs['kernel']['rec'], 'KITTI test CLI')
-    log(f"KITTI test CLI, kernel path: {summary(s)}; official KITTI result:\n"
-        + runs['kernel']['ap_str'])
-    n_got, n_want, unpaired, d_score, d_box = detections_apart(runs['kernel']['annos'],
-                                                               runs['plain']['annos'])
-    ap_diff = max(abs(float(runs['kernel']['ap'][k]) - float(runs['plain']['ap'][k]))
-                  for k in runs['kernel']['ap'] if k != 'sec_per_example')
-    log(f'KITTI test CLI, kernel path against plain path (counted, no limit: K2\'s bf16 '
-        f'rounding reorders near-tied proposals): {n_got} and {n_want} boxes, {unpaired} '
-        f'without a partner within {KITTI_PAIR_M} m ({unpaired / max(n_got + n_want, 1):.4f} '
-        f'of all); paired boxes: scores within {d_score:.3e}, boxes within {d_box:.3e}; '
-        f'largest AP difference {ap_diff:.4f}')
-    if n_got == 0:
-        raise RuntimeError('KITTI test CLI: the kernel path kept no box')
-
-    # ---- the retrained model ahead of its NMS on every val batch, K2 on its
-    # f32 route: kernel path against plain path ----
-    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
-                                                training=False)
-    model = state.model.eval()
-    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
-    saved = [c.get('USE_BF16', False) for c in cfgs]
-    k2_apart = []
-    try:
-        for c in cfgs:
-            c['USE_BF16'] = False
-        for i, host in enumerate(test_loader):
-            batch = host_to_device_batch(host, dev)
-            vox = prepare_device_batch(batch, test_set.voxel_cfg, test_set.grid_size,
-                                       test_set.point_cloud_range, test_set.voxel_size)
-            log(f'KITTI val batch {i}, K2 f32, ahead of the NMS (limit {KITTI_F32_TOL:.0e}):')
-            rec = {}
-            with kernel_calls(rec):
-                check_kernel_path(model, vox, tol=KITTI_F32_TOL)
-            s = calls_vs_plain(rec, f'KITTI val batch {i} f32')
-            k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(SPARSE_LAYERS,
-                                                                         rec['k2'])
-                             if not torch.equal(got, subm_conv3d_gather(f, rbk, w))])
-            log(f'KITTI val batch {i} f32, kernel path: {summary(s)}')
-    finally:
-        for c, v in zip(cfgs, saved):
-            c['USE_BF16'] = v
-    log(f'KITTI f32: sparse conv layers whose K2 output is not bit-equal to its plain '
-        f'version (torch.matmul), per val batch: {k2_apart}')
+    test_rec = test_cli_paths('KITTI', KITTI_CFG, out / 'ckpt' / f'checkpoint_epoch_{last}.pth',
+                              work, ['DATA_CONFIG.DATA_PATH', str(root)])
+    model = state.model
+    test_set = f32_ahead_of_nms(model, cfg, dev, 'KITTI')
 
     # ---- the eval on the val split's ground truth, distinct scores ----
     infos = test_set.kitti_infos
@@ -4437,43 +4606,363 @@ def drive_kitti(dev):
                            f'objects, fewer than {KITTI_FULL_CELLS}')
 
     # ---- the kernels at the path's shapes, timed ----
-    layers = sparse_layers(model)
-    first_scan, first_grad, first_step = w['first_scan'], w['first_grad'], w['first_step']
-    steps = w['steps']
-    results = [time_gather_gemm(f'kitti.gather_gemm[{lname}]', layer, f[None], rbk, scored,
-                                cdt=f.dtype)
-               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
-                                                             first_scan['k2'])]
-    for tag, ((boxes, alive, thresh), _, _), fix in zip(
-            ('proposal_nms', 'nms'), first_scan['masks'], first_scan['fix']):
-        results.append(time_mask(f'kitti.nms_mask[{tag}]', boxes, alive, thresh, scored,
-                                 fix[2][1], f'KITTI MC scan {tag}'))
-    (points, valid, k), _, _ = first_scan['fps']
-    results.append(time_fps('kitti.fps', points, valid, k, scored))
-    (boxes, alive, thresh), _, _ = first_step['mask']
-    results.append(time_mask('kitti_train.nms_mask[proposal_nms]', boxes, alive, thresh, steps,
-                             first_step['fix'][2][1], 'KITTI train proposal_nms'))
-    (a_, b_), _, _ = first_step['float']
-    results.append(time_overlap('kitti_train.overlap_bev[roi_targets]', a_, b_, steps,
-                                'KITTI train roi_targets'))
-    (points, valid, k), _, _ = first_step['fps']
-    results.append(time_fps('kitti_train.fps', points, valid, k, steps))
-    (boxes, alive, thresh), _, _ = first_grad['mask']
-    results.append(time_mask('kitti_grad.nms_mask[proposal_nms]', boxes, alive, thresh,
-                             frames, first_grad['fix'][2][1], 'KITTI stage 2 proposal_nms'))
-    (a_, b_), _, _ = first_grad['float']
-    results.append(time_overlap('kitti_grad.overlap_bev[roi_targets]', a_, b_, frames,
-                                'KITTI stage 2 roi_targets'))
-    (points, valid, k), _, _ = first_grad['fps']
-    results.append(time_fps('kitti_grad.fps', points, valid, k, frames))
-    (a_, b_), _, _ = runs['kernel']['rec']['float'][0]
-    results.append(time_overlap('kitti_test.overlap_bev[recall]', a_, b_,
-                                len(runs['kernel']['rec']['float']), 'KITTI test recall'))
+    results = crb_path_rows('kitti', 'KITTI', w, model, scored, frames, test_rec)
     w.clear()
-    runs.clear()
     shutil.rmtree(work)
     return results
 
+
+WAYMO_CLASS_SIZES = {'Vehicle': (4.7, 2.1, 1.7), 'Pedestrian': (0.91, 0.86, 1.73),
+                     'Cyclist': (1.78, 0.84, 1.78), 'Sign': (0.6, 0.1, 0.8)}
+WAYMO_SENSOR_Z = 2.2                 # m: the top lidar over the ground (z = 0)
+WAYMO_ELEVATION = (-17.6, 2.4)       # degrees, the top lidar's 64 beams between
+WAYMO_CAMERAS = ((1280, 1920),) * 3 + ((886, 1920),) * 2
+
+
+def waymo_scan(rng, n_points, pc_range):
+    """A 64-beam top-lidar scan from ``WAYMO_SENSOR_Z`` over a flat ground
+    (z = 0) in a square court whose walls, 20 m high, stand 1.2 times the
+    range's half width out (so that rays near the horizon return from
+    outside the range): (n_points, 3) float64 points with 2 cm of noise.
+    The beams crowd towards the horizon (elevation e0 + (e1 - e0) u^0.6 over
+    uniform u), as a long-range lidar's do."""
+    x0, y0, _, x1, y1, _ = pc_range
+    wall = 1.2 * max(abs(x0), abs(x1), abs(y0), abs(y1))
+    e0, e1 = np.deg2rad(WAYMO_ELEVATION)
+    elev = e0 + (e1 - e0) * np.linspace(0, 1, 64) ** 0.6
+
+    def cast(n_az):
+        az = np.linspace(-np.pi, np.pi, n_az, endpoint=False)
+        e, a = np.meshgrid(elev, az, indexing='ij')
+        d = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+        with np.errstate(divide='ignore', invalid='ignore'):
+            t_ground = np.where(d[:, 2] < 0, WAYMO_SENSOR_Z / -d[:, 2], np.inf)
+            t_wall = np.minimum(np.where(np.abs(d[:, 0]) > 1e-9, wall / np.abs(d[:, 0]), np.inf),
+                                np.where(np.abs(d[:, 1]) > 1e-9, wall / np.abs(d[:, 1]), np.inf))
+        t_wall = np.where(WAYMO_SENSOR_Z + t_wall * d[:, 2] <= 20.0, t_wall, np.inf)
+        t = np.minimum(t_ground, t_wall)
+        hit = np.isfinite(t)
+        return d[hit] * t[hit, None] + np.array([0.0, 0.0, WAYMO_SENSOR_Z])
+
+    if n_points == 0:
+        return np.zeros((0, 3))
+    pts = cast(512)
+    pts = cast(int(np.ceil(512 * n_points / max(len(pts), 1) * 1.02)))
+    keep = np.sort(rng.choice(len(pts), size=min(n_points, len(pts)), replace=False))
+    return pts[keep] + rng.normal(0, 0.02, (len(keep), 3))
+
+
+def write_waymo_tree(root, n_train=14, n_val=4, points=(190_000, 230_000),
+                     pc_range=(-75.2, -75.2, -2, 75.2, 75.2, 4), object_range=None,
+                     max_objects=16, frames_per_sequence=4, nlz_share=0.03, tag=''):
+    """A Waymo tree under ``root`` in the layout that ``waymo_utils.
+    process_single_sequence`` and ``create_waymo_infos`` write:
+    ``waymo_processed_data/<seq>/<idx:04d>.npy`` ((N, 6) float32 [x, y, z,
+    intensity, elongation, NLZ flag]), ``<seq>/<seq>.pkl`` (the sequence's
+    infos: ``point_cloud``, ``frame_id``, ``metadata``, ``image``, ``pose``,
+    ``annos``, ``num_points_of_each_lidar``), ``ImageSets/{train,val}.txt``
+    naming ``<seq>.tfrecord``, and the merged
+    ``waymo_processed_data_infos_{train,val}.pkl``.  Frames run in sequences
+    of ``frames_per_sequence``, train then val; sequence names carry ``tag``.
+    A frame of between ``points`` raw points is a ``waymo_scan`` (its share
+    ``nlz_share`` flagged as in a no-label zone, NLZ 1, the others -1) and
+    1 to ``max_objects`` objects in ``object_range`` (default ``pc_range``)
+    on the ground: Vehicles twice as likely as Pedestrians, Cyclists and
+    Signs, each with points on its box (a few with 0-5 points, as far or
+    hidden objects have), detection and tracking difficulty 0 or 2 in turn.
+    Deterministic: frame i draws from seed i.  Returns the frame ids (train,
+    val)."""
+    import pickle
+    from pathlib import Path
+    from crb_active_3ddet_torch.ops.points_in_boxes import points_in_boxes_numpy
+    root = Path(root)
+    data = root / 'waymo_processed_data'
+    (root / 'ImageSets').mkdir(parents=True, exist_ok=True)
+    names = ['Vehicle', 'Vehicle', 'Pedestrian', 'Cyclist', 'Sign']
+    x0, y0, _, x1, y1, _ = object_range or pc_range
+    seqs, ids = {}, ([], [])
+    for i in range(n_train + n_val):
+        split = 0 if i < n_train else 1
+        j = i if split == 0 else i - n_train
+        seq = (f'segment-{1000003 * (i // frames_per_sequence + 7 * split) + 11:019d}'
+               f'_{split}_{j // frames_per_sequence:03d}{tag}_with_camera_labels')
+        idx = j % frames_per_sequence
+        rng = np.random.RandomState(i)
+        n_obj = rng.randint(1, max_objects + 1)
+        boxes, labels, obj_pts = [], [], []
+        for k in range(n_obj):
+            name = names[rng.randint(len(names))]
+            l, w, h = np.array(WAYMO_CLASS_SIZES[name]) * rng.uniform(0.9, 1.1, 3)
+            z = h / 2 + (1.5 if name == 'Sign' else 0.0)
+            for _ in range(16):
+                cx, cy = rng.uniform(x0 + 3, x1 - 3), rng.uniform(y0 + 3, y1 - 3)
+                if all(np.hypot(cx - b[0], cy - b[1]) > 4.0 for b in boxes):
+                    break
+            heading = rng.uniform(-np.pi, np.pi)
+            npts = (0, 3, 5)[k] if k < 3 and n_obj > 3 else rng.randint(40, 400)
+            local = rng.uniform(-0.5, 0.5, (npts, 3)) * np.array([l, w, h])
+            ca, sa = np.cos(heading), np.sin(heading)
+            obj_pts.append(np.stack([local[:, 0] * ca - local[:, 1] * sa + cx,
+                                     local[:, 0] * sa + local[:, 1] * ca + cy,
+                                     local[:, 2] + z], 1))
+            boxes.append([cx, cy, z, l, w, h, heading])
+            labels.append(name)
+        boxes = np.array(boxes, np.float64).reshape(-1, 7)
+        scan = waymo_scan(rng, max(int(rng.randint(*points)) - sum(map(len, obj_pts)), 0),
+                          pc_range)
+        if len(boxes):      # the scan's returns from inside a box would be the box's
+            scan = scan[~points_in_boxes_numpy(scan.astype(np.float32), boxes).any(1)]
+        xyz = np.concatenate([scan, *obj_pts]).astype(np.float32)
+        n = len(xyz)
+        nlz = np.where(rng.uniform(size=n) < nlz_share, 1.0, -1.0)
+        feats = np.stack([rng.exponential(0.4, n), rng.uniform(0, 0.3, n), nlz], 1)
+        pts = np.concatenate([xyz, feats.astype(np.float32)], 1).astype(np.float32)
+        seq_dir = data / seq
+        seq_dir.mkdir(parents=True, exist_ok=True)
+        np.save(seq_dir / f'{idx:04d}.npy', pts)
+        kept = pts[pts[:, 5] == -1]
+        counts = points_in_boxes_numpy(kept[:, :3], boxes).sum(0) if len(boxes) \
+            else np.zeros(0, np.int64)
+        difficulty = np.array([2 if k % 3 == 2 else 0 for k in range(len(boxes))])
+        first = int(0.9 * n)
+        info = {
+            'point_cloud': {'num_features': 5, 'lidar_sequence': seq, 'sample_idx': idx},
+            'frame_id': seq + ('_%03d' % idx),
+            'metadata': {'context_name': seq[len('segment-'):-len('_with_camera_labels')],
+                         'timestamp_micros': 1_550_000_000_000_000 + 100_000 * idx},
+            'image': {f'image_shape_{c}': shape for c, shape in enumerate(WAYMO_CAMERAS)},
+            'pose': np.array([[1, 0, 0, 1.5 * idx], [0, 1, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]],
+                             np.float32),
+            'annos': {
+                'name': np.array(labels), 'difficulty': difficulty,
+                'dimensions': boxes[:, 3:6].copy(), 'location': boxes[:, :3].copy(),
+                'heading_angles': boxes[:, 6].copy(),
+                'obj_ids': np.array([f'{i:04d}-{k:03d}-{rng.randint(1 << 30):08x}'
+                                     for k in range(len(boxes))]),
+                'tracking_difficulty': difficulty.copy(),
+                'num_points_in_gt': np.asarray(counts, np.int64),
+                'gt_boxes_lidar': boxes.copy()},
+            'num_points_of_each_lidar': [first - 4 * (first // 25)] + [first // 25] * 4,
+        }
+        seqs.setdefault((split, seq), []).append(info)
+        ids[split].append(info['frame_id'])
+    for split, tag_name in enumerate(('train', 'val')):
+        merged = []
+        split_seqs = [seq for (sp, seq) in seqs if sp == split]
+        for seq in split_seqs:
+            with open(data / seq / f'{seq}.pkl', 'wb') as f:
+                pickle.dump(seqs[(split, seq)], f)
+            merged += seqs[(split, seq)]
+        (root / 'ImageSets' / f'{tag_name}.txt').write_text(
+            ''.join(f'{seq}.tfrecord\n' for seq in split_seqs))
+        with open(root / f'waymo_processed_data_infos_{tag_name}.pkl', 'wb') as f:
+            pickle.dump(merged, f)
+    return ids
+
+WAYMO_CFG = 'tools/cfgs/active-waymo_models/pv_rcnn_active_crb.yaml'
+WAYMO_FRAMES = (14, 4)                  # train, val
+WAYMO_POINTS = (190_000, 230_000)       # raw points a frame, both returns of every lidar
+WAYMO_OBJECT_RANGE = (-50, -50, -2, 50, 50, 4)
+# the paper's Waymo config cut in depth only: every frame of a sequence
+# (the file samples every 10th), 6 labelled frames for one pretrain epoch (3
+# steps at batch 2), one round of 2 picks from the 8-frame pool (stage 1
+# keeps K1·N = 6, stage 2 K2·N = 4), one retrain epoch (8 frames, 4 steps)
+WAYMO_DEPTH = {'DATA_CONFIG.SAMPLED_INTERVAL.train': 1, 'DATA_CONFIG.SAMPLED_INTERVAL.test': 1,
+               'ACTIVE_TRAIN.PRE_TRAIN_SAMPLE_NUMS': 6, 'ACTIVE_TRAIN.PRE_TRAIN_EPOCH_NUMS': 1,
+               'ACTIVE_TRAIN.SELECT_NUMS': 2, 'ACTIVE_TRAIN.TOTAL_BUDGET_NUMS': 2,
+               'ACTIVE_TRAIN.SELECT_LABEL_EPOCH_INTERVAL': 1}
+# the one change that is not of depth, as KITTI_LR: at the file's LR 0.01
+# a 4-step pretrain overflowed the box decoder (its third step's loss
+# 171.3 against 13.2 at the first) and the pool scan's NaN box sizes reached
+# CRB's density prior, where int(NaN) raises, in the JAX package too (H100
+# 80GB HBM3, 700 W)
+WAYMO_LR = 0.003
+
+
+def waymo_frame_sizes(cfg):
+    """Per frame of the tree (train then val), as a test-mode loader reads
+    it (NLZ points dropped): points inside the range and the real voxels
+    among them; against the buffers."""
+    import pickle
+    from pathlib import Path
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    ds, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0, training=False)
+    sizes, raw = [], []
+    for split in ('train', 'val'):
+        with open(Path(cfg.DATA_CONFIG.DATA_PATH)
+                  / f'waymo_processed_data_infos_{split}.pkl', 'rb') as f:
+            for info in pickle.load(f):
+                pc = info['point_cloud']
+                pts = ds.get_lidar(pc['lidar_sequence'], pc['sample_idx'], from_shm=False)
+                raw.append(len(np.load(ds.data_path / pc['lidar_sequence']
+                                       / f"{pc['sample_idx']:04d}.npy", mmap_mode='r')))
+                sizes.append(real_voxels(pts, ds))
+    seen, voxels = (list(x) for x in zip(*sizes))
+    return raw, seen, voxels, ds.data_processor.max_points_per_frame, ds.voxel_cfg['max_voxels']
+
+
+def ball_query_ms(model, vox, generator):
+    """One training-mode forward of ``model`` on ``vox`` with every
+    ``pointnet2.ball_query`` call recorded, then each call timed alone
+    (CUDA events); returns (the calls' summed ms, the calls' (radius,
+    nsample, centres, points) shapes)."""
+    from crb_active_3ddet_torch.ops import pointnet2
+    calls = []
+    model.train()
+    with recording(pointnet2, 'ball_query', calls), torch.no_grad():
+        model(vox, generator)
+    total, shapes = 0.0, []
+    for args, _, _ in calls:
+        total += cuda_time_ms(lambda: pointnet2.ball_query(*args), warmup=1, iters=3)
+        shapes.append((args[0], args[1], tuple(args[4].shape), tuple(args[2].shape)))
+    return total, shapes
+
+
+def drive_waymo(dev):
+    """CRB on PV-RCNN over a Waymo-layout tree at the paper's own config
+    (active-waymo_models/pv_rcnn_active_crb.yaml: every width as the file
+    sets it, 4 096 keypoints from the raw points, 5 point features, 3
+    classes, K2 bf16, buffers of 150 000 voxels and 180 000 points, batch
+    2), cut in depth only (``WAYMO_DEPTH``; and ``WAYMO_LR``), through the
+    port's entry points: ``write_waymo_tree`` (``WAYMO_FRAMES``), the gt database
+    (``waymo_dataset.create_groundtruth_database``, the file's
+    ``gt_sampling`` reads it), the frames' sizes against the buffers (none
+    truncated or overflowed, every one past the FPS register instances'
+    45 056 points, so that K3 runs its cluster-of-16 route);
+    ``tools/train.main`` under ``watched_crb`` with every train step's K1,
+    K2 and K3 calls held too, the launches exactly; two train steps of a
+    copy of the retrained model at ``WAYMO_LR``: their stages, ``ball_query``
+    time and peak memory; ``tools/test.main`` on the
+    val split with the retrained checkpoint on the kernel path (every call
+    against its plain version) and on the plain path, the KITTI-style
+    result printed and the paths' differing boxes counted; the retrained
+    model on every val batch with K2 on its f32 route, kernel path against
+    plain path ahead of the NMS (``check_kernel_path`` at
+    ``KITTI_F32_TOL``); the val ground truth fed back with distinct scores
+    through ``WaymoDataset.evaluation`` (each class's 3D moderate R40 reads
+    ``perfect_ap(n)``); the kernels timed at the path's shapes (``waymo.``
+    prefix).  Returns the kernels' JSON entries."""
+    import pickle
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.datasets.waymo.waymo_dataset import (WaymoDataset,
+                                                                    create_groundtruth_database)
+    from crb_active_3ddet_torch.ops import cuda_fps
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_waymo_'))
+    root = work / 'waymo'
+    n_train, n_val = WAYMO_FRAMES
+    cfg = load_config(WAYMO_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.SAMPLED_INTERVAL = {'train': 1, 'test': 1}
+    cfg.OPTIMIZATION.LR = WAYMO_LR
+    t = time.perf_counter()
+    write_waymo_tree(root, n_train, n_val, WAYMO_POINTS, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                     object_range=WAYMO_OBJECT_RANGE)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        create_groundtruth_database(WaymoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                                 training=False, root_path=root), root)
+    db_s = time.perf_counter() - t
+    with open(root / 'waymo_processed_data_waymo_dbinfos_train_sampled_1.pkl', 'rb') as f:
+        db = {k: len(v) for k, v in pickle.load(f).items()}
+    raw, seen, voxels, cap_points, cap_voxels = waymo_frame_sizes(cfg)
+    register_points = cuda_fps.max_register_points()
+    log(f'==== Waymo: {WAYMO_CFG} over a tree of {n_train} train and {n_val} val frames, '
+        f'written in {write_s:.1f} s: raw points per frame {raw}; points in range after the '
+        f'NLZ drop {seen} (buffer {cap_points}), real voxels {voxels} (buffer {cap_voxels}); '
+        f'the gt database (create_groundtruth_database) {db_s:.1f} s, entries {db}; every '
+        f'frame past the FPS register instances\' {register_points} points: '
+        f'{min(seen) > register_points} ====')
+    if max(seen) > cap_points or max(voxels) > cap_voxels:
+        raise RuntimeError('Waymo: a buffer truncates a frame')
+    if min(seen) <= register_points:
+        raise RuntimeError('Waymo: a frame fits the FPS register instances')
+    log('Waymo depth cuts (--set): ' + ', '.join(f'{k} {v}' for k, v in WAYMO_DEPTH.items())
+        + f'; and not of depth: OPTIMIZATION.LR {WAYMO_LR} (the file\'s 0.01 overflowed the '
+        'box decoder in a 4-step pretrain)')
+
+    # ---- the AL loop through the train CLI ----
+    depth = [str(x) for kv in WAYMO_DEPTH.items() for x in kv]
+    out = work / 'train'
+    args = ['--cfg_file', WAYMO_CFG, '--output_dir', str(out), '--set',
+            'DATA_CONFIG.DATA_PATH', str(root), *depth, 'OPTIMIZATION.LR', str(WAYMO_LR)]
+    a = load_config(WAYMO_CFG).ACTIVE_TRAIN
+    k1n = int(a.ACTIVE_CONFIG.K1) * WAYMO_DEPTH['ACTIVE_TRAIN.SELECT_NUMS']
+    state, w, scored, frames = crb_through_train_cli('Waymo', args, k1n)
+
+    # ---- one train step on a copy of the retrained model (its steps move
+    # the copy's weights and BN statistics, not the model's): stages, ball
+    # query, memory ----
+    model = state.model
+    stepped = copy.deepcopy(model)
+    train_set, train_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                                  workers=0, training=True)
+    batch = host_to_device_batch(first_batch(train_loader), dev)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, 10, stepped.parameters())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = train_stage_ms(stepped, optimizer, train_set, batch, gen, iters=2)
+    peak = torch.cuda.max_memory_allocated()
+    vox = prepare_device_batch(batch, train_set.voxel_cfg, train_set.grid_size,
+                               train_set.point_cloud_range, train_set.voxel_size)
+    bq_ms, bq_shapes = ball_query_ms(stepped, vox, gen)
+    step_ms = sum(stages.values())
+    log(f'Waymo train step (batch 2, synchronised stages, mean of 2): {step_ms:.2f} ms; '
+        + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
+        + f'; peak device memory {peak / 2**30:.2f} GiB; ball_query alone {bq_ms:.2f} ms over '
+        f'{len(bq_shapes)} calls of the forward ({bq_ms / stages["forward"]:.3f} of the '
+        f'forward, {bq_ms / step_ms:.3f} of the step): (radius, nsample, centres, points) '
+        f'{bq_shapes}')
+    del stepped, optimizer, vox, batch
+
+    # ---- the test CLI on the val split; the retrained model ahead of its
+    # NMS with K2 on its f32 route ----
+    last = WAYMO_DEPTH['ACTIVE_TRAIN.PRE_TRAIN_EPOCH_NUMS'] + \
+        WAYMO_DEPTH['ACTIVE_TRAIN.SELECT_LABEL_EPOCH_INTERVAL']
+    test_rec = test_cli_paths('Waymo', WAYMO_CFG, out / 'ckpt' / f'checkpoint_epoch_{last}.pth',
+                              work, ['DATA_CONFIG.DATA_PATH', str(root),
+                                     'DATA_CONFIG.SAMPLED_INTERVAL.test', '1'])
+    test_set = f32_ahead_of_nms(model, cfg, dev, 'Waymo')
+
+    # ---- the eval on the val split's ground truth, distinct scores ----
+    infos = test_set.infos
+    counts = [len(i['annos']['name']) for i in infos]
+    scores = np.split(np.linspace(1.0, 0.01, sum(counts)), np.cumsum(counts)[:-1])
+    dets = [{'frame_id': i['frame_id'], 'name': i['annos']['name'].copy(),
+             'boxes_lidar': i['annos']['gt_boxes_lidar'].copy(), 'score': sc}
+            for i, sc in zip(infos, scores)]
+    t = time.perf_counter()
+    _, ap = test_set.evaluation(dets, cfg.CLASS_NAMES)
+    eval_s = time.perf_counter() - t
+    cells = []
+    for cls, kitti_cls in zip(cfg.CLASS_NAMES, ('Car', 'Pedestrian', 'Cyclist')):
+        n = sum(int((i['annos']['name'] == cls).sum()) for i in infos)
+        got_ap = float(ap[f'{kitti_cls}_3d/moderate_R40'])
+        if abs(got_ap - perfect_ap(n)) > 1e-9:
+            raise RuntimeError(f'Waymo eval on ground truth: {cls} ({n} objects) reads '
+                               f'{got_ap}, expected {perfect_ap(n)}')
+        cells.append(f'{cls} {n}: {got_ap:.2f}')
+    log(f'Waymo KITTI-style eval of the val ground truth with distinct scores ({eval_s:.2f} s): '
+        f'3D moderate R40 AP per class and objects {"; ".join(cells)} (100 from 41 objects, '
+        f'100 (n - 1) / 40 below)')
+
+    # ---- the kernels at the path's shapes, timed, and the train step's
+    # dgrad and wgrad ----
+    results = crb_path_rows('waymo', 'Waymo', w, model, scored, frames, test_rec)
+    step = w['first_step']
+    results += [time_dgrad(f'waymo_train.gather_gemm_dgrad[{lname}]', call, w['steps'])
+                for lname, (call, _, _) in zip(SPARSE_LAYERS[1:][::-1], step['dgrad'])]
+    results += [time_wgrad(f'waymo_train.gather_gemm_wgrad[{lname}]', call, w['steps'])
+                for lname, (call, _, _) in zip(SPARSE_LAYERS[::-1], step['wgrad'])]
+    w.clear()
+    shutil.rmtree(work)
+    return results
 
 def main():
     if not torch.cuda.is_available():
@@ -4531,25 +5020,28 @@ def main():
     phase('reduced SECOND train', check_reduced_train, dev, SECOND_CFG)
     phase('reduced PV-RCNN train', check_reduced_train, dev, PVRCNN_CFG, box_std=0.001)
     phase('reduced PointPillars train', check_reduced_train, dev, PILLAR_CFG)
-    # one round and 20 scenes (a pool of 12: the other strategies' queries
+    # one round and 16 scenes (a pool of 8: the other strategies' queries
     # run over the same pool), to keep the script within its time
-    results += phase('SECOND AL loop', drive_active, dev, rounds=1, scenes=20)
-    # one round and 20 scenes (the PV-RCNN, KITTI and PointPillars CRB phases
-    # run the same query), to keep the script within its time
-    results += phase('SECOND CRB', drive_crb, dev, rounds=1, scenes=20)
+    results += phase('SECOND AL loop', drive_active, dev, rounds=1, scenes=16)
+    # one round and 16 scenes (a pool of 8, K1·N: the PV-RCNN, KITTI, Waymo
+    # and PointPillars CRB phases run the same query), to keep the script
+    # within its time
+    results += phase('SECOND CRB', drive_crb, dev, rounds=1, scenes=16)
     results += phase('PV-RCNN AL loop', drive_pvrcnn_active, dev)
     results += phase('PV-RCNN CRB', drive_pvrcnn_crb, dev)
     results += phase('KITTI: PV-RCNN CRB at the paper\'s config', drive_kitti, dev)
+    results += phase('Waymo: PV-RCNN CRB at the paper\'s config', drive_waymo, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
-    # file with METHOD crb set in code; one round each (SECOND's phases run
-    # the same strategies over two), to keep the script within its time
+    # file with METHOD crb set in code; one round each over 40 scenes (16
+    # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the
+    # script within its time
     results += phase('PointPillars AL loop', drive_active, dev, PILLAR_ACTIVE_CFG,
-                     'pointpillar_active', (), rounds=1)
+                     'pointpillar_active', (), rounds=1, scenes=40)
     # (its Car prior is degenerate at the seeded and the reduced weights:
     # the boxes' densities' integer bounds meet, which the host oracle cannot
     # score)
     results += phase('PointPillars CRB', drive_crb, dev, PILLAR_ACTIVE_CFG, 'pointpillar_crb',
-                     (), every_class=False, rounds=1)
+                     (), every_class=False, rounds=1, scenes=40)
     with tempfile.TemporaryDirectory() as gate_dir:
         phase('gate 1', gate_1, dev)
         phase('gate 2', gate_2, dev, gate_dir)

@@ -57,6 +57,20 @@
 // frame and more so for eight: the exchange, not the pass, is what is left of
 // a step.
 //
+// A third route takes the frames past 45 056 points (Waymo's 180 000-point
+// buffer): fps_cluster_kernel, one cluster of 16 blocks a frame (the
+// non-portable size, launched with cudaLaunchKernelEx), 256 threads a block.
+// A frame's state, 180 000 x (12 bytes of coordinates + 4 of running
+// distance) = 2.88 MB, is more than the register files of 8 SMs hold, so each
+// block keeps the coordinates of its 11 264 points in shared memory (three
+// planes x, y, z of 44 KB: each thread reads back only the points it wrote,
+// so no barrier guards them, and a warp's 32 reads of a plane hit 32 banks)
+// and their running distances in registers, 44 a thread.  The step is the
+// same as above: a pass, a warp's candidate, one exchange by st.async into
+// every block's slots, now 16 x 8 = 128 of them, each warp reducing all 128
+// (four a lane).  At 180 000 points the pass is ~4x that of a 45 000-point
+// frame, so the wider cluster's shorter pass outweighs its larger exchange.
+//
 // The distance is (dx*dx + dy*dy) + dz*dz with every product and sum rounded
 // on its own (__fmul_rn / __fadd_rn, and the file is built with -fmad=false):
 // one differing index changes every later one, so the arithmetic is that of
@@ -249,24 +263,214 @@ int points_per_thread(int N) {
   return N <= capacity<PT_NARROW>() ? PT_NARROW : N <= capacity<PT_WIDE>() ? PT_WIDE : 0;
 }
 
+constexpr int CL_BIG = 16;                      // blocks a frame (non-portable)
+constexpr int THREADS_BIG = 256;
+constexpr int WARPS_BIG = THREADS_BIG / 32;
+constexpr int PT_BIG = 44;                      // points a thread
+constexpr int SLOTS_BIG = CL_BIG * WARPS_BIG;   // candidates a step
+constexpr int BLOCK_POINTS_BIG = THREADS_BIG * PT_BIG;
+constexpr int CAPACITY_BIG = CL_BIG * BLOCK_POINTS_BIG;            // 180 224
+constexpr int SMEM_BIG = 3 * BLOCK_POINTS_BIG * (int)sizeof(float);  // the x, y, z planes
+static_assert(SLOTS_BIG % 32 == 0 && 2 * CL_BIG == 32,
+              "a warp sends its key to every block from lanes 0-15, its point from 16-31");
+
+__global__ void __launch_bounds__(THREADS_BIG, 1)
+fps_cluster_kernel(const float* __restrict__ points, const unsigned char* __restrict__ valid,
+                   int* __restrict__ out, int n, int k) {
+  extern __shared__ float plane_s[];              // x, y, z of the block's points
+  __shared__ __align__(16) unsigned long long key_s[2][SLOTS_BIG];
+  __shared__ float4 xyz_s[2][SLOTS_BIG];
+  __shared__ __align__(8) unsigned long long bar_s[2];
+  float* xs = plane_s;
+  float* ys = plane_s + BLOCK_POINTS_BIG;
+  float* zs = plane_s + 2 * BLOCK_POINTS_BIG;
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float* p = points + (size_t)blockIdx.y * n * 3;
+  const unsigned char* ok = valid + (size_t)blockIdx.y * n;
+  int* o = out + (size_t)blockIdx.y * k;
+
+  const int chunk = (n + CL_BIG - 1) / CL_BIG;
+  const int base = rank * chunk;
+  const int end = min(n, base + chunk);
+
+  float dist[PT_BIG];
+#pragma unroll
+  for (int j = 0; j < PT_BIG; ++j) {
+    const int l = j * THREADS_BIG + tid;
+    const int i = base + l;
+    const bool own = i < end;
+    xs[l] = own ? p[3 * i + 0] : 0.f;
+    ys[l] = own ? p[3 * i + 1] : 0.f;
+    zs[l] = own ? p[3 * i + 2] : 0.f;
+    dist[j] = !own ? -CUDART_INF_F : (ok[i] != 0 ? BIG : -BIG);
+  }
+  float cx = p[0], cy = p[1], cz = p[2];
+  if (rank == 0 && tid == 0) o[0] = 0;
+  if (tid == 0) {
+    mbar_init(smem_addr(&bar_s[0]), 1);
+    mbar_init(smem_addr(&bar_s[1]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster.sync();
+
+  for (int s = 1; s < k; ++s) {
+    const int buf = s & 1;
+    if (tid == 0) mbar_arrive_expect(smem_addr(&bar_s[buf]), SLOTS_BIG * 24);
+    float best_v = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < PT_BIG; ++j) {
+      const int l = j * THREADS_BIG + tid;
+      const float dx = __fsub_rn(xs[l], cx);
+      const float dy = __fsub_rn(ys[l], cy);
+      const float dz = __fsub_rn(zs[l], cz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                                __fmul_rn(dz, dz));
+      dist[j] = fminf(dist[j], d);
+      best_v = fmaxf(best_v, dist[j]);
+    }
+    unsigned hi = ordered_bits(best_v), lo = 0u;
+    unsigned top_hi = __reduce_max_sync(FULL, hi), top_lo;
+    float bx = 0.f, by = 0.f, bz = 0.f;
+    if (hi == top_hi) {
+      int jj = 0;
+#pragma unroll
+      for (int j = PT_BIG - 1; j >= 0; --j)
+        if (dist[j] == best_v) jj = j;            // the lowest j: i ascends with j
+      const int l = jj * THREADS_BIG + tid;
+      lo = ~static_cast<unsigned>(base + l);
+      bx = xs[l];
+      by = ys[l];
+      bz = zs[l];
+    }
+    top_lo = __reduce_max_sync(FULL, lo);
+    int src = __ffs(__ballot_sync(FULL, hi == top_hi && lo == top_lo)) - 1;
+    const float wx = __shfl_sync(FULL, bx, src);
+    const float wy = __shfl_sync(FULL, by, src);
+    const float wz = __shfl_sync(FULL, bz, src);
+    const int slot = rank * WARPS_BIG + warp;
+    const unsigned long long key = (static_cast<unsigned long long>(top_hi) << 32) | top_lo;
+    {
+      const uint32_t to = lane & (CL_BIG - 1);
+      const uint32_t bar = in_rank(smem_addr(&bar_s[buf]), to);
+      if (lane < CL_BIG)
+        st_async_u64(in_rank(smem_addr(&key_s[buf][slot]), to), key, bar);
+      else
+        st_async_f4(in_rank(smem_addr(&xyz_s[buf][slot]), to), wx, wy, wz, 0.f, bar);
+    }
+    mbar_wait(smem_addr(&bar_s[buf]), ((s - 1) >> 1) & 1);
+
+    // every warp reduces all 128 candidates itself, four a lane (keys are
+    // distinct: each carries its point's index)
+    unsigned long long best = key_s[buf][lane];
+    int best_slot = lane;
+#pragma unroll
+    for (int q = 1; q < SLOTS_BIG / 32; ++q) {
+      const unsigned long long c = key_s[buf][lane + 32 * q];
+      if (c > best) {
+        best = c;
+        best_slot = lane + 32 * q;
+      }
+    }
+    src = warp_max_key(static_cast<unsigned>(best >> 32), static_cast<unsigned>(best),
+                       top_hi, top_lo);
+    const float4 c = xyz_s[buf][__shfl_sync(FULL, best_slot, src)];
+    cx = c.x;
+    cy = c.y;
+    cz = c.z;
+    if (rank == 0 && tid == 0) {
+      const unsigned last = ~top_lo;
+      o[s] = last < static_cast<unsigned>(n) ? static_cast<int>(last) : 0;  // NaN only
+    }
+  }
+  cluster.sync();
+}
+
+// The third route's launch configuration: a cluster of 16 blocks a frame,
+// B frames.
+struct ClusterLaunch {
+  cudaLaunchAttribute attr[1];
+  cudaLaunchConfig_t cfg = {};
+
+  ClusterLaunch(int B, cudaStream_t s) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = CL_BIG;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(CL_BIG, B);
+    cfg.blockDim = dim3(THREADS_BIG);
+    cfg.dynamicSmemBytes = SMEM_BIG;
+    cfg.stream = s;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;  // cfg.attrs points into it
+  ClusterLaunch& operator=(const ClusterLaunch&) = delete;
+};
+
+// Clusters of the third route that the current device holds at once (0: the
+// card cannot place a cluster of 16 blocks); sets the kernel's attributes.
+cudaError_t cluster_route_clusters(int* clusters) {
+  cudaError_t e = cudaFuncSetAttribute(fps_cluster_kernel,
+                                       cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fps_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             SMEM_BIG);
+  if (e != cudaSuccess) return e;
+  const ClusterLaunch launch(1, 0);
+  return cudaOccupancyMaxActiveClusters(clusters, fps_cluster_kernel, &launch.cfg);
+}
+
+cudaError_t launch_cluster_route(const float* points, const unsigned char* valid, int* out,
+                                 int B, int N, int K, cudaStream_t s) {
+  static int ready_device = -1;                   // attributes set and checked for it
+  int device;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e != cudaSuccess) return e;
+  if (device != ready_device) {
+    int clusters = 0;
+    e = cluster_route_clusters(&clusters);
+    if (e != cudaSuccess) return e;
+    if (clusters < 1) return cudaErrorInvalidConfiguration;
+    ready_device = device;
+  }
+  const ClusterLaunch launch(B, s);
+  return cudaLaunchKernelEx(&launch.cfg, fps_cluster_kernel, points, valid, out, N, K);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Most points a frame may hold (the wide instance's register arrays).
-int fps_max_points() { return capacity<PT_WIDE>(); }
+// Most points a frame may hold (the third route's 16 blocks).
+int fps_max_points() { return CAPACITY_BIG; }
+
+// Most points a frame of the two register instances may hold.
+int fps_max_register_points() { return capacity<PT_WIDE>(); }
+
+// Clusters of 16 blocks the current device holds at once, into *clusters.
+int fps_cluster_occupancy(int* clusters) {
+  *clusters = 0;
+  return static_cast<int>(cluster_route_clusters(clusters));
+}
 
 // points (B, N, 3) f32, valid (B, N) bytes (0 = padding), out (B, K) int32.
 int fps_launch(const float* points, const unsigned char* valid, int* out, int B,
                int N, int K, void* stream) {
   if (B == 0 || K == 0) return 0;
-  const int pt = points_per_thread(N);
-  if (N < 1 || pt == 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || N > CAPACITY_BIG || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int pt = points_per_thread(N);
   if (pt == PT_NARROW)
     fps_kernel<PT_NARROW><<<dim3(CL, B), THREADS, 0, s>>>(points, valid, out, N, K);
-  else
+  else if (pt == PT_WIDE)
     fps_kernel<PT_WIDE><<<dim3(CL, B), THREADS, 0, s>>>(points, valid, out, N, K);
+  else {
+    const cudaError_t e = launch_cluster_route(points, valid, out, B, N, K, s);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

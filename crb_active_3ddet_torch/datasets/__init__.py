@@ -4,7 +4,8 @@ Copy of ``build_dataloader``, ``build_active_dataloader``,
 ``_PaddedBatchSampler``, ``loader_batch_size`` and ``_identity_attrs`` from
 ``crb_active_3ddet_tpu/datasets/__init__.py`` (parity:
 ``pcdet/datasets/__init__.py`` build_dataloader :49-78, build_active_dataloader
-:80-181) for the datasets the port carries (SyntheticDataset, KittiDataset).  Loaders yield
+:80-181) for the datasets the port carries (SyntheticDataset, KittiDataset,
+WaymoDataset).  Loaders yield
 numpy fixed-shape batches; training loaders use drop_last=True.  The AL
 loaders instead wrap-pad the final batch to full size (every pool frame is
 scored, and the labelled set is too small to drop frames), so a pool frame
@@ -21,6 +22,7 @@ from torch.utils.data import DataLoader
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
 from .synthetic import SyntheticDataset
+from .waymo.waymo_dataset import WaymoDataset
 
 
 def _registry():
@@ -28,6 +30,7 @@ def _registry():
         'DatasetTemplate': DatasetTemplate,
         'SyntheticDataset': SyntheticDataset,
         'KittiDataset': KittiDataset,
+        'WaymoDataset': WaymoDataset,
     }
 
 

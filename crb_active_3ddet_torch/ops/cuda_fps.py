@@ -9,12 +9,16 @@ argmax each step, ties to the lowest index; invalid points are held at −1e10
 a frame without valid points returns index 0 throughout).
 
 On CUDA tensors the wrapper launches the kernel once for the whole batch (or
-raises): a cluster of 8 thread blocks a frame, each holding an eighth of the
-frame's points in registers, at most ``max_points()`` (45 056) a frame.  The
-kernel has two instances, 24 and 44 points a thread; a frame of at most
-24 576 points runs on the first.  On CPU tensors it runs the plain version
-below, a K-step loop with the same arithmetic written out the same way.  The selection is exact: one differing index would
-change every later one.  ``launches`` counts kernel launches.
+raises), on one of three routes by the frame's points N:
+- N ≤ 24 576: ``fps_kernel<24>``, a cluster of 8 thread blocks a frame, each
+  holding an eighth of the frame's points in registers, 24 a thread;
+- N ≤ 45 056 (``max_register_points()``): ``fps_kernel<44>``, the same with 44;
+- N ≤ 180 224 (``max_points()``, Waymo's 180 000-point buffer):
+  ``fps_cluster_kernel``, a cluster of 16 blocks a frame, coordinates in
+  shared memory and running distances in registers.
+On CPU tensors it runs the plain version below, a K-step loop with the same
+arithmetic written out the same way.  The selection is exact: one differing
+index would change every later one.  ``launches`` counts kernel launches.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ launches = 0
 _SIG = {'fps_launch': [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
                        ctypes.c_void_p],
-        'fps_max_points': []}
+        'fps_max_points': [], 'fps_max_register_points': [],
+        'fps_cluster_occupancy': [ctypes.POINTER(ctypes.c_int)]}
 
 
 def fps_plain(points, valid, num_samples: int):
@@ -75,6 +80,20 @@ def farthest_point_sample_cuda(points, valid, num_samples: int):
 def max_points():
     """Most points a frame may hold on the card (builds the kernel if needed)."""
     return cuda_build.load_library('fps', _SIG).fps_max_points()
+
+
+def max_register_points():
+    """Most points a frame of the two register instances may hold; larger
+    frames take the cluster-of-16 route."""
+    return cuda_build.load_library('fps', _SIG).fps_max_register_points()
+
+
+def cluster_occupancy():
+    """Clusters of the 16-block route that the current card holds at once."""
+    lib = cuda_build.load_library('fps', _SIG)
+    n = ctypes.c_int(0)
+    cuda_build.check(lib, 'fps', lib.fps_cluster_occupancy(ctypes.byref(n)))
+    return n.value
 
 
 def _launch(points, valid, num_samples):

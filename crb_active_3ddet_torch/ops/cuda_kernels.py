@@ -27,6 +27,13 @@ transposed (``transpose_rulebook``, built once per rulebook by the
 backbone); the f32 one gives every block an equal share of all the hits
 and sums each output element as a few fmaf chains added in a fixed order.
 
+The kernels take Cin 4, 8, 16, 32, 64 and 128; a layer with another Cin
+below 16 (Waymo's 5 point features at ``conv_input``) runs as the next of
+4, 8 and 16, the instances that fold several offsets into one step, its
+features and weights padded with zero channels (``pad_input_channels``),
+whose products add exact zeros; the wgrad drops the padded rows of its
+result.
+
 On CUDA tensors each wrapper launches its kernel (or raises); on CPU tensors
 it runs the plain version (``ops/sparse/sparse_ops.py``).  ``launches``,
 ``dgrad_launches`` and ``wgrad_launches`` count the wrappers' calls that
@@ -62,6 +69,20 @@ _WSIG = {'gather_gemm_wgrad_launch': [ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
 SUPPORTED_CIN = (4, 8, 16, 32, 64, 128)
 MAX_K = 32               # offsets a rulebook row may hold (the kernel's mask)
+
+
+def pad_input_channels(features, weights=None):
+    """Features (V, Cin) and weights (K, Cin, Cout) with zero channels
+    appended up to the smallest of ``SUPPORTED_CIN`` that holds Cin, for a
+    Cin below 16 (as they are otherwise)."""
+    cin = features.shape[1]
+    pad = next(c for c in SUPPORTED_CIN if c >= cin) - cin if cin < 16 else 0
+    if pad == 0:
+        return features, weights
+    features = torch.nn.functional.pad(features, (0, pad))
+    if weights is not None:
+        weights = torch.nn.functional.pad(weights, (0, 0, 0, pad))
+    return features, weights
 
 
 def supported_cout(cout):
@@ -125,6 +146,9 @@ def gather_gemm_wgrad(features, rulebook, dout, rulebook_t=None):
     if features.ndim != 2 or dout.shape[0] != v_out:
         raise ValueError(f'gather-GEMM wgrad: shapes {tuple(features.shape)}, '
                          f'{tuple(rulebook.shape)}, {tuple(dout.shape)}')
+    layer_cin = cin
+    features, _ = pad_input_channels(features)
+    cin = features.shape[1]
     if cin not in SUPPORTED_CIN or not supported_cout(cout) or not 1 <= k <= MAX_K:
         raise ValueError(f'gather-GEMM wgrad: K={k}, Cin={cin}, Cout={cout} not supported')
     if not (features.is_contiguous() and rulebook.is_contiguous()
@@ -154,7 +178,7 @@ def gather_gemm_wgrad(features, rulebook, dout, rulebook_t=None):
             counts.data_ptr(), dw.data_ptr(), v_out, k, cin, cout, bf16, stream)
     cuda_build.check(lib, 'gather_gemm_wgrad', err)
     wgrad_launches += 1
-    return dw
+    return dw if cin == layer_cin else dw[:, :layer_cin].contiguous()
 
 
 class SparseConvGatherGemm(torch.autograd.Function):
@@ -202,6 +226,8 @@ def _launch(features, rulebook, weights):
     if features.ndim != 2 or weights.shape[:2] != (k, cin):
         raise ValueError(f'gather-GEMM: shapes {tuple(features.shape)}, '
                          f'{tuple(rulebook.shape)}, {tuple(weights.shape)}')
+    features, weights = pad_input_channels(features, weights)
+    cin = features.shape[1]
     if cin not in SUPPORTED_CIN or not supported_cout(cout) or not 1 <= k <= MAX_K:
         raise ValueError(f'gather-GEMM: K={k}, Cin={cin}, Cout={cout} not supported')
     if not (features.is_contiguous() and rulebook.is_contiguous()

@@ -10,6 +10,8 @@ the JAX package is in tests/test_torch_pointnet2.py).  This file imports only
 the JAX package's ops, so it also runs where flax is not installed.
 """
 
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -115,6 +117,32 @@ def _gemm_case(seed, v_in, v_out, k, c_in, c_out, missing=False):
         rulebook = rng.randint(-1, v_in, (v_out, k)).astype(np.int32)
     w = (rng.randn(k, c_in, c_out) * 0.1).astype(np.float32)
     return feats, rulebook, w
+
+
+@pytest.mark.parametrize('cin,padded', [(5, 8), (3, 4), (4, 4), (12, 16), (24, 24),
+                                         (64, 64), (200, 200)])
+def test_gather_gemm_input_channel_padding(cin, padded):
+    """A layer with fewer than 16 input channels that the kernels lack
+    (Waymo's 5 point features at conv_input) runs as the next Cin they have
+    (wider ones are left as they are, and refused): zero channels appended to
+    features and weights leave every output of the function as it is (f64,
+    where the added products are exact zeros) and give the weights a zero
+    gradient, which the wgrad wrapper drops."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
+    feats, rulebook, w = _gemm_case(11, 60, 45, 27, cin, 16)
+    f, r, ww = _t(feats).double(), _t(rulebook), _t(w).double()
+    fp, wp = cuda_kernels.pad_input_channels(f, ww)
+    assert fp.shape == (60, padded) and wp.shape == (27, padded, 16)
+    assert torch.equal(fp[:, :cin], f) and torch.equal(wp[:, :cin], ww)
+    assert not fp[:, cin:].any() and not wp[:, cin:].any()
+    torch.testing.assert_close(subm_conv3d_gather(fp, r, wp), subm_conv3d_gather(f, r, ww),
+                               atol=1e-12, rtol=0)
+    dout = torch.from_numpy(np.random.RandomState(12).randn(45, 16))
+    dw = gather_gemm_wgrad_plain(fp, r, dout)
+    torch.testing.assert_close(dw[:, :cin], gather_gemm_wgrad_plain(f, r, dout),
+                               atol=1e-12, rtol=0)
+    assert not dw[:, cin:].any()
+    assert cuda_kernels.pad_input_channels(f)[1] is None
 
 
 @pytest.mark.parametrize('case', [
@@ -244,8 +272,11 @@ def _hold_f32(f, r, ww, got):
     chip_smoke.py holds bit for bit; at these few rows cuBLAS sums in another
     order (seen on an H100), so the plain version is held to the tolerance
     above.  The route
-    reads features and weights 16 bytes a lane and refuses them unaligned."""
+    reads features and weights 16 bytes a lane and refuses them unaligned
+    (a Cin the kernels lack is copied into padded tensors, aligned anew)."""
     assert torch.equal(got, fma_chain(f, r, ww))
+    if f.shape[1] not in cuda_kernels.SUPPORTED_CIN:
+        return
     with pytest.raises(ValueError, match='aligned'):
         sparse_conv_gather_gemm(_misaligned(f), r, ww)
     with pytest.raises(ValueError, match='aligned'):
@@ -257,7 +288,7 @@ def _hold_f32(f, r, ww, got):
 @pytest.mark.parametrize('shape', [(64, 48, 27, 16, 32), (200, 130, 27, 4, 16),
                                    (100, 70, 27, 64, 64), (90, 64, 3, 64, 128),
                                    (30, 17, 27, 32, 32), (40, 50, 27, 8, 16),
-                                   *FMA_CASES])
+                                   (200, 130, 27, 5, 16), *FMA_CASES])
 def test_gather_gemm_kernel_matches_plain(cuda_device, dtype, shape):
     """The shapes, then the cases of tests/test_torch_gather_fma.py (every
     supported Cin and Cout, tiles without a hit, one hit in a tile, steps
@@ -503,17 +534,70 @@ def test_fps_kernel_valid_points_in_one_eighth(cuda_device, part, snapped):
     assert torch.equal(got.cpu(), cuda_fps.fps_plain(_t(pts), _t(valid), k))
 
 
+def test_fps_cluster_route_holds_a_waymo_frame():
+    """The third FPS route's constants, read from ``csrc/fps.cu``: a cluster
+    of 16 blocks (the non-portable size) holds the Waymo config's
+    180 000-point buffer, its coordinate planes and exchange slots fit a
+    block's 227 KB of shared memory, and one 256-thread block an SM leaves
+    each thread the 255 registers the 44 running distances need; the register
+    instances stop at 45 056 points, below every Waymo frame."""
+    import re
+    import yaml
+    root = Path(__file__).resolve().parents[1]
+    src = (root / 'crb_active_3ddet_torch/csrc/fps.cu').read_text()
+
+    def const(name):
+        return int(re.search(rf'constexpr int {name} = (\d+);', src).group(1))
+    cl, threads, pt = const('CL_BIG'), const('THREADS_BIG'), const('PT_BIG')
+    capacity = cl * threads * pt
+    assert cl == 16 and capacity == 180224
+    slots = cl * threads // 32
+    smem = 3 * threads * pt * 4 + 2 * slots * (8 + 16) + 2 * 8
+    assert smem <= 232448
+    assert threads * 255 <= 65536
+    register_capacity = const('CL') * const('THREADS') * const('PT_WIDE')
+    assert register_capacity == 45056
+    cfg = yaml.safe_load((root / 'tools/cfgs/dataset_configs/waymo_dataset.yaml').read_text())
+    vox = [p for p in cfg['DATA_PROCESSOR'] if p['NAME'] == 'transform_points_to_voxels'][0]
+    for mode in ('train', 'test'):
+        assert register_capacity < vox['MAX_POINTS_PER_FRAME'][mode] <= capacity
+
+
 @pytest.mark.cuda
 def test_fps_kernel_instances(cuda_device):
     """The wide instance (44 points a thread) holds KITTI's 45 000-point test
-    buffer; ``test_fps_kernel_equals_plain`` runs both sides of the narrow
-    instance's 24 576."""
-    assert cuda_fps.max_points() == 45056
+    buffer and the cluster-of-16 route Waymo's 180 000;
+    ``test_fps_kernel_equals_plain`` runs both sides of the narrow instance's
+    24 576 and ``test_fps_cluster_route_equals_plain`` both sides of 45 056."""
+    assert cuda_fps.max_register_points() == 45056
+    assert cuda_fps.max_points() == 180224
+    assert cuda_fps.cluster_occupancy() >= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+@pytest.mark.parametrize('n,k,nv', [(45057, 300, 45057), (100000, 512, 70000),
+                                    (180000, 1024, 180000), (180000, 64, 1000),
+                                    ('capacity', 300, 'capacity')])
+def test_fps_cluster_route_equals_plain(cuda_device, n, k, nv, snapped):
+    """The third route (frames past the register instances' 45 056 points)
+    bit for bit against the plain version, two frames in one launch."""
+    if n == 'capacity':
+        n = nv = cuda_fps.max_points()
+    pts = np.stack([_fps_points(s + 40, n, snapped) for s in range(2)])
+    valid = np.broadcast_to(np.arange(n) < nv, (2, n)).copy()
+    valid[1, ::7] = False                       # padding inside the second frame
+    p, v = _t(pts).to(cuda_device), _t(valid).to(cuda_device)
+    n0 = cuda_fps.launches
+    got = cuda_fps.farthest_point_sample_cuda(p, v, k)
+    torch.cuda.synchronize()
+    assert cuda_fps.launches == n0 + 1
+    assert torch.equal(got, cuda_fps.fps_plain(p, v, k))
 
 
 @pytest.mark.cuda
 def test_fps_kernel_refuses_too_many_points(cuda_device):
-    n = 50000
+    n = 180225
     p = torch.zeros(1, n, 3, device=cuda_device)
     with pytest.raises(ValueError, match='at most'):
         cuda_fps.farthest_point_sample_cuda(
@@ -542,7 +626,8 @@ def _backward_case(name):
         'single_hit': (40, 100, 27, 16, 16, 0.0), 'c16_16': (300, 251, 27, 16, 16, 0.3),
         'c32_32': (260, 173, 27, 32, 32, 0.3), 'large': (40000, 50000, 27, 32, 32, 0.1),
         'dense': (50000, 50000, 27, 16, 16, 1.0), 'empty_column': (300, 200, 27, 32, 64, 0.3),
-        'tiny_dout': (40, 100, 27, 16, 16, 0.0), 'huge_dout': (40, 100, 27, 16, 16, 0.0)}[name]
+        'tiny_dout': (40, 100, 27, 16, 16, 0.0), 'huge_dout': (40, 100, 27, 16, 16, 0.0),
+        'cin5': (90, 70, 27, 5, 16, 0.3)}[name]
     rng = np.random.RandomState(13)
     rb = np.stack([np.resize(rng.permutation(v_in), v_out) for _ in range(k)], 1)
     rb[np.arange(v_out) >= v_in] = -1            # keep (input, offset) unique
@@ -563,7 +648,7 @@ def _backward_case(name):
 BACKWARD_CASES = ['random', 'cin4', 'ragged', 'wide', 'k3_cout128', 'all_missing',
                   'single_hit']
 WGRAD_CASES = BACKWARD_CASES + ['c16_16', 'c32_32', 'large', 'dense', 'empty_column',
-                                'tiny_dout', 'huge_dout']
+                                'tiny_dout', 'huge_dout', 'cin5']
 
 
 @pytest.mark.cuda

@@ -125,6 +125,26 @@ def test_fps_plain_equals_scan_at_kitti_test_buffer(snapped, one_torch_thread):
 
 
 @pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
+def test_fps_plain_equals_scan_past_the_register_instances(snapped, one_torch_thread):
+    """A frame past the kernel's register instances (45 056 points), which
+    takes its cluster-of-16 route on the card: 50 000 points, a tenth of
+    them padding (the last slots and scattered ones), 32 keypoints; the
+    plain version against the JAX scan, exactly, with ties on the snapped
+    points."""
+    n, k = 50000, 32
+    pts = _points(46, n, snapped)
+    valid = np.ones(n, bool)
+    valid[-2000:] = False
+    valid[np.random.RandomState(5).permutation(n - 2000)[:3000]] = False
+    got = tpn2.farthest_point_sample(_t(pts)[None], _t(valid)[None], k)[0].numpy()
+    scan = np.asarray(jpn2.farthest_point_sample(jnp.asarray(pts), jnp.asarray(valid), k))
+    np.testing.assert_array_equal(got, scan)
+    assert valid[got].all() and len(set(got.tolist())) == k
+    if snapped:
+        assert _tied_steps(pts, valid, got) >= 1
+
+
+@pytest.mark.parametrize('snapped', [False, True], ids=['random', 'snapped'])
 @pytest.mark.parametrize('part', [0, 3, 7])
 def test_fps_plain_valid_points_in_one_eighth(part, snapped):
     """All valid points lie in one eighth of the index range, and there are
