@@ -168,7 +168,21 @@ Run from the root of a checkout.  It
      check ahead of the NMS (``WAYMO_F32_TOL``), the val ground truth through
      ``WaymoDataset.evaluation`` (3D moderate R40 ``perfect_ap(n)``), the
      kernels at the path's shapes (``waymo.``, ``waymo_train.``,
-     ``waymo_grad.``, ``waymo_test.``).  Each phase prints its wall time.
+     ``waymo_grad.``, ``waymo_test.``);
+ 16. SECONDNetIoU (kitti_models/second_iou.yaml) and the multi-head SECOND
+     (second_multihead.yaml) at their files' widths (40 000 voxels / 45 000
+     points at test, 16 000 / 18 000 in training, 211 200 anchors, K2
+     bf16, batch 4) over 14's tree (``drive_kitti_second``), one epoch each:
+     ``tools/train.main`` with every K1 and K2 call of its steps against its
+     plain version (K1 bit for bit) and the launches exactly; one more
+     train step of second_multihead.yaml with ATSS and one with
+     MATCH_HEIGHT (``--set``), K1's float entry over every anchor bit-equal
+     to its plain version and the assignment equal to the plain path's;
+     ``tools/test.main`` on both paths; each model ahead of its NMS in f32
+     (SECONDNetIoU's IoU logits from common RoIs), each IoU-head score
+     fusion once; the kernels at these shapes (``second_iou.``,
+     ``second_iou_train.``, ``second_iou_test.``, ``second_multihead.``,
+     ``second_multihead_train.``).  Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -570,14 +584,23 @@ def check_kernel_path(model, vox, tol=None):
     keypoints must be equal (the FPS is exact); the RoI stage is run on both
     paths' point features from the kernel path's RoIs, because a near-tie in
     the proposal NMS may pick other RoIs, after which nothing compares.
-    ``tol``, where given, is the limit at every tensor (else the bf16
-    limits of ``E2E_TOL`` and ``POINT_TOL``)."""
-    two_stage = hasattr(model, 'roi_head')
+    SECONDNetIoU likewise: its IoU head runs on both paths' BEV maps from
+    the kernel path's RoIs, and the RoIs are compared where the two paths'
+    proposal layers kept the same ones (counted).  ``tol``, where given, is
+    the limit at every tensor (else the bf16 limits of ``E2E_TOL`` and
+    ``POINT_TOL``)."""
+    two_stage = hasattr(model, 'pfe')
+    iou_head = hasattr(model, 'roi_head') and not two_stage
     pillars = not hasattr(model, 'backbone_3d')
     with torch.no_grad():
         out = model(vox)
         with plain_versions():
             ref = model(vox)
+        if iou_head:
+            roi_ref = model.roi_head({'spatial_features_2d': ref['spatial_features_2d'],
+                                      'rois': out['rois']})
+            rois_ref = ref['rois']
+            ref = {**ref, 'rcnn_cls': roi_ref['rcnn_cls']}
         if two_stage:
             keys = ('point_coords', 'point_coords_valid', 'point_features',
                     'point_cls_scores')
@@ -594,6 +617,18 @@ def check_kernel_path(model, vox, tol=None):
         log(f'kernel path vs plain: keypoints equal; RoI sets equal: {same_rois}')
         tols.update(POINT_TOL)
         del tols['batch_box_preds']       # the roi head's: other RoIs on ref
+    if iou_head:
+        if tol is None:
+            raise ValueError('check_kernel_path: an IoU head is held at a given tol')
+        del tols['batch_box_preds']       # the RoIs (compared below)
+        tols['rcnn_cls'] = tol
+        rows = ((out['rois'] - rois_ref).abs() / (1 + rois_ref.abs())).amax(-1) <= tol
+        rows &= out['roi_valid'] == ref['roi_valid']
+        err_rows = rel_err(out['rois'][rows], rois_ref[rows])[0] if rows.any() else 0.0
+        log(f'kernel path vs plain, RoIs {tuple(rois_ref.shape)}: {int(rows.sum())} of '
+            f'{rows.numel()} agree within {tol:.0e} (max |diff|/(1+|ref|) {err_rows:.3e}); '
+            'the others follow a near-tie of the proposal NMS (counted, no limit); the IoU '
+            'head from the kernel path\'s RoIs on both paths\' BEV maps:')
     if tol is not None:
         tols = dict.fromkeys(tols, tol)
     errs, diffs = {}, {}
@@ -4325,6 +4360,41 @@ def detections_apart(got, want):
     return n_got, n_want, unpaired, d_score, d_box
 
 
+_KITTI_TREE = {}
+
+
+def kitti_tree():
+    """The KITTI-layout tree of the KITTI phases, written once
+    (``write_kitti_tree``: ``KITTI_FRAMES`` frames of ``KITTI_POINTS`` raw
+    points) with its infos and gt database (``create_kitti_infos``), in a
+    temporary directory removed at exit.  Returns its root."""
+    if 'root' in _KITTI_TREE:
+        return _KITTI_TREE['root']
+    import atexit
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets.kitti.kitti_dataset import create_kitti_infos
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_kitti_tree_'))
+    atexit.register(shutil.rmtree, work, True)
+    root = work / 'kitti'
+    cfg = load_config(KITTI_CFG)
+    t = time.perf_counter()
+    write_kitti_tree(root, *KITTI_FRAMES, KITTI_POINTS,
+                     pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                     object_range=KITTI_OBJECT_RANGE, val_objects=KITTI_VAL_OBJECTS,
+                     min_separation=3.0)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, workers=8)
+    log(f'KITTI tree: {KITTI_FRAMES[0]} train and {KITTI_FRAMES[1]} val frames of '
+        f'{KITTI_POINTS[0]}-{KITTI_POINTS[1]} raw points, written in {write_s:.1f} s; '
+        f'create_kitti_infos (infos and gt database) {time.perf_counter() - t:.1f} s')
+    _KITTI_TREE['root'] = root
+    return root
+
+
 def kitti_frame_sizes(cfg):
     """Per frame of the tree (train then val, as a test-mode loader reads
     them: the pool scan, the eval): points the camera sees inside the
@@ -4378,14 +4448,18 @@ def crb_through_train_cli(tag, args, k1n):
     return state, w, scored, frames
 
 
-def test_cli_paths(tag, cfg_file, ckpt, work, sets):
+PVRCNN_TEST_LAUNCHES = dict(n_k2=len(SPARSE_LAYERS), n_fps=1, n_mask=2, n_float=1)
+
+
+def test_cli_paths(tag, cfg_file, ckpt, work, sets, batch=2, per_batch=None):
     """``tools/test.main`` with ``ckpt`` over the val split (``--set sets``)
-    on the kernel path and on the plain path: launches exactly (a batch of
-    2: 12 K2, 1 K3, 2 K1 masks, 1 K1 float on the kernel path, none on the
-    plain one), every kernel call against its plain version, the
-    dataset's evaluation printed, and the two paths' detections counted
-    apart (no limit: K2's rounding reorders a briefly trained model's
-    near-tied proposals).  Returns the kernel path's call records."""
+    on the kernel path and on the plain path: launches exactly (on the
+    kernel path ``per_batch`` a batch of ``batch``, by default PV-RCNN's 12
+    K2, 1 K3, 2 K1 masks, 1 K1 float; none on the plain one), every kernel
+    call against its plain version, the dataset's evaluation printed, and
+    the two paths' detections counted apart (no limit: K2's rounding
+    reorders a briefly trained model's near-tied proposals).  Returns the
+    kernel path's call records."""
     import pickle
     from crb_active_3ddet_torch.runtime import eval as eval_rt
     from crb_active_3ddet_torch.tools import test as test_cli
@@ -4411,11 +4485,11 @@ def test_cli_paths(tag, cfg_file, ckpt, work, sets):
             eval_rt.eval_one_epoch = real_eval
         with open(work / f'test_{path}' / 'eval' / 'result.pkl', 'rb') as f:
             annos = pickle.load(f)
-        n_b = -(-len(annos) // 2)
+        n_b = -(-len(annos) // batch)
         made, want = launch_delta({k: 0 for k in counters()},
-                                  **({} if path == 'plain' else dict(
-                                      n_k2=len(SPARSE_LAYERS) * n_b, n_fps=n_b, n_mask=2 * n_b,
-                                      n_float=n_b)))
+                                  **({} if path == 'plain' else {
+                                      k: v * n_b for k, v in
+                                      (per_batch or PVRCNN_TEST_LAUNCHES).items()}))
         if made != want:
             raise RuntimeError(f'{tag} test CLI ({path} path) launched {made}, expected {want}')
         runs[path] = {'annos': annos, 'ap_str': got['res'][0], 'ap': got['res'][1], 'rec': rec}
@@ -4438,12 +4512,13 @@ def test_cli_paths(tag, cfg_file, ckpt, work, sets):
     return runs['kernel']['rec']
 
 
-def f32_ahead_of_nms(model, cfg, dev, tag):
+def f32_ahead_of_nms(model, cfg, dev, tag, each=None):
     """``model`` on every val batch of ``cfg`` with K2 on its f32 route,
     kernel path against plain path ahead of the NMS (``check_kernel_path``
     at ``KITTI_F32_TOL``), every kernel call against its plain version; logs
     the layers whose K2 output is not bit-equal to its plain version
-    (``torch.matmul``).  Returns the val dataset."""
+    (``torch.matmul``); ``each(out, i)`` is called with the kernel path's
+    output of batch i.  Returns the val dataset."""
     from crb_active_3ddet_torch.datasets import build_dataloader
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
@@ -4463,8 +4538,10 @@ def f32_ahead_of_nms(model, cfg, dev, tag):
             log(f'{tag} val batch {i}, K2 f32, ahead of the NMS (limit {KITTI_F32_TOL:.0e}):')
             rec = {}
             with kernel_calls(rec):
-                check_kernel_path(model, vox, tol=KITTI_F32_TOL)
+                out = check_kernel_path(model, vox, tol=KITTI_F32_TOL)
             s = calls_vs_plain(rec, f'{tag} val batch {i} f32')
+            if each is not None:
+                each(out, i)
             k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(SPARSE_LAYERS,
                                                                          rec['k2'])
                              if not torch.equal(got, subm_conv3d_gather(f, rbk, w))])
@@ -4536,28 +4613,16 @@ def drive_kitti(dev):
     import shutil
     from pathlib import Path
     from crb_active_3ddet_torch.config import load_config
-    from crb_active_3ddet_torch.datasets.kitti.kitti_dataset import create_kitti_infos
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_kitti_'))
-    root = work / 'kitti'
+    root = kitti_tree()
     n_train, n_val = KITTI_FRAMES
     cfg = load_config(KITTI_CFG)
     cfg.DATA_CONFIG.DATA_PATH = str(root)
-    t = time.perf_counter()
-    write_kitti_tree(root, n_train, n_val, KITTI_POINTS, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-                     object_range=KITTI_OBJECT_RANGE, val_objects=KITTI_VAL_OBJECTS,
-                     min_separation=3.0)
-    write_s = time.perf_counter() - t
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
-        create_kitti_infos(cfg.DATA_CONFIG, cfg.CLASS_NAMES, root, root, workers=8)
-    infos_s = time.perf_counter() - t
     seen, voxels, cap_points, cap_voxels = kitti_frame_sizes(cfg)
-    log(f'==== KITTI: {KITTI_CFG} over a tree of {n_train} train and {n_val} val frames of '
-        f'{KITTI_POINTS[0]}-{KITTI_POINTS[1]} raw points, written in {write_s:.1f} s; '
-        f'create_kitti_infos (infos and gt database) {infos_s:.1f} s; points the camera sees '
-        f'in range per frame {seen} (buffer {cap_points}), real voxels {voxels} (buffer '
-        f'{cap_voxels}); {sum(s > FPS_NARROW for s in seen)} frames past the narrow FPS '
-        f'instance\'s {FPS_NARROW} points ====')
+    log(f'==== KITTI: {KITTI_CFG} over the tree of {n_train} train and {n_val} val frames; '
+        f'points the camera sees in range per frame {seen} (buffer {cap_points}), real '
+        f'voxels {voxels} (buffer {cap_voxels}); {sum(s > FPS_NARROW for s in seen)} frames '
+        f'past the narrow FPS instance\'s {FPS_NARROW} points ====')
     if max(seen) > cap_points or max(voxels) > cap_voxels:
         raise RuntimeError('KITTI: a test buffer truncates a frame')
     if max(seen) <= FPS_NARROW:
@@ -4608,6 +4673,363 @@ def drive_kitti(dev):
     # ---- the kernels at the path's shapes, timed ----
     results = crb_path_rows('kitti', 'KITTI', w, model, scored, frames, test_rec)
     w.clear()
+    shutil.rmtree(work)
+    return results
+
+
+# ---- KITTI: SECONDNetIoU and AnchorHeadMulti at their files' widths -----
+
+SECOND_IOU_CFG = 'tools/cfgs/kitti_models/second_iou.yaml'
+SECOND_MULTI_CFG = 'tools/cfgs/kitti_models/second_multihead.yaml'
+# the files' 80 epochs cut to one: 4 steps over the tree's 18 train frames at
+# the files' batch 4 (drop_last); LR, widths and buffers as the files set them
+SECOND_KITTI_DEPTH = ('OPTIMIZATION.NUM_EPOCHS', '1')
+# the two target-assignment options, one train step each on
+# second_multihead.yaml (no shipped config sets either)
+ASSIGNER_SETS = {
+    'atss': ('MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME', 'ATSSTargetAssigner'),
+    'match_height': ('MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.MATCH_HEIGHT', 'True'),
+}
+# test.main of the 4-step second_multihead: its scores stay near the focal
+# prior 0.01 (the anchor head's cls bias), below the file's SCORE_THRESH
+# 0.1, so the test CLI runs without the threshold (every box alive, each
+# class's NMS at its full 2 048 width); SECONDNetIoU's IoU scores pass it
+MULTI_TEST_SETS = ('MODEL.POST_PROCESSING.SCORE_THRESH', '0.0')
+# the IoU-head score fusions run once each on the f32 check's outputs: the
+# settings the fusions read that second_iou.yaml does not set
+FUSION_SETTINGS = {'SCORE_WEIGHTS': {'iou': 0.5, 'cls': 0.5},
+                   'SCORE_THRESH': {'cls': 10, 'iou': 100},
+                   'SCORE_BY_CLASS': {'Car': 'iou', 'Pedestrian': 'cls', 'Cyclist': 'cls'},
+                   'CLASS_NAMES': list(KITTI_CLASSES)}
+SCORE_TYPES = ('iou', 'cls', 'weighted_iou_cls', 'num_pts_iou_cls', 'score_by_class')
+
+
+def k1_calls_exact(rec, tag):
+    """Every K1 call in ``rec`` (``kernel_calls``) bit for bit: the float
+    entry equal to ``overlap_bev_plain``, the mask's words to the plain
+    words (no bit off, not even within 1e-6 of the threshold).  Returns
+    (float calls, mask calls)."""
+    from crb_active_3ddet_torch.ops import cuda_overlap
+    for (a, b), _, got in rec['float']:
+        if not torch.equal(got, cuda_overlap.overlap_bev_plain(a, b)):
+            raise RuntimeError(f'{tag}: a K1 float call is not bit-equal to its plain version')
+    for (boxes, alive, thresh), _, words in rec['mask']:
+        if not torch.equal(words, cuda_overlap.nms_mask_plain(boxes, alive, thresh)):
+            raise RuntimeError(f'{tag}: K1 mask words are not bit-equal to the plain words')
+    return len(rec['float']), len(rec['mask'])
+
+
+@contextlib.contextmanager
+def held_train_steps(tag, per_step):
+    """While open, every train step of ``train_one_epoch`` runs with its
+    K1, K2 and K3 calls recorded: launches exactly ``per_step`` (keyword
+    arguments of ``launch_delta``) a step, each call against its plain
+    version (``calls_vs_plain``; K1 bit for bit, ``k1_calls_exact``), the
+    peak device memory of each step logged.  Yields the records: ``steps``
+    (each step's summary and peak), ``first`` (the first step's calls, its
+    dgrad and wgrad calls too)."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.runtime import train as train_rt
+    w = {'steps': [], 'first': {}}
+    real_epoch = train_rt.train_one_epoch
+
+    def epoch(state, step, loader, *args, **kw):
+        def held(*a, **k):
+            rec, dcalls, wcalls = {}, [], []
+            first = not w['first']
+            before = counters()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            with kernel_calls(rec, clone=True), \
+                    recording(cuda_kernels, 'gather_gemm_dgrad', dcalls, clone=first), \
+                    recording(cuda_kernels, 'gather_gemm_wgrad', wcalls, clone=first):
+                out = step(*a, **k)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            made, want = launch_delta(before, **per_step)
+            if made != want:
+                raise RuntimeError(f'{tag} train step launched {made}, expected {want}')
+            with torch.no_grad():
+                s = calls_vs_plain(rec, f'{tag} train step {len(w["steps"])}')
+                k1_calls_exact(rec, f'{tag} train step {len(w["steps"])}')
+            loss = float(out[1]['loss'])
+            if not np.isfinite(loss):
+                raise RuntimeError(f'{tag} train step loss {loss}')
+            w['steps'].append({**s, 'peak': peak, 'ms': ms})
+            log(f"{tag} train step {len(w['steps'])}: loss {loss:.4f}; {ms:.1f} ms with this "
+                f'script\'s recording; peak device memory {peak / 2**30:.2f} GiB; launches '
+                f'{made}; ' + summary(s))
+            if first:
+                w['first'].update(rec=rec, dgrad=dcalls, wgrad=wcalls)
+            return out
+        return real_epoch(state, held, loader, *args, **kw)
+
+    train_rt.train_one_epoch = epoch
+    try:
+        yield w
+    finally:
+        train_rt.train_one_epoch = real_epoch
+
+
+@contextlib.contextmanager
+def module_ms(model, totals, iters):
+    """While open, add each of ``model``'s top-level modules' forward
+    time (host clock, synchronised at its boundaries) over ``iters`` into
+    ``totals``."""
+    hooks = []
+    for name in model.module_topology:
+        module = getattr(model, name)
+
+        def pre(mod, args):
+            torch.cuda.synchronize()
+            mod._smoke_t = time.perf_counter()
+
+        def post(mod, args, out, name=name):
+            torch.cuda.synchronize()
+            totals[name] = totals.get(name, 0.0) \
+                + (time.perf_counter() - mod._smoke_t) * 1e3 / iters
+        hooks += [module.register_forward_pre_hook(pre), module.register_forward_hook(post)]
+    try:
+        yield totals
+    finally:
+        for h in hooks:
+            h.remove()
+
+
+def second_stages(model, optimizer, cfg, dev, tag):
+    """One eval step's stages (``stage_ms``: each module, the NMS and the
+    recall) on the first val batch and one train step's (``train_stage_ms``,
+    its forward by module) on the first train batch, at the file's batch
+    size, logged.  The train steps move the weights."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs,
+                                                workers=0, training=False)
+    model.eval()
+    stages = stage_ms(model, test_set, host_to_device_batch(next(iter(test_loader)), dev),
+                      cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES))
+    log(f'{tag} eval step stages (ms, synchronised, mean of 3, batch {bs}): '
+        + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
+        + f'; sum {sum(stages.values()):.2f}')
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                            training=True)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with module_ms(model, {}, 3) as forward:
+        stages = train_stage_ms(model, optimizer, train_set, batch, gen)
+    log(f'{tag} train step stages (ms, synchronised, mean of 3, batch {bs}): '
+        + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
+        + f'; sum {sum(stages.values()):.2f}; the forward by module: '
+        + ', '.join(f'{k} {v:.2f}' for k, v in forward.items()))
+
+
+def assigner_step(dev, root, name, sets):
+    """One train step of second_multihead.yaml with ``sets`` (``--set``
+    pairs) on the tree's first train batch, built as ``tools/train.main``
+    builds it: launches exactly (12 K2, 11 dgrad, 12 wgrad; K1's float
+    entry once with ATSS, once an anchor class with MATCH_HEIGHT), its K1
+    float calls over every anchor bit-equal to ``overlap_bev_plain``, and
+    the assignment (labels, targets, weights) equal on the kernel path and
+    the plain path.  Returns (the first K1 float call's records, its
+    launches a step)."""
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, flax_init
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch, init_train_state,
+                                                      make_train_step, prepare_device_batch)
+    from crb_active_3ddet_torch.tools.train import INIT_SEED, SEED
+    tag = f'second_multihead {name}'
+    cfg = load_config(SECOND_MULTI_CFG)
+    cfg_from_list(['DATA_CONFIG.DATA_PATH', str(root), *sets], cfg)
+    log(f'==== {tag}: one train step with --set {" ".join(sets)} ====')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                            training=True, seed=SEED)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), train_set, device='cpu')
+    flax_init(model, torch.Generator().manual_seed(INIT_SEED))
+    model = model.to(dev)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, len(loader), model.parameters())
+    state = init_train_state(model, optimizer)
+    step = make_train_step(model, optimizer, train_set)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    n_layers = len(SPARSE_LAYERS)
+    n_float = 1 if name == 'atss' else len(cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG)
+    rec, before = {}, counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with kernel_calls(rec, clone=True):
+        state, metrics = step(state, batch, torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    made, want = launch_delta(before, n_k2=n_layers, n_dgrad=n_layers - 1, n_wgrad=n_layers,
+                              n_float=n_float)
+    if made != want:
+        raise RuntimeError(f'{tag} train step launched {made}, expected {want}')
+    with torch.no_grad():
+        s = calls_vs_plain(rec, tag)
+        n_f, _ = k1_calls_exact(rec, tag)
+        shapes = [tuple(a.shape) for (a, _), _, _ in rec['float']]
+        vox = prepare_device_batch(batch, train_set.voxel_cfg, train_set.grid_size,
+                                   train_set.point_cloud_range, train_set.voxel_size)
+        gt = vox['gt_boxes']
+        got = model.dense_head.assign_targets(gt)
+        with plain_versions():
+            ref = model.dense_head.assign_targets(gt)
+    unequal = [k for k in ref if not torch.equal(got[k], ref[k])]
+    if unequal:
+        raise RuntimeError(f'{tag}: the assignment differs from the plain path\'s at {unequal}')
+    labels = got['box_cls_labels']
+    log(f'{tag} train step: loss {float(metrics["loss"]):.4f}, {ms:.1f} ms with this script\'s '
+        f'recording, peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; '
+        f'launches {made}; {n_f} K1 float calls over the anchors {shapes} x gt '
+        f'{tuple(gt.shape)}, each bit-equal to overlap_bev_plain; {summary(s)}; the assignment '
+        f'equal to the plain path\'s (labels, targets, weights): positives a frame '
+        f'{(labels > 0).sum(-1).tolist()}, ignored {(labels < 0).sum(-1).tolist()} of '
+        f'{labels.shape[1]} anchors')
+    return rec['float'][0], n_float
+
+
+def drive_kitti_second(dev):
+    """SECONDNetIoU (kitti_models/second_iou.yaml) and the multi-head SECOND
+    (second_multihead.yaml) at their files' MODEL and DATA_CONFIG widths
+    (40 000 voxels / 45 000 points at test, 16 000 / 18 000 in training, 3
+    classes, 211 200 anchors, K2 bf16, batch 4, LR 0.003) over the KITTI
+    phase's tree (``kitti_tree``), cut in depth only (``SECOND_KITTI_DEPTH``):
+    ``tools/train.main`` for each under ``held_train_steps`` (a step: 12/11/12
+    K2; SECONDNetIoU also 1 K1 mask at the TRAIN proposal NMS and 1 K1 float
+    in its proposal targets), every call against its plain version (K1 bit
+    for bit); one more train step of second_multihead.yaml each with ATSS and
+    with MATCH_HEIGHT (``assigner_step``); ``tools/test.main`` on the val
+    split with each checkpoint on the kernel path (a batch: 12 K2, 1 K1
+    float at the recall; SECONDNetIoU 2 K1 masks, the proposal and the final
+    NMS; second_multihead 3, one a class) and the plain path, the KITTI
+    result printed and the differing boxes counted; each trained model ahead
+    of its NMS in f32 (``f32_ahead_of_nms``: SECONDNetIoU's IoU logits from
+    common RoIs and its RoIs where both paths kept the same), each
+    SCORE_TYPE fusion once on SECONDNetIoU's outputs; each model's eval and
+    train step stages (``second_stages``); the kernels timed at
+    the path's shapes (``second_iou.``, ``second_iou_train.``,
+    ``second_multihead.``, ``second_multihead_train.``).  Returns the
+    kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.models import post_processing as pp
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_kitti_second_'))
+    root = kitti_tree()
+    n_layers = len(SPARSE_LAYERS)
+    paths = {}
+    for cfg_file, key, per_step in (
+            (SECOND_IOU_CFG, 'second_iou',
+             dict(n_k2=n_layers, n_dgrad=n_layers - 1, n_wgrad=n_layers, n_mask=1, n_float=1)),
+            (SECOND_MULTI_CFG, 'second_multihead',
+             dict(n_k2=n_layers, n_dgrad=n_layers - 1, n_wgrad=n_layers))):
+        cfg = load_config(cfg_file)
+        cfg.DATA_CONFIG.DATA_PATH = str(root)
+        out = work / key
+        args = ['--cfg_file', cfg_file, '--output_dir', str(out), '--set',
+                'DATA_CONFIG.DATA_PATH', str(root), *SECOND_KITTI_DEPTH]
+        vox = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]
+        log(f'==== {key}: {cfg_file} at its widths ({cfg.MODEL.NAME}, '
+            f'{cfg.MODEL.DENSE_HEAD.NAME}, {len(cfg.CLASS_NAMES)} classes, voxel buffers '
+            f'{dict(vox.MAX_NUMBER_OF_VOXELS)}, points {dict(vox.MAX_POINTS_PER_FRAME)}, K2 '
+            f'bf16 {cfg.MODEL.BACKBONE_3D.USE_BF16}, batch {cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}, '
+            f'LR {cfg.OPTIMIZATION.LR}); cut in depth only: --set '
+            f'{" ".join(SECOND_KITTI_DEPTH)} (the file\'s {cfg.OPTIMIZATION.NUM_EPOCHS} epochs) '
+            '====')
+        torch.backends.cudnn.allow_tf32 = True          # as a user runs train.main
+        t = time.perf_counter()
+        with held_train_steps(key, per_step) as w:
+            state = train_cli.main(args)
+            torch.cuda.synchronize()
+        torch.backends.cudnn.allow_tf32 = False
+        steps = w['steps']
+        if len(steps) < 3:
+            raise RuntimeError(f'{key}: train.main ran {len(steps)} steps')
+        log(f'{key} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every '
+            f'K1 and K2 call against its plain version (K1 bit for bit); peak device memory '
+            f'of a step {max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+        post = cfg.MODEL.POST_PROCESSING
+        # a test batch: the 12 layers, the recall's float call, the NMS masks
+        # (SECONDNetIoU's proposal and final NMS, or one a class)
+        launches = dict(n_k2=n_layers, n_float=1,
+                        n_mask=2 if key == 'second_iou' else len(cfg.CLASS_NAMES))
+        bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+        test_sets = ['DATA_CONFIG.DATA_PATH', str(root)]
+        if key == 'second_multihead':
+            test_sets += MULTI_TEST_SETS
+            log(f'{key} test CLI and eval stages with --set {" ".join(MULTI_TEST_SETS)} (the '
+                f'file\'s {post.SCORE_THRESH}: a 4-step model scores near the focal prior 0.01)')
+            cfg_from_list(list(MULTI_TEST_SETS), cfg)        # the stages' NMS likewise
+        test_rec = test_cli_paths(key, cfg_file, out / 'ckpt' / 'checkpoint_epoch_1.pth', out,
+                                  test_sets, batch=bs, per_batch=launches)
+
+        def fusions(out_b, i, post=post, key=key):
+            if 'roi_scores' not in out_b:
+                return
+            kept = {}
+            for score_type in SCORE_TYPES:
+                p = copy.deepcopy(post)
+                p.NMS_CONFIG.update({**FUSION_SETTINGS, 'SCORE_TYPE': score_type})
+                preds = pp.post_processing(out_b, p, len(KITTI_CLASSES))
+                scores = preds['pred_scores'][preds['pred_valid']]
+                if not (torch.isfinite(scores).all() and (scores >= 0).all()
+                        and (scores <= 1).all()):
+                    raise RuntimeError(f'{key} {score_type} fusion: scores outside [0, 1]')
+                kept[score_type] = int(preds['pred_valid'].sum())
+            log(f'{key} val batch {i}: boxes kept by each SCORE_TYPE fusion {kept}')
+        f32_ahead_of_nms(state.model, cfg, dev, key, each=fusions)
+        second_stages(state.model, state.optimizer, cfg, dev, key)
+        paths[key] = (state.model, w, test_rec)
+
+    assigner = {name: assigner_step(dev, root, name, sets)
+                for name, sets in ASSIGNER_SETS.items()}
+
+    # ---- the kernels at the path's shapes, timed ----
+    model, w, test_rec = paths['second_iou']
+    first, n_steps = w['first'], len(w['steps'])
+    n_test = len(test_rec['float'])
+    results = [time_gather_gemm(f'second_iou.gather_gemm[{lname}]', layer, f[None], rbk, n_test,
+                                cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, sparse_layers(model),
+                                                             test_rec['k2'])]
+    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
+    results += [time_dgrad(f'second_iou_train.gather_gemm_dgrad[{lname}]', args, n_steps)
+                for lname, (args, _, _) in zip(dnames, first['dgrad'])]
+    results += [time_wgrad(f'second_iou_train.gather_gemm_wgrad[{lname}]', args, n_steps)
+                for lname, (args, _, _) in zip(wnames, first['wgrad'])]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
+        results.append(time_mask(f'second_iou.nms_mask[{name}]', boxes, alive, thresh, n_test,
+                                 fix[2][1], f'second_iou test {name}'))
+    rec = first['rec']
+    (boxes, alive, thresh), _, _ = rec['mask'][0]
+    results.append(time_mask('second_iou_train.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             n_steps, rec['fix'][0][2][1], 'second_iou train proposal_nms'))
+    (a_, b_), _, _ = rec['float'][0]
+    results.append(time_overlap('second_iou_train.overlap_bev[roi_targets]', a_, b_, n_steps,
+                                'second_iou train roi_targets'))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap('second_iou_test.overlap_bev[recall]', a_, b_, n_test,
+                                'second_iou test recall'))
+    _, _, test_rec = paths['second_multihead']
+    n_test = len(test_rec['float'])
+    for c, (((boxes, alive, thresh), _, _), fix) in enumerate(zip(test_rec['mask'][:3],
+                                                                 test_rec['fix'])):
+        results.append(time_mask(f'second_multihead.nms_mask[nms_{KITTI_CLASSES[c]}]', boxes,
+                                 alive, thresh, n_test, fix[2][1],
+                                 f'second_multihead test nms {KITTI_CLASSES[c]}'))
+    for name, (((a_, b_), _, _), n_float) in assigner.items():
+        results.append(time_overlap(f'second_multihead_train.overlap_bev[{name}]', a_, b_,
+                                    n_float, f'second_multihead train {name}'))
+    for key in paths:
+        paths[key][1].clear()
     shutil.rmtree(work)
     return results
 
@@ -5030,6 +5452,8 @@ def main():
     results += phase('PV-RCNN AL loop', drive_pvrcnn_active, dev)
     results += phase('PV-RCNN CRB', drive_pvrcnn_crb, dev)
     results += phase('KITTI: PV-RCNN CRB at the paper\'s config', drive_kitti, dev)
+    results += phase('KITTI: SECONDNetIoU and the multi-head SECOND at their configs',
+                     drive_kitti_second, dev)
     results += phase('Waymo: PV-RCNN CRB at the paper\'s config', drive_waymo, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16

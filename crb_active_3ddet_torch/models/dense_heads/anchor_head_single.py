@@ -4,6 +4,8 @@
 ``generate_predicted_boxes:238-285`` and losses ``:101-227``): forward, box
 decoding, target assignment in training mode and the RPN losses, with the
 ``reduce=False`` per-sample mode that BADGE, CRB and llal read.
+``AnchorHeadTemplate`` holds what ``anchor_head_multi.AnchorHeadMulti``
+shares with it, as the JAX heads share ``AnchorHeadCore``.
 
 Predictions keep the JAX layout: cls/box/dir preds (B, H, W, A·C), flattened
 with the anchors in (H, W, class·S·R) order.
@@ -18,12 +20,20 @@ from torch import nn
 from ...utils import box_coder as box_coder_utils
 from ...utils import common, loss_utils
 from .anchor_generator import generate_anchors
-from .target_assigner import AxisAlignedTargetAssigner
+from .target_assigner import ATSSTargetAssigner, AxisAlignedTargetAssigner
+
+FOCAL_PRIOR = 0.01      # each cls output bias starts at -log((1 - p) / p)
 
 
-class AnchorHeadSingle(nn.Module):
-    def __init__(self, model_cfg, input_channels, num_class, class_names,
-                 grid_size, point_cloud_range, predict_boxes_when_training=True):
+class AnchorHeadTemplate(nn.Module):
+    """What the anchor heads share (the JAX ``AnchorHeadCore``): the box
+    coder, the flat anchors in (H, W, class·S·R) order, the target assigner
+    that ``TARGET_ASSIGNER_CONFIG.NAME`` selects, the box decoding and the
+    forward's tail.  A head adds its convolutions, ``forward``, and lists
+    its output convolutions (``cls_convs``, ``box_convs``)."""
+
+    def __init__(self, model_cfg, num_class, class_names, grid_size, point_cloud_range,
+                 predict_boxes_when_training=True):
         super().__init__()
         self.predict_boxes_when_training = predict_boxes_when_training
         self.model_cfg = model_cfg
@@ -40,24 +50,13 @@ class AnchorHeadSingle(nn.Module):
         cat = np.concatenate(anchors_list, axis=-3)
         self.register_buffer('anchors', torch.from_numpy(
             cat.reshape(-1, cat.shape[-1]).astype(np.float32)), persistent=False)
-        num_anchors = sum(self.num_anchors_per_location)
+        assigners = {'AxisAlignedTargetAssigner': AxisAlignedTargetAssigner,
+                     'ATSSTargetAssigner': ATSSTargetAssigner}
         name = tgt_cfg.get('NAME', 'AxisAlignedTargetAssigner')
-        if name != 'AxisAlignedTargetAssigner':
+        if name not in assigners:
             raise KeyError(f'target assigner {name} is not ported yet')
-        self.target_assigner = AxisAlignedTargetAssigner(
-            model_cfg, class_names, self.box_coder,
-            match_height=tgt_cfg['MATCH_HEIGHT'])
-
-        pi = 0.01
-        self.conv_cls = nn.Conv2d(input_channels, num_anchors * num_class, 1)
-        self.conv_box = nn.Conv2d(input_channels,
-                                  num_anchors * self.box_coder.code_size, 1)
-        nn.init.constant_(self.conv_cls.bias, -np.log((1 - pi) / pi))
-        nn.init.normal_(self.conv_box.weight, std=0.001)
-        self.conv_dir_cls = None
-        if model_cfg.get('USE_DIRECTION_CLASSIFIER', None) is not None:
-            self.conv_dir_cls = nn.Conv2d(
-                input_channels, num_anchors * model_cfg['NUM_DIR_BINS'], 1)
+        self.target_assigner = assigners[name](
+            model_cfg, class_names, self.box_coder, match_height=tgt_cfg['MATCH_HEIGHT'])
 
     @property
     def total_anchors(self):
@@ -67,15 +66,12 @@ class AnchorHeadSingle(nn.Module):
     def _conv_nhwc(conv, x):
         return conv(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
-    def forward(self, batch_dict):
-        x = batch_dict['spatial_features_2d']                 # (B, H, W, C)
-        cls_preds = self._conv_nhwc(self.conv_cls, x)         # (B, H, W, A·C)
-        box_preds = self._conv_nhwc(self.conv_box, x)
+    def _finish(self, batch_dict, cls_preds, box_preds, dir_cls_preds):
+        """Record the (B, H, W, A·C)-style predictions; in training the
+        targets; the decoded boxes in eval or when a RoI head reads them."""
         batch_dict['cls_preds'] = cls_preds
         batch_dict['box_preds'] = box_preds
-        dir_cls_preds = None
-        if self.conv_dir_cls is not None:
-            dir_cls_preds = self._conv_nhwc(self.conv_dir_cls, x)
+        if dir_cls_preds is not None:
             batch_dict['dir_cls_preds'] = dir_cls_preds
         if self.training and 'gt_boxes' in batch_dict:
             batch_dict.update(self.assign_targets(batch_dict['gt_boxes']))
@@ -116,6 +112,39 @@ class AnchorHeadSingle(nn.Module):
             batch_box = torch.cat([batch_box[..., :6], heading[..., None],
                                    batch_box[..., 7:]], dim=-1)
         return batch_cls, batch_box
+
+
+class AnchorHeadSingle(AnchorHeadTemplate):
+    def __init__(self, model_cfg, input_channels, num_class, class_names,
+                 grid_size, point_cloud_range, predict_boxes_when_training=True):
+        super().__init__(model_cfg, num_class, class_names, grid_size, point_cloud_range,
+                         predict_boxes_when_training)
+        num_anchors = sum(self.num_anchors_per_location)
+        self.conv_cls = nn.Conv2d(input_channels, num_anchors * num_class, 1)
+        self.conv_box = nn.Conv2d(input_channels,
+                                  num_anchors * self.box_coder.code_size, 1)
+        nn.init.constant_(self.conv_cls.bias, -np.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR))
+        nn.init.normal_(self.conv_box.weight, std=0.001)
+        self.conv_dir_cls = None
+        if model_cfg.get('USE_DIRECTION_CLASSIFIER', None) is not None:
+            self.conv_dir_cls = nn.Conv2d(
+                input_channels, num_anchors * model_cfg['NUM_DIR_BINS'], 1)
+
+    def cls_convs(self):
+        return [self.conv_cls]
+
+    def box_convs(self):
+        return [self.conv_box]
+
+    def forward(self, batch_dict):
+        x = batch_dict['spatial_features_2d']                 # (B, H, W, C)
+        # cls, box, dir in this order: autograd sums x's gradient in the
+        # order of its uses, and the gates' trained readings follow it
+        cls_preds = self._conv_nhwc(self.conv_cls, x)         # (B, H, W, A·C)
+        box_preds = self._conv_nhwc(self.conv_box, x)
+        dir_cls_preds = None if self.conv_dir_cls is None \
+            else self._conv_nhwc(self.conv_dir_cls, x)
+        return self._finish(batch_dict, cls_preds, box_preds, dir_cls_preds)
 
 
 # ---------------------------------------------------------------------------
@@ -226,4 +255,9 @@ def build_dense_head(model_cfg, input_channels, num_class, class_names,
         return AnchorHeadSingle(model_cfg, input_channels, num_class,
                                 class_names, grid_size, point_cloud_range,
                                 predict_boxes_when_training)
+    if model_cfg['NAME'] == 'AnchorHeadMulti':
+        from .anchor_head_multi import AnchorHeadMulti
+        return AnchorHeadMulti(model_cfg, input_channels, num_class,
+                               class_names, grid_size, point_cloud_range,
+                               predict_boxes_when_training)
     raise KeyError(f"dense head {model_cfg['NAME']} is not ported yet")

@@ -1,15 +1,16 @@
-"""Config-driven detector (torch): the PointPillar, SECONDNet and PVRCNN
-topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
+"""Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU
+and PVRCNN topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
 (reference ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
-``second_net.py:9-34``, ``pv_rcnn.py:9-43``): vfe → [backbone_3d] →
-map_to_bev → [pfe] → backbone_2d → dense_head → [point_head → roi_head];
-the bracketed modules are built when the config names them (PointPillars
-has no 3D backbone: its BEV width is ``MAP_TO_BEV.NUM_BEV_FEATURES``).
-``compute_loss`` is the training loss (``detector3d.py:154-218``): the
-anchor head's, plus the point head's and the RoI head's
-when the forward made their targets.  The modules that draw random numbers
-in training (PV-RCNN's RoI head: the RoI sample and its Dropout) take the
-``torch.Generator`` that ``forward`` is given.
+``second_net.py:9-34``, ``second_net_iou.py``, ``pv_rcnn.py:9-43``): vfe →
+[backbone_3d] → map_to_bev → [pfe] → backbone_2d → dense_head →
+[point_head] → [roi_head]; the bracketed modules are built when the config
+names them (PointPillars has no 3D backbone: its BEV width is
+``MAP_TO_BEV.NUM_BEV_FEATURES``; SECONDNetIoU's RoI head reads the BEV map,
+PV-RCNN's the keypoints).  ``compute_loss`` is the training loss
+(``detector3d.py:154-218``): the anchor head's, plus the point head's and
+the RoI head's when the forward made their targets.  The modules that draw
+random numbers in training (the RoI heads: the RoI sample and the Dropout)
+take the ``torch.Generator`` that ``forward`` is given.
 """
 
 from __future__ import annotations
@@ -27,13 +28,14 @@ from ..backbones_3d.pfe import build_pfe
 from ..backbones_3d.spconv_backbone import SparseConv3d, build_backbone_3d
 from ..backbones_3d.vfe import build_vfe
 from ..dense_heads import anchor_head_single as ahs
-from ..dense_heads.anchor_head_single import build_dense_head
+from ..dense_heads.anchor_head_single import FOCAL_PRIOR, build_dense_head
 from ..point_heads import point_head_simple as phs
 from ..point_heads.point_head_simple import build_point_head
 from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
+from ..roi_heads.second_head import get_box_iou_layer_loss
 
-_PORTED = {'PointPillar', 'SECONDNet', 'PVRCNN'}
+_PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'PVRCNN'}
 _DRAWS = ('roi_head',)          # modules whose training forward draws
 # the modules whose outputs the dense head reads
 _DENSE_PATH = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d', 'dense_head')
@@ -74,14 +76,16 @@ class Detector3D(nn.Module):
                                                num_class, self.pfe)
             topology.append('point_head')
         if model_cfg.get('ROI_HEAD', None) is not None:
-            self.roi_head = build_roi_head(model_cfg['ROI_HEAD'], num_class,
-                                           self.pfe.num_point_features)
+            self.roi_head = build_roi_head(
+                model_cfg['ROI_HEAD'], num_class,
+                self.pfe.num_point_features if hasattr(self, 'pfe')
+                else self.backbone_2d.num_bev_features, voxel_size, point_cloud_range)
             topology.append('roi_head')
         self.module_topology = tuple(topology)
 
     @property
     def device(self):
-        return self.dense_head.conv_cls.weight.device
+        return self.dense_head.anchors.device
 
     def forward(self, batch_dict, generator=None, dense_only=False):
         """``generator`` (a ``torch.Generator`` on the model's device) feeds
@@ -112,6 +116,11 @@ class Detector3D(nn.Module):
             point_loss = phs.get_point_loss(batch_dict, lw, reduce=reduce)
             loss = loss + point_loss
             tb['point_loss'] = point_loss
+        if 'roi_iou_targets' in batch_dict:
+            iou_loss = get_box_iou_layer_loss(batch_dict['roi_iou_targets'],
+                                              self.model_cfg['ROI_HEAD']['LOSS_CONFIG'])
+            loss = loss + iou_loss
+            tb['rcnn_loss_iou'] = iou_loss
         if 'roi_targets' in batch_dict:
             rcnn_loss, rcnn_tb = rht.get_rcnn_loss(
                 batch_dict['roi_targets'], self.model_cfg['ROI_HEAD']['LOSS_CONFIG'],
@@ -129,18 +138,18 @@ def init_weights(model, generator: torch.Generator, box_std=None):
     conv weight is (K, Cin, Cout); every other weight (Conv2d, Conv1d,
     ConvTranspose2d as laid out, Linear) has its outputs first.
 
-    ``box_std`` given, the anchor head's box layer weight is then drawn
+    ``box_std`` given, the anchor head's box layer weights are then drawn
     again, normal(0, box_std), as the JAX package and OpenPCDet draw
     ``conv_box`` (std 0.001).  A two-stage model trains from it: at
     1/√fan_in its decoded proposals reach 1e26 m and overflow the RoI head's
     decode and corner loss.  The default keeps the weights from which the
     SECOND and eval readings of ``chip_smoke.py`` were recorded."""
-    cls_bias = model.dense_head.conv_cls.bias
-    box_weight = model.dense_head.conv_box.weight
+    cls_biases = {id(conv.bias) for conv in model.dense_head.cls_convs()}
+    box_weights = [conv.weight for conv in model.dense_head.box_convs()]
     sparse = {id(m.weight) for m in model.modules() if isinstance(m, SparseConv3d)}
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if p is cls_bias:
+            if id(p) in cls_biases:
                 continue
             r = torch.randn(p.shape, generator=generator)
             if name.endswith('weight') and p.ndim > 1:
@@ -158,11 +167,11 @@ def init_weights(model, generator: torch.Generator, box_std=None):
             elif name.endswith('running_var'):
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=generator))
         if box_std is not None:       # drawn last: the other weights stay as without it
-            box_weight.copy_(box_std * torch.randn(box_weight.shape, generator=generator))
+            for w in box_weights:
+                w.copy_(box_std * torch.randn(w.shape, generator=generator))
     return model
 
 
-FOCAL_PRIOR = 0.01       # the anchor head's cls bias is -log((1 - p) / p)
 
 
 def flax_init(model, generator: torch.Generator):
@@ -172,14 +181,17 @@ def flax_init(model, generator: torch.Generator):
     (a normal truncated at ±2 of its scale, std 1/√fan_in); each sparse conv
     kernel variance_scaling(1, fan_out, normal), a plain normal of std
     1/√(K·Cout); zero biases; BatchNorm scale 1, bias 0, mean 0, var 1; the
-    anchor head's cls bias at the focal prior and its box kernel normal(0,
-    0.001), as the RoI head's two output kernels (llal's LossNet: its convs
-    and linear map lecun-normal, biases 0).  Fan-in as Flax counts it:
+    anchor head's cls biases at the focal prior and AnchorHeadSingle's box
+    kernel normal(0, 0.001), as PV-RCNN's RoI head's two output kernels
+    (AnchorHeadMulti's box kernels and SECONDHead's ``iou_out`` are
+    lecun-normal; llal's LossNet: its convs and linear map lecun-normal,
+    biases 0).  Fan-in as Flax counts it:
     a ConvTranspose2d weight (in, out, kh, kw) has in·kh·kw, every other
     weight (out, ...) the product of its trailing dims.  The draws differ
     from JAX's (another generator); their distribution is the same."""
-    small = {id(model.dense_head.conv_box.weight)}
-    if hasattr(model, 'roi_head'):
+    head = model.dense_head
+    small = {id(head.conv_box.weight)} if isinstance(head, ahs.AnchorHeadSingle) else set()
+    if hasattr(getattr(model, 'roi_head', None), 'cls_layers'):
         small |= {id(model.roi_head.cls_layers[-1].weight),
                   id(model.roi_head.reg_layers[-1].weight)}
     done = set()
@@ -207,7 +219,8 @@ def flax_init(model, generator: torch.Generator):
             if getattr(m, 'bias', None) is not None:
                 m.bias.zero_()
                 done.add(id(m.bias))
-        model.dense_head.conv_cls.bias.fill_(-math.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR))
+        for conv in head.cls_convs():
+            conv.bias.fill_(-math.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR))
     missed = [n for n, p in model.named_parameters() if id(p) not in done]
     if missed:
         raise NotImplementedError(f'flax_init has no initializer for {missed}')

@@ -7,9 +7,12 @@ Port of ``post_processing`` (:110), ``post_process_frame`` (:27),
 JAX package vmaps per frame): every output is a fixed (B, P, ...) tensor with
 a validity mask.  Two-stage models hand over ``roi_labels`` (the labels,
 when ``has_class_labels``: class-agnostic rcnn scores carry no class) and
-``full_cls_scores`` (exported as ``pred_logits``).  The IoU-head score fusions
-(SECONDNetIoU's SCORE_TYPE) and the score-only selection of configs without
-NMS_CONFIG (CenterPoint) come with those detectors.
+``full_cls_scores`` (exported as ``pred_logits``).  SECONDNetIoU's IoU-head
+score fusions (``NMS_CONFIG.SCORE_TYPE``: ``iou``, ``cls``,
+``weighted_iou_cls``, ``num_pts_iou_cls``, ``score_by_class``; JAX
+``post_processing.py:123-158``) replace the scores before the NMS when the
+batch holds ``roi_scores``.  The score-only selection of configs without
+NMS_CONFIG comes with CenterPoint (ROADMAP Queue 1 item 14c).
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch
 
 from ..ops import iou3d
 from ..ops import nms as nms_ops
-from ..ops.points_in_boxes import box_point_density, points_in_boxes
+from ..ops.points_in_boxes import box_point_density, points_count_per_box, points_in_boxes
 from ..utils.common import take_rows
 
 
@@ -27,14 +30,51 @@ def _masked(valid, x):
     return torch.where(v, x, torch.zeros_like(x))
 
 
+def fused_scores(batch_dict, nms_cfg, score_type):
+    """An IoU head's scores (B, R) fused with the proposals' by
+    ``score_type`` (the reference's ``second_net_iou.post_processing``)."""
+    cls_preds = batch_dict['batch_cls_preds']
+    iou_s = cls_preds if batch_dict.get('cls_preds_normalized', False) \
+        else torch.sigmoid(cls_preds)
+    iou_s = iou_s.max(dim=-1).values
+    cls_s = torch.sigmoid(batch_dict['roi_scores'])
+    if score_type == 'iou':
+        return iou_s
+    if score_type == 'cls':
+        return cls_s
+    if score_type == 'weighted_iou_cls':
+        w = nms_cfg['SCORE_WEIGHTS']
+        return float(w['iou']) * iou_s + float(w['cls']) * cls_s
+    if score_type == 'num_pts_iou_cls':
+        cnt = points_count_per_box(batch_dict['points'][..., :3],
+                                   batch_dict['batch_box_preds'][..., :7],
+                                   batch_dict.get('points_valid', None))
+        lo, hi = float(nms_cfg['SCORE_THRESH']['cls']), float(nms_cfg['SCORE_THRESH']['iou'])
+        alpha = torch.clamp((cnt - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
+        return (1 - alpha) * cls_s + alpha * iou_s
+    if score_type == 'score_by_class':
+        table = nms_cfg['SCORE_BY_CLASS']
+        use_iou = torch.tensor([1.0 if table[c] == 'iou' else 0.0
+                                for c in nms_cfg['CLASS_NAMES']], device=iou_s.device)
+        sel = use_iou[torch.clamp(batch_dict['roi_labels'] - 1, min=0)]
+        return sel * iou_s + (1 - sel) * cls_s
+    raise NotImplementedError(score_type)
+
+
 def post_processing(batch_dict, post_cfg, num_class):
     """batch_dict needs batch_cls_preds (B, A, C), batch_box_preds (B, A, 7+),
     cls_preds_normalized, optionally points (B, N, 3+) + points_valid, and
-    from a RoI head has_class_labels, roi_labels (B, A), full_cls_scores.
-    Returns a dict of (B, P, ...) tensors."""
+    from a RoI head has_class_labels, roi_labels (B, A), full_cls_scores
+    (and, for an IoU head's SCORE_TYPE, roi_scores).  Returns a dict of
+    (B, P, ...) tensors."""
     cls_preds = batch_dict['batch_cls_preds']
     box_preds = batch_dict['batch_box_preds']
     normalized = bool(batch_dict.get('cls_preds_normalized', False))
+    nms_cfg = post_cfg.get('NMS_CONFIG', None)
+    score_type = None if nms_cfg is None else nms_cfg.get('SCORE_TYPE', None)
+    if score_type is not None and 'roi_scores' in batch_dict:
+        cls_preds = fused_scores(batch_dict, nms_cfg, score_type)[..., None]
+        normalized = True
     scores = cls_preds if normalized else torch.sigmoid(cls_preds)
     max_scores = scores.max(dim=-1).values
     if batch_dict.get('has_class_labels', False):
@@ -43,7 +83,6 @@ def post_processing(batch_dict, post_cfg, num_class):
         labels = scores.argmax(dim=-1) + 1
     logits_src = batch_dict.get('full_cls_scores', cls_preds)
 
-    nms_cfg = post_cfg.get('NMS_CONFIG', None)
     if nms_cfg is None:
         raise NotImplementedError('post-processing without NMS_CONFIG is not '
                                   'ported yet')

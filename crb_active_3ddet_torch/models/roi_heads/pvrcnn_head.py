@@ -179,9 +179,16 @@ class PVRCNNHead(nn.Module):
         return batch_dict
 
 
-def build_roi_head(model_cfg, num_class, input_channels):
-    """CLASS_AGNOSTIC RoI heads score one class."""
+def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
+                   point_cloud_range=None):
+    """CLASS_AGNOSTIC RoI heads score one class.  ``input_channels``: the
+    keypoint features' width (PVRCNNHead) or the BEV map's (SECONDHead, which
+    also takes the voxel size and the point cloud range)."""
     nc = 1 if model_cfg.get('CLASS_AGNOSTIC', True) else num_class
     if model_cfg['NAME'] == 'PVRCNNHead':
         return PVRCNNHead(model_cfg, input_channels, num_class=nc)
+    if model_cfg['NAME'] == 'SECONDHead':
+        from .second_head import SECONDHead
+        return SECONDHead(model_cfg, input_channels, num_class=nc, voxel_size=voxel_size,
+                          point_cloud_range=point_cloud_range)
     raise KeyError(f"roi head {model_cfg['NAME']} is not ported yet")

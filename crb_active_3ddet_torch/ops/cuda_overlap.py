@@ -28,7 +28,7 @@ from . import cuda_build
 
 _EPS = 1e-8
 _CAP = 8          # max vertices of the intersection of two convex quads
-_ROW_CHUNK = 128  # plain version: rows per step, bounds its temporaries
+_PAIR_CHUNK = 1 << 20  # plain version: pairs per step, bounds its temporaries
 
 launches = 0
 mask_launches = 0
@@ -118,14 +118,18 @@ def _overlap_corners_plain(a_cor, b_cor):
 
 
 def overlap_bev_plain(boxes_a, boxes_b):
-    """Plain torch version: (..., N, 7), (..., M, 7) → (..., N, M)."""
+    """Plain torch version: (..., N, 7), (..., M, 7) → (..., N, M), in
+    steps of rows that hold about ``_PAIR_CHUNK`` pairs (each pair's
+    arithmetic is elementwise, so the steps do not change a bit)."""
     a_cor, b_cor = corners_cat(boxes_a), corners_cat(boxes_b)
     n = a_cor.shape[-2]
-    if n <= _ROW_CHUNK:
+    pairs_a_row = math.prod(torch.broadcast_shapes(a_cor.shape[:-2], b_cor.shape[:-2])) \
+        * b_cor.shape[-2]
+    rows = max(1, _PAIR_CHUNK // max(1, pairs_a_row))
+    if n <= rows:
         return _overlap_corners_plain(a_cor, b_cor)
-    return torch.cat([_overlap_corners_plain(a_cor[..., r:r + _ROW_CHUNK, :],
-                                             b_cor)
-                      for r in range(0, n, _ROW_CHUNK)], dim=-2)
+    return torch.cat([_overlap_corners_plain(a_cor[..., r:r + rows, :], b_cor)
+                      for r in range(0, n, rows)], dim=-2)
 
 
 def pack_bits(bits):

@@ -43,7 +43,7 @@ def main(argv=None):
     cfg = load_config(args.cfg_file)
     if args.set_cfgs:
         cfg_from_list(args.set_cfgs, cfg)
-    check_family(cfg.MODEL.NAME)
+    check_family(cfg.MODEL)
     dataset, _, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, args.batch_size,
                                      training=False, workers=0)
     model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), dataset, device='cpu')

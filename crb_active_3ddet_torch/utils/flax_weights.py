@@ -25,6 +25,16 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
   * llal's LossNet: ``roi_head.loss_net.conv_{k}`` / ``bn_{k}`` →
     ``roi_head.loss_net.conv_layers.{k}.{0,1}`` (a Conv1d(C_k, 1, 1) and its
     BatchNorm1d), ``linear`` → ``roi_head.loss_net.linear``.
+  * SECONDHead: ``shared_fc_{i}`` / ``shared_bn_{i}`` → ``roi_head.shared_fc_layer``,
+    ``iou_fc_{i}`` / ``iou_bn_{i}`` + ``iou_out`` → ``roi_head.iou_layers``
+    (its p = 0 Dropout entry after the first block shifts the indices).
+  * AnchorHeadMulti: ``shared_conv`` / ``shared_bn`` → ``dense_head.shared_conv.{0,1}``;
+    ``head{h}_conv_cls`` / ``_conv_box`` / ``_conv_dir`` →
+    ``dense_head.rpn_heads.{h}.conv_cls`` / ``conv_box`` / ``conv_dir_cls``;
+    with SEPARATE_REG_CONFIG ``head{h}_cls_mid{k}`` / ``_cls_bn{k}`` →
+    ``conv_cls.{3k, 3k+1}`` ahead of ``head{h}_conv_cls``, and
+    ``head{h}_reg_{name}_mid{k}`` / ``_bn{k}`` + ``head{h}_conv_{name}`` →
+    ``conv_box.conv_{name}.*`` likewise.
 
 ``optax_to_optimizer_state`` moves the optimizer state of a JAX
 ``TrainState`` (Adam's ``mu``/``nu``/``count`` and the schedule's count)
@@ -125,8 +135,8 @@ def _point_branch(sd, params, batch_stats, model_cfg):
     sd[f'point_head.cls_layers.{3 * n}.weight'] = _dense(ph[f'Dense_{n}']['kernel'])
     sd[f'point_head.cls_layers.{3 * n}.bias'] = ph[f'Dense_{n}']['bias']
 
-    roi_cfg = model_cfg['ROI_HEAD']
     rh, srh = params['roi_head'], batch_stats['roi_head']
+    roi_cfg = model_cfg['ROI_HEAD']
     sa_module_from_flax(sd, 'roi_head.roi_grid_pool_layer', rh['roi_grid_pool'],
                srh['roi_grid_pool'], roi_cfg['ROI_GRID_POOL']['MLPS'])
     n_shared = len(roi_cfg['SHARED_FC'])
@@ -146,6 +156,67 @@ def _point_branch(sd, params, batch_stats, model_cfg):
         sd['roi_head.loss_net.linear.bias'] = ln['linear']['bias']
 
 
+def second_head_from_flax(sd, params, batch_stats, model_cfg):
+    """SECONDNetIoU's RoI head: the shared FC tower (Dropout entries between
+    its layers when DP_RATIO > 0, the JAX default 0.3) and the IoU tower."""
+    roi_cfg = model_cfg['ROI_HEAD']
+    rh, srh = params['roi_head'], batch_stats['roi_head']
+    n_shared = len(roi_cfg['SHARED_FC'])
+    between = range(n_shared - 1) if float(roi_cfg.get('DP_RATIO', 0.3)) > 0 else ()
+    _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n_shared, between)
+    _fc_stack(sd, 'roi_head.iou_layers', rh, srh, 'iou', len(roi_cfg['IOU_FC']), (0,),
+              out='iou_out')
+
+
+def dense_head_from_flax(sd, params, batch_stats):
+    """AnchorHeadSingle's three convs, or AnchorHeadMulti's shared conv and
+    towers (the names say which; see the module docstring)."""
+    import re
+    p, s = params['dense_head'], batch_stats.get('dense_head', {})
+    towers, separate = {}, set()    # (head, tag) -> middle convs; SEPARATE_REG heads
+    for name in p:
+        m = re.fullmatch(r'head(\d+)_(cls|reg_\w+)_mid(\d+)', name)
+        if m:
+            key = (m.group(1), m.group(2))
+            towers[key] = max(towers.get(key, 0), int(m.group(3)) + 1)
+        m = re.fullmatch(r'head(\d+)_conv_(\w+)', name)
+        if m and m.group(2) not in ('cls', 'box', 'dir'):
+            separate.add(m.group(1))
+    for name, v in p.items():
+        if name == 'shared_conv':
+            sd['dense_head.shared_conv.0.weight'] = conv2d_from_flax(v['kernel'])
+            continue
+        if name == 'shared_bn':
+            _bn(sd, 'dense_head.shared_conv.1', v, s['shared_bn'])
+            continue
+        m = re.fullmatch(r'head(\d+)_(?:(conv_cls|conv_box|conv_dir)|conv_(\w+)'
+                         r'|(cls|reg_\w+)_(mid|bn)(\d+))', name)
+        if m is None:               # AnchorHeadSingle
+            sd[f'dense_head.{name}.weight'] = conv2d_from_flax(v['kernel'])
+            sd[f'dense_head.{name}.bias'] = v['bias']
+            continue
+        h, out, reg, tag, kind, k = m.groups()
+        head = f'dense_head.rpn_heads.{h}'
+        if tag is not None:         # a middle conv or its BatchNorm
+            seq = f'{head}.conv_cls' if tag == 'cls' else f'{head}.conv_box.conv_{tag[4:]}'
+            if kind == 'mid':
+                sd[f'{seq}.{3 * int(k)}.weight'] = conv2d_from_flax(v['kernel'])
+            else:
+                _bn(sd, f'{seq}.{3 * int(k) + 1}', v, s[name])
+            continue
+        if out == 'conv_dir':
+            target = f'{head}.conv_dir_cls'
+        elif out == 'conv_box':
+            target = f'{head}.conv_box'
+        elif out == 'conv_cls':
+            n_mid = towers.get((h, 'cls'), 0)
+            target = f'{head}.conv_cls.{3 * n_mid}' if h in separate else f'{head}.conv_cls'
+        else:
+            target = f'{head}.conv_box.conv_{reg}.{3 * towers.get((h, f"reg_{reg}"), 0)}'
+        sd[f'{target}.weight'] = conv2d_from_flax(v['kernel'])
+        sd[f'{target}.bias'] = v['bias']
+
+
 def pillar_vfe_from_flax(sd, params, batch_stats):
     """PillarVFE's PFN layers; a layer without BatchNorm has a bias."""
     pv, sv = params['vfe'], batch_stats.get('vfe', {})
@@ -162,15 +233,18 @@ def pillar_vfe_from_flax(sd, params, batch_stats):
 
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
-    """Flax PointPillar, SECONDNet or PVRCNN variables → port ``state_dict``
-    (torch tensors).  PVRCNN needs ``model_cfg`` (the MODEL node): the Flax
-    names of the point branch do not say where one MLP ends and the next
-    begins."""
+    """Flax PointPillar, SECONDNet, SECONDNetIoU or PVRCNN variables → port
+    ``state_dict`` (torch tensors).  PVRCNN and SECONDNetIoU need
+    ``model_cfg`` (the MODEL node): the Flax names of the point branch do not
+    say where one MLP ends and the next begins, nor those of an FC tower
+    where its Dropout entries stand."""
     sd = {}
     if 'vfe' in params:
         pillar_vfe_from_flax(sd, params, batch_stats)
     if 'pfe' in params:
         _point_branch(sd, params, batch_stats, model_cfg)
+    elif 'roi_head' in params:
+        second_head_from_flax(sd, params, batch_stats, model_cfg)
     if 'backbone_3d' in params:
         p3, s3 = params['backbone_3d'], batch_stats['backbone_3d']
         for i, name in enumerate(VOXEL8X_ORDER):
@@ -200,9 +274,7 @@ def flax_to_state_dict(params, batch_stats, model_cfg=None):
             sblk['BatchNorm_0'])
         i += 1
 
-    for name, conv in params['dense_head'].items():
-        sd[f'dense_head.{name}.weight'] = conv2d_from_flax(conv['kernel'])
-        sd[f'dense_head.{name}.bias'] = conv['bias']
+    dense_head_from_flax(sd, params, batch_stats)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 

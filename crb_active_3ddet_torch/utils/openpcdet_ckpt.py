@@ -4,9 +4,13 @@ Counterpart of ``crb_active_3ddet_tpu/utils/torch_ckpt.py:775
 map_openpcdet_state`` and ``:834 import_openpcdet_checkpoint`` (reference
 ``pcdet/models/detectors/detector3d_template.py:455-536``,
 ``load_params_from_file``) for the families the port runs: SECOND
-(``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), PointPillars
-(``PillarVFE``) and PV-RCNN (voxel set abstraction, point head, PV-RCNN
-head).  Another family raises, naming ROADMAP Queue 1 item 14.
+(``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), SECOND-IoU (``SECONDHead``),
+PointPillars (``PillarVFE``) and PV-RCNN (voxel set abstraction, point head,
+PV-RCNN head).  Another family raises, naming ROADMAP Queue 1 item 14 (14c-14h
+are to come), and so does ``AnchorHeadMulti``: under
+``SEPARATE_MULTIHEAD`` an OpenPCDet head predicts its own classes only, the
+JAX head (and so the port's) every class, so their cls layers have other
+shapes and no weight maps across exactly.
 
 The port's parameter and buffer names are OpenPCDet's
 (``utils/flax_weights.py``), so a source tensor goes to the target of its
@@ -22,7 +26,9 @@ own name; its layout is changed only where the two differ:
     RoI grid channel-major (C·G³), the port grid-major (G³·C), as the JAX
     RoI head does (``crb_active_3ddet_tpu/models/roi_heads/pvrcnn_head.py:97``);
     its input axis is permuted.  (The JAX importer maps this weight without
-    the permutation.)
+    the permutation.)  SECONDHead's: OpenPCDet's ``grid_sample`` output
+    (B·R, C, G_y, G_x) flattened, against the port's (G_x, G_y, C)
+    (``crb_active_3ddet_tpu/models/roi_heads/second_head.py:64``).
   * BatchNorm weights and running statistics, ``num_batches_tracked``
     included, are copied.
 A tensor whose shape still differs is skipped and reported, and every
@@ -35,15 +41,35 @@ from __future__ import annotations
 
 import torch
 
-FAMILIES = ('SECONDNet', 'PointPillar', 'PVRCNN')
+FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'PVRCNN')
 SHARED_FC = 'roi_head.shared_fc_layer.0.weight'
 
 
-def check_family(name):
+def check_family(model_cfg):
+    """Raise unless the port can import an OpenPCDet checkpoint of the
+    model that ``model_cfg`` (the MODEL node) describes."""
+    name = model_cfg['NAME']
     if name not in FAMILIES:
         raise NotImplementedError(
             f'OpenPCDet import of {name}: the port imports {", ".join(FAMILIES)}; '
-            'the rest of the model zoo comes with ROADMAP Queue 1 item 14')
+            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14c-14h)')
+    if (model_cfg.get('DENSE_HEAD', None) or {}).get('NAME') == 'AnchorHeadMulti':
+        raise NotImplementedError(
+            'OpenPCDet import of AnchorHeadMulti: an OpenPCDet head under '
+            'SEPARATE_MULTIHEAD predicts its own classes only, the port\'s head (as the '
+            'JAX package\'s) every class, so the cls layers differ in shape')
+
+
+def shared_fc_layout(model):
+    """(grid points, OpenPCDet's grid axes reversed) of ``model``'s RoI head's
+    pooled grid: PV-RCNN's G³ in one order, SECONDHead's G² with (G_y, G_x)
+    against the port's (G_x, G_y); None without a RoI head."""
+    roi_head = getattr(model, 'roi_head', None)
+    if roi_head is None:
+        return None
+    if model.model_cfg['ROI_HEAD']['NAME'] == 'SECONDHead':
+        return roi_head.grid_size ** 2, True
+    return roi_head.grid_size ** 3, False
 
 
 def spconv_kernel(w, c_in, c_out):
@@ -62,21 +88,31 @@ def spconv_kernel(w, c_in, c_out):
     return w.reshape(-1, c_in, c_out)
 
 
-def grid_major(w, grid_points):
-    """The first shared FC's (Cout, C·G³[, 1]) channel-major weight → the
-    port's grid-major (Cout, G³·C[, 1])."""
+def _grid_axes(w, grid_points, reversed_xy, src_channel_major):
+    """Reorder the input axis of a (Cout, n_in[, 1]) weight between
+    OpenPCDet's channel-major and the port's grid-major layout."""
     c_out, n_in = w.shape[:2]
     c = n_in // grid_points
-    return w.reshape(c_out, c, grid_points, *w.shape[2:]).transpose(1, 2) \
+    if not reversed_xy:
+        shape = (c, grid_points) if src_channel_major else (grid_points, c)
+        return w.reshape(c_out, *shape, *w.shape[2:]).transpose(1, 2).reshape(w.shape)
+    g = round(grid_points ** 0.5)
+    shape = (c, g, g) if src_channel_major else (g, g, c)
+    tail = range(4, w.ndim + 2)
+    return w.reshape(c_out, *shape, *w.shape[2:]).permute(0, 3, 2, 1, *tail) \
         .reshape(w.shape)
 
 
-def channel_major(w, grid_points):
+def grid_major(w, grid_points, reversed_xy=False):
+    """The first shared FC's (Cout, C·G^d[, 1]) channel-major weight → the
+    port's grid-major (Cout, G^d·C[, 1]); ``reversed_xy`` for SECONDHead's
+    (C, G_y, G_x) → (G_x, G_y, C)."""
+    return _grid_axes(w, grid_points, reversed_xy, True)
+
+
+def channel_major(w, grid_points, reversed_xy=False):
     """The inverse of ``grid_major``: the port's layout → OpenPCDet's."""
-    c_out, n_in = w.shape[:2]
-    c = n_in // grid_points
-    return w.reshape(c_out, grid_points, c, *w.shape[2:]).transpose(1, 2) \
-        .reshape(w.shape)
+    return _grid_axes(w, grid_points, reversed_xy, False)
 
 
 def _squeeze_trailing(shape):
@@ -86,15 +122,15 @@ def _squeeze_trailing(shape):
     return tuple(shape)
 
 
-def _convert(key, src, tgt, grid_points):
+def _convert(key, src, tgt, layout):
     """``src`` in the target's layout, or None when no rule makes it fit."""
     if tgt.ndim == 3 and src.ndim == 5 and key.startswith('backbone_3d.'):
         try:
             return spconv_kernel(src, tgt.shape[1], tgt.shape[2])
         except ValueError:
             return None
-    if key == SHARED_FC and grid_points and src.numel() == tgt.numel():
-        src = grid_major(src, grid_points)
+    if key == SHARED_FC and layout and src.numel() == tgt.numel():
+        src = grid_major(src, *layout)
     if src.shape == tgt.shape:
         return src
     if src.numel() == tgt.numel() and _squeeze_trailing(src.shape) == _squeeze_trailing(tgt.shape):
@@ -109,9 +145,8 @@ def map_openpcdet_state(sd, model):
     the CPU.  ``report``: ``mapped`` (targets written), ``mismatched``
     ((name, source shape, target shape) skipped), ``unmatched_target``
     (targets kept) and ``unused_source`` (source names the model lacks)."""
-    check_family(model.model_cfg['NAME'])
-    roi_head = getattr(model, 'roi_head', None)
-    grid_points = roi_head.grid_size ** 3 if roi_head is not None else None
+    check_family(model.model_cfg)
+    layout = shared_fc_layout(model)
     target = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     out = dict(target)
     report = {'mapped': [], 'mismatched': [], 'unmatched_target': [], 'unused_source': []}
@@ -121,7 +156,7 @@ def map_openpcdet_state(sd, model):
             report['unmatched_target'].append(key)
             continue
         src = src.detach().cpu()
-        value = _convert(key, src, tgt, grid_points)
+        value = _convert(key, src, tgt, layout)
         if value is None:
             report['mismatched'].append((key, tuple(src.shape), tuple(tgt.shape)))
             report['unmatched_target'].append(key)
