@@ -182,7 +182,26 @@ Run from the root of a checkout.  It
      (SECONDNetIoU's IoU logits from common RoIs), each IoU-head score
      fusion once; the kernels at these shapes (``second_iou.``,
      ``second_iou_train.``, ``second_iou_test.``, ``second_multihead.``,
-     ``second_multihead_train.``).  Each phase prints its wall time.
+     ``second_multihead_train.``);
+ 17. CenterPoint over 15's Waymo tree (``drive_waymo_centerpoint``) at the
+     Waymo files' widths, cut in depth only (one epoch over every frame):
+     waymo_models/centerpoint.yaml (MeanVFE, 150 000 voxels / 180 000
+     points, K2 bf16 with VOXEL_CAPS, CenterHead, batch 2) through
+     ``tools/train.main`` with every K1 and K2 call of its steps against its
+     plain version and the launches exactly, ``tools/test.main`` on both
+     paths (K1's mask at the NMS over the 64 decoded boxes), the f32 check
+     ahead of the NMS at CenterHead's maps and boxes; centerpoint_dyn_pillar_1x.yaml
+     (DynamicPillarVFE, 468 × 468 pillars, the score-only selection) through
+     both CLIs, card against CPU and the point and pillar caps' drops;
+     pv_rcnn_with_centerhead_rpn.yaml's train step and test batch (K2 f32 at
+     150 000 voxels a stage, K3 at 180 000 points, the RoI head on
+     CenterHead's boxes), every call against its plain version; the stages
+     (the head's targets and decode alone), a torch.profiler trace of one
+     eval forward and the BEV convolutions timed as the port runs them,
+     with cudnn.benchmark and with TF32; the kernels at these shapes
+     (``centerpoint.``, ``centerpoint_train.``, ``centerpoint_test.``,
+     ``centerpoint_dyn_pillar_test.``, ``pv_rcnn_centerhead.``,
+     ``pv_rcnn_centerhead_train.``).  Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -656,6 +675,66 @@ def check_kernel_path(model, vox, tol=None):
     return out
 
 
+CENTER_MAP_KEYS = ('encoded_spconv_features', 'spatial_features_2d', 'center_heatmap',
+                   'center_reg')
+
+
+def center_maps(out):
+    """CenterHead's exported maps back as ``decode``'s branch maps."""
+    reg = out['center_reg']
+    return {'hm': out['center_heatmap'], 'center': reg[..., :2], 'center_z': reg[..., 2:3],
+            'dim': reg[..., 3:6], 'rot': reg[..., 6:8]}
+
+
+def check_center_path(model, vox, tol):
+    """``check_kernel_path`` for a one-stage CenterPoint: the same batch
+    through the plain versions on the card, held against the kernel path
+    before the NMS, max |diff|/(1+|ref|) within ``tol``: the sparse and BEV
+    maps and CenterHead's (``CENTER_MAP_KEYS``) as they are; the decoded
+    peaks' pseudo-logits and boxes against the plain path's maps decoded at
+    the kernel path's peaks.  Where the two paths pick another peak at a
+    rank (counted), the kernel path's pick must be a near-tie on the plain
+    path's heatmap: its score within 2δ of the plain path's at that rank,
+    and within 2δ of its 3×3 maximum (a peak up to rounding), δ the largest
+    |diff| of the sigmoid heatmaps."""
+    import torch.nn.functional as F
+    head = model.dense_head
+    with torch.no_grad():
+        out = model(vox)
+        with plain_versions():
+            ref = model(vox)
+        s_ref, i_ref = head.peaks(ref['center_heatmap'])
+        _, i_out = head.peaks(out['center_heatmap'])
+        hm = torch.sigmoid(ref['center_heatmap']).permute(0, 3, 1, 2)
+        hmax = F.max_pool2d(hm, 3, stride=1, padding=1)
+        delta = (torch.sigmoid(out['center_heatmap']) - torch.sigmoid(ref['center_heatmap'])
+                 ).abs().max().item()
+        b = hm.shape[0]
+        s_at = hm.reshape(b, -1).gather(1, i_out)
+        at_out = head.boxes_at(center_maps(ref), s_at, i_out)
+    bad = []
+    for key in CENTER_MAP_KEYS + ('batch_cls_preds', 'batch_box_preds'):
+        want = (at_out if key.startswith('batch_') else ref)[key]
+        err, diff = rel_err(out[key], want)
+        log(f'kernel path vs plain, {key} {tuple(want.shape)}: max |diff|/(1+|ref|) '
+            f'= {err:.3e} (tol {tol:.0e}), max |diff| {diff:.3e}'
+            + (' (the plain maps at the kernel path\'s peaks)' if key in at_out else ''))
+        if not err <= tol:
+            bad.append(key)
+    other = i_out != i_ref
+    gap_rank = (s_at - s_ref).abs()[other]
+    gap_peak = (hmax.reshape(b, -1).gather(1, i_out) - s_at)[other]
+    worst = max(gap_rank.max().item(), gap_peak.max().item()) if other.any() else 0.0
+    log(f'CenterHead peaks kernel vs plain: {int(other.sum())} of {other.numel()} ranks pick '
+        f'another peak; the largest score gap among them {worst:.3e} (must be <= 2δ = '
+        f'{2 * delta:.3e})')
+    if bad:
+        raise RuntimeError(f'kernel path disagrees with the plain path at {bad}')
+    if not worst <= 2 * delta:
+        raise RuntimeError('a CenterHead peak the two paths pick apart is not a near-tie')
+    return out
+
+
 def _entry(name, source, replaces, n_launch, err, ms, plain_ms, nbytes, ops,
            peak, library_ms=None):
     """One kernel's entry of the JSON line; the bound from this run's bytes
@@ -668,6 +747,11 @@ def _entry(name, source, replaces, n_launch, err, ms, plain_ms, nbytes, ops,
             'library_ms': library_ms}
 
 
+# Calls timed of K1's and K3's plain versions (0.03-2.4 s each on the card),
+# each warm from its check on the same inputs: cut from 3 after a warm-up
+# and 2 to keep the script inside its time budget.
+PLAIN_K1_CALLS = 2
+PLAIN_K3_CALLS = 1
 K1_SOURCE = 'crb_active_3ddet_torch/csrc/overlap_bev.cu'
 K1_REPLACES = 'crb_active_3ddet_tpu/ops/pallas_overlap.py:122'
 
@@ -686,8 +770,9 @@ def time_overlap(name, a, b, n_launch, tag):
     if not (got[zero] == 0).all():
         raise RuntimeError(f'overlap {tag}: degenerate rows give non-zero areas')
     ms = cuda_time_ms(lambda: cuda_overlap.boxes_overlap_bev_cuda(a, b))
+    # warm from the check above
     plain_ms = cuda_time_ms(lambda: cuda_overlap.overlap_bev_plain(a, b),
-                            warmup=1, iters=3)
+                            warmup=0, iters=PLAIN_K1_CALLS)
     bsz, n, m = got.shape
     lib = cuda_build.load_library('overlap_bev', cuda_overlap._SIG)
     fa, fb = cuda_overlap._rows(a, bsz), cuda_overlap._rows(b, bsz)
@@ -795,7 +880,7 @@ def time_mask(name, boxes, alive, thresh, n_launch, rounds, tag):
         raise RuntimeError(f'nms_mask {tag}: the bare launch differs from the wrapper')
     ms = cuda_time_ms(lambda: cuda_overlap.nms_mask(boxes, alive, thresh))
     plain_ms = cuda_time_ms(lambda: cuda_overlap.nms_mask_plain(boxes, alive, thresh),
-                            warmup=1, iters=3)
+                            warmup=0, iters=PLAIN_K1_CALLS)       # warm from mask_vs_plain
     float_ms = cuda_time_ms(lambda: cuda_overlap.mask_from_overlap(
         cuda_overlap.boxes_overlap_bev_cuda(boxes, boxes), boxes, alive, thresh))
     fixpoint_ms = cuda_time_ms(lambda: nms._fixpoint_words(words, 32), iters=5)
@@ -907,15 +992,16 @@ def rulebook_emptiness(name, rbk, granularity=(16, 64)):
     log('; '.join(parts))
 
 
-def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16):
+def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weights=None):
     """Hold the gather-GEMM against its plain version at one layer's inputs
     (in ``cdt``, as the main path feeds it: bf16 on tensor cores, f32 on CUDA
-    cores); time both and the matmul yardstick."""
+    cores; the weights ``layer``'s or ``weights``); time both and the matmul
+    yardstick.  The f32 route must equal its plain version bit for bit."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
     b_, v, cin = feats.shape
     f = feats.to(cdt).reshape(b_ * v, cin).contiguous()
-    w = layer[0].weight.to(cdt).contiguous()
+    w = (layer[0].weight if weights is None else weights).to(cdt).contiguous()
     k, _, cout = w.shape
     got = cuda_kernels.sparse_conv_gather_gemm(f, rbk, w)
     ref = subm_conv3d_gather(f, rbk, w)
@@ -995,7 +1081,7 @@ def time_fps(name, points, valid, k, n_launch):
     ms = cuda_time_ms(lambda: cuda_fps.farthest_point_sample_cuda(points, valid, k),
                       warmup=2, iters=10)
     plain_ms = cuda_time_ms(lambda: cuda_fps.fps_plain(points, valid, k),
-                            warmup=0, iters=2)
+                            warmup=0, iters=PLAIN_K3_CALLS)       # warm from fps_equal
     p1, v1 = points[:1].contiguous(), valid[:1].contiguous()
     one_ms = cuda_time_ms(lambda: cuda_fps.farthest_point_sample_cuda(p1, v1, k),
                           warmup=2, iters=10)
@@ -4512,13 +4598,13 @@ def test_cli_paths(tag, cfg_file, ckpt, work, sets, batch=2, per_batch=None):
     return runs['kernel']['rec']
 
 
-def f32_ahead_of_nms(model, cfg, dev, tag, each=None):
+def f32_ahead_of_nms(model, cfg, dev, tag, each=None, check=check_kernel_path):
     """``model`` on every val batch of ``cfg`` with K2 on its f32 route,
-    kernel path against plain path ahead of the NMS (``check_kernel_path``
-    at ``KITTI_F32_TOL``), every kernel call against its plain version; logs
-    the layers whose K2 output is not bit-equal to its plain version
-    (``torch.matmul``); ``each(out, i)`` is called with the kernel path's
-    output of batch i.  Returns the val dataset."""
+    kernel path against plain path ahead of the NMS (``check``, at
+    ``KITTI_F32_TOL``), every kernel call against
+    its plain version; logs the layers whose K2 output is not bit-equal to
+    its plain version (``torch.matmul``); ``each(out, i)`` is called with
+    the kernel path's output of batch i.  Returns the val dataset."""
     from crb_active_3ddet_torch.datasets import build_dataloader
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
@@ -4538,7 +4624,7 @@ def f32_ahead_of_nms(model, cfg, dev, tag, each=None):
             log(f'{tag} val batch {i}, K2 f32, ahead of the NMS (limit {KITTI_F32_TOL:.0e}):')
             rec = {}
             with kernel_calls(rec):
-                out = check_kernel_path(model, vox, tol=KITTI_F32_TOL)
+                out = check(model, vox, tol=KITTI_F32_TOL)
             s = calls_vs_plain(rec, f'{tag} val batch {i} f32')
             if each is not None:
                 each(out, i)
@@ -5201,6 +5287,46 @@ WAYMO_DEPTH = {'DATA_CONFIG.SAMPLED_INTERVAL.train': 1, 'DATA_CONFIG.SAMPLED_INT
 WAYMO_LR = 0.003
 
 
+_WAYMO_TREE = {}
+
+
+def waymo_tree():
+    """The Waymo-layout tree of the Waymo phases, written once
+    (``write_waymo_tree``: ``WAYMO_FRAMES`` frames of ``WAYMO_POINTS`` raw
+    points) with its gt database (``create_groundtruth_database``, which
+    the files' ``gt_sampling`` reads), in a temporary directory removed at
+    exit.  Returns its root."""
+    if 'root' in _WAYMO_TREE:
+        return _WAYMO_TREE['root']
+    import atexit
+    import pickle
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets.waymo.waymo_dataset import (WaymoDataset,
+                                                                    create_groundtruth_database)
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_waymo_tree_'))
+    atexit.register(shutil.rmtree, work, True)
+    root = work / 'waymo'
+    cfg = load_config(WAYMO_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    t = time.perf_counter()
+    write_waymo_tree(root, *WAYMO_FRAMES, WAYMO_POINTS,
+                     pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE, object_range=WAYMO_OBJECT_RANGE)
+    write_s = time.perf_counter() - t
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        create_groundtruth_database(WaymoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
+                                                 training=False, root_path=root), root)
+    with open(root / 'waymo_processed_data_waymo_dbinfos_train_sampled_1.pkl', 'rb') as f:
+        db = {k: len(v) for k, v in pickle.load(f).items()}
+    log(f'Waymo tree: {WAYMO_FRAMES[0]} train and {WAYMO_FRAMES[1]} val frames of '
+        f'{WAYMO_POINTS[0]}-{WAYMO_POINTS[1]} raw points, written in {write_s:.1f} s; the gt '
+        f'database (create_groundtruth_database) {time.perf_counter() - t:.1f} s, entries {db}')
+    _WAYMO_TREE['root'] = root
+    return root
+
+
 def waymo_frame_sizes(cfg):
     """Per frame of the tree (train then val), as a test-mode loader reads
     it (NLZ points dropped): points inside the range and the real voxels
@@ -5246,9 +5372,8 @@ def drive_waymo(dev):
     sets it, 4 096 keypoints from the raw points, 5 point features, 3
     classes, K2 bf16, buffers of 150 000 voxels and 180 000 points, batch
     2), cut in depth only (``WAYMO_DEPTH``; and ``WAYMO_LR``), through the
-    port's entry points: ``write_waymo_tree`` (``WAYMO_FRAMES``), the gt database
-    (``waymo_dataset.create_groundtruth_database``, the file's
-    ``gt_sampling`` reads it), the frames' sizes against the buffers (none
+    port's entry points: the tree of the Waymo phases (``waymo_tree``), the
+    frames' sizes against the buffers (none
     truncated or overflowed, every one past the FPS register instances'
     45 056 points, so that K3 runs its cluster-of-16 route);
     ``tools/train.main`` under ``watched_crb`` with every train step's K1,
@@ -5264,42 +5389,27 @@ def drive_waymo(dev):
     through ``WaymoDataset.evaluation`` (each class's 3D moderate R40 reads
     ``perfect_ap(n)``); the kernels timed at the path's shapes (``waymo.``
     prefix).  Returns the kernels' JSON entries."""
-    import pickle
     import shutil
     from pathlib import Path
     from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.datasets import build_dataloader
-    from crb_active_3ddet_torch.datasets.waymo.waymo_dataset import (WaymoDataset,
-                                                                    create_groundtruth_database)
     from crb_active_3ddet_torch.ops import cuda_fps
     from crb_active_3ddet_torch.runtime.optimization import build_optimizer
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
     work = Path(tempfile.mkdtemp(prefix='chip_smoke_waymo_'))
-    root = work / 'waymo'
+    root = waymo_tree()
     n_train, n_val = WAYMO_FRAMES
     cfg = load_config(WAYMO_CFG)
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     cfg.DATA_CONFIG.SAMPLED_INTERVAL = {'train': 1, 'test': 1}
     cfg.OPTIMIZATION.LR = WAYMO_LR
-    t = time.perf_counter()
-    write_waymo_tree(root, n_train, n_val, WAYMO_POINTS, pc_range=cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
-                     object_range=WAYMO_OBJECT_RANGE)
-    write_s = time.perf_counter() - t
-    t = time.perf_counter()
-    with contextlib.redirect_stdout(sys.stderr):
-        create_groundtruth_database(WaymoDataset(cfg.DATA_CONFIG, cfg.CLASS_NAMES,
-                                                 training=False, root_path=root), root)
-    db_s = time.perf_counter() - t
-    with open(root / 'waymo_processed_data_waymo_dbinfos_train_sampled_1.pkl', 'rb') as f:
-        db = {k: len(v) for k, v in pickle.load(f).items()}
     raw, seen, voxels, cap_points, cap_voxels = waymo_frame_sizes(cfg)
     register_points = cuda_fps.max_register_points()
-    log(f'==== Waymo: {WAYMO_CFG} over a tree of {n_train} train and {n_val} val frames, '
-        f'written in {write_s:.1f} s: raw points per frame {raw}; points in range after the '
-        f'NLZ drop {seen} (buffer {cap_points}), real voxels {voxels} (buffer {cap_voxels}); '
-        f'the gt database (create_groundtruth_database) {db_s:.1f} s, entries {db}; every '
-        f'frame past the FPS register instances\' {register_points} points: '
-        f'{min(seen) > register_points} ====')
+    log(f'==== Waymo: {WAYMO_CFG} over the tree of {n_train} train and {n_val} val frames: '
+        f'raw points per frame {raw}; points in range after the NLZ drop {seen} (buffer '
+        f'{cap_points}), real voxels {voxels} (buffer {cap_voxels}); every frame past the '
+        f'FPS register instances\' {register_points} points: {min(seen) > register_points} '
+        '====')
     if max(seen) > cap_points or max(voxels) > cap_voxels:
         raise RuntimeError('Waymo: a buffer truncates a frame')
     if min(seen) <= register_points:
@@ -5386,6 +5496,366 @@ def drive_waymo(dev):
     shutil.rmtree(work)
     return results
 
+CENTERPOINT_CFG = 'tools/cfgs/waymo_models/centerpoint.yaml'
+DYN_PILLAR_CFG = 'tools/cfgs/waymo_models/centerpoint_dyn_pillar_1x.yaml'
+PVRCNN_CENTER_CFG = 'tools/cfgs/waymo_models/pv_rcnn_with_centerhead_rpn.yaml'
+# the CenterPoint files cut in depth only: every frame of a sequence (the
+# files sample every 10th), one epoch (7 steps at batch 2; the files' 30-40)
+CENTER_DEPTH = ('DATA_CONFIG.SAMPLED_INTERVAL.train', '1', 'DATA_CONFIG.SAMPLED_INTERVAL.test',
+                '1', 'OPTIMIZATION.NUM_EPOCHS', '1')
+# centerpoint.yaml's test CLI keeps every decoded peak: a 7-step model's
+# peaks may all stay below the file's SCORE_THRESH 0.1
+CENTER_TEST_SETS = ('MODEL.POST_PROCESSING.SCORE_THRESH', '0.0')
+CENTER_CPU_TOL = 1e-4       # DynamicPillarVFE and CenterHead, card vs CPU
+CENTER_KEYS = ('pillar_features', 'spatial_features_2d', 'center_heatmap', 'center_reg')
+
+
+def center_head_parts_ms(model, out, gt):
+    """CenterHead's target drawing and peak decoding alone (CUDA events),
+    on a forward's maps: (targets ms, decode ms)."""
+    from crb_active_3ddet_torch.models.dense_heads.center_head import make_center_targets
+    head = model.dense_head
+    maps = center_maps(out)
+    hw = tuple(out['center_heatmap'].shape[1:3])
+    with torch.no_grad():
+        targets_ms = cuda_time_ms(lambda: make_center_targets(
+            gt, head.num_class, hw, head.point_cloud_range, head.voxel_size, head.stride,
+            head.max_objs), warmup=1, iters=5)
+        decode_ms = cuda_time_ms(lambda: head.decode(maps), warmup=1, iters=5)
+    return targets_ms, decode_ms
+
+
+def bev_trace(model, vox, tag, rows=6):
+    """One eval forward of ``model`` on ``vox`` under torch.profiler: its
+    device time and the CUDA kernels that take the most of it (launches,
+    ms).  Then the 2D backbone and the dense head on that forward's BEV map
+    (CUDA events), as the port runs them (f32
+    without TF32, each cuDNN algorithm by cuDNN's heuristics), with
+    ``cudnn.benchmark`` (cuDNN times its algorithms and keeps the fastest)
+    and with TF32: yardsticks of the BEV convolutions' route, not the
+    port's settings."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with torch.no_grad(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model(vox)
+        torch.cuda.synchronize()
+    kernels = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    total = sum(e.self_device_time_total for e in kernels) / 1e3
+    log(f'{tag} eval forward under torch.profiler: kernel device time {total:.2f} ms; the '
+        f'{rows} kernels that take the most: ' + '; '.join(
+            f'{e.key[:72]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms'
+            for e in kernels[:rows]))
+    d = dict(vox)
+    cudnn = torch.backends.cudnn
+    saved = cudnn.benchmark, cudnn.allow_tf32
+    times = {}
+    with torch.no_grad():
+        for name in model.module_topology[:model.module_topology.index('backbone_2d')]:
+            d = getattr(model, name)(d)
+        try:
+            # one timed call where a call takes ~1 s (warm after the trace; the
+            # benchmark's warm call times cuDNN's algorithms), three with TF32
+            for label, bench, tf32, warm, n in (('as the port runs them', False, False, 0, 1),
+                                                ('cudnn.benchmark', True, False, 1, 1),
+                                                ('TF32', False, True, 1, 3)):
+                cudnn.benchmark, cudnn.allow_tf32 = bench, tf32
+                times[label] = cuda_time_ms(
+                    lambda: model.dense_head(model.backbone_2d(dict(d))), warmup=warm, iters=n)
+        finally:
+            cudnn.benchmark, cudnn.allow_tf32 = saved
+    log(f'{tag} backbone_2d + dense_head on the BEV map {tuple(d["spatial_features"].shape)} '
+        '(CUDA events): ' + ', '.join(f'{k} {v:.2f} ms' for k, v in times.items()))
+
+
+def center_stages(model, optimizer, cfg, dev, tag):
+    """``second_stages`` (eval and train stages, the forward by module),
+    the head's targets and decode alone and ``bev_trace``, on the first val
+    batch."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    second_stages(model, optimizer, cfg, dev, tag)
+    test_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                           training=False)
+    vox = prepare_device_batch(host_to_device_batch(next(iter(loader)), dev),
+                               test_set.voxel_cfg, test_set.grid_size,
+                               test_set.point_cloud_range, test_set.voxel_size)
+    model.eval()
+    with torch.no_grad():
+        out = model(vox)
+    targets_ms, decode_ms = center_head_parts_ms(model, out, vox['gt_boxes'])
+    log(f'{tag} CenterHead alone (CUDA events, batch 2, map '
+        f'{tuple(out["center_heatmap"].shape[1:])}): targets {targets_ms:.3f} ms, decode '
+        f'(max-pool peaks, top-{model.dense_head.max_objs} over (C, H, W)) {decode_ms:.3f} ms')
+    bev_trace(model, vox, tag)
+
+
+def center_train_cli(tag, cfg_file, root, work, per_step):
+    """``tools/train.main`` on ``cfg_file`` over the Waymo tree, cut by
+    ``CENTER_DEPTH``, under ``held_train_steps`` (launches exactly
+    ``per_step``, every call against its plain version, each step's peak
+    memory).  Returns (the train state, the held steps' records)."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.tools import train as train_cli
+    cfg = load_config(cfg_file)
+    args = ['--cfg_file', cfg_file, '--output_dir', str(work / tag), '--set',
+            'DATA_CONFIG.DATA_PATH', str(root), *CENTER_DEPTH]
+    vox = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]
+    log(f'==== {tag}: {cfg_file} at its widths ({cfg.MODEL.NAME}, {cfg.MODEL.VFE.NAME}, '
+        f'{cfg.MODEL.DENSE_HEAD.NAME}, {len(cfg.CLASS_NAMES)} classes, {vox.NAME} '
+        f'{vox.get("MAX_NUMBER_OF_VOXELS", "(40 000 pillars)")}, K2 bf16 '
+        f'{cfg.MODEL.get("BACKBONE_3D", {}).get("USE_BF16", False)}, batch '
+        f'{cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}, LR {cfg.OPTIMIZATION.LR}); cut in depth '
+        f'only: --set {" ".join(CENTER_DEPTH)} (the file\'s {cfg.OPTIMIZATION.NUM_EPOCHS} '
+        'epochs, every 10th frame) ====')
+    torch.backends.cudnn.allow_tf32 = True          # as a user runs train.main
+    t = time.perf_counter()
+    with held_train_steps(tag, per_step) as w:
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    steps = w['steps']
+    if len(steps) < 3:
+        raise RuntimeError(f'{tag}: train.main ran {len(steps)} steps')
+    log(f'{tag} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every '
+        f'kernel call against its plain version (K1 bit for bit); peak device memory of a '
+        f'step {max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+    return state, w
+
+
+def dyn_pillar_card_vs_cpu(model, cfg, dev, tag):
+    """The trained dynamic-pillar CenterPoint on the first val frame, on the
+    card and on a CPU copy of it: the VFE's pillar features, the BEV map and
+    CenterHead's maps within ``CENTER_CPU_TOL``; and the caps' drops: points
+    past the 16 384 / 40 960-point buffers (of those in range) and kept
+    points in no pillar (past the 40 000-pillar buffer, or out of the
+    range's z, which the pillar VFE's x/y mask keeps), every frame of both
+    splits."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    model.eval()
+    cpu_model = copy.deepcopy(model).cpu()
+    for training in (True, False):
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1, workers=0,
+                                         training=training)
+        rows = []
+        for i in range(len(ds)):
+            host = ds.collate_batch([ds[i]])
+            info = ds.infos[i]['point_cloud']
+            raw = ds.get_lidar(info['lidar_sequence'], info['sample_idx'])
+            in_range = real_voxels(raw, ds)[0]
+            vox = prepare_device_batch(host_to_device_batch(host, dev), ds.voxel_cfg,
+                                       ds.grid_size, ds.point_cloud_range, ds.voxel_size)
+            v = ds.voxel_cfg['max_voxels']
+            past = int((vox['point_slot'][vox['points_valid']] == v).sum())
+            rows.append((in_range, int(host['num_points'][0]), int(vox['voxel_valid'].sum()), past))
+            if training or i:
+                continue
+            with torch.no_grad():
+                out = model(vox)
+                ref = cpu_model(prepare_device_batch(
+                    host_to_device_batch(host, 'cpu'), ds.voxel_cfg, ds.grid_size,
+                    ds.point_cloud_range, ds.voxel_size))
+            errs = {k: rel_err(out[k].cpu(), ref[k]) for k in CENTER_KEYS}
+            log(f'{tag} card vs CPU, val frame 0 (same weights): '
+                + ', '.join(f'{k} {tuple(ref[k].shape)} max |diff|/(1+|ref|) {e[0]:.3e} '
+                            f'(max |diff| {e[1]:.3e})' for k, e in errs.items())
+                + f' (limit {CENTER_CPU_TOL:.0e})')
+            bad = [k for k, e in errs.items() if not e[0] <= CENTER_CPU_TOL]
+            if bad:
+                raise RuntimeError(f'{tag}: card and CPU disagree at {bad}')
+        cap = ds.data_processor.max_points_per_frame
+        log(f'{tag} {"train" if training else "val"} frames (raw points in the range, '
+            f'points kept by the {cap}-point buffer (gt-sampled ones included in training), '
+            f'pillars of the {ds.voxel_cfg["max_voxels"]}-pillar buffer, kept points in no '
+            f'pillar: z outside the range or past the buffer): {rows}; raw points the point '
+            f'cap drops {[max(0, r[0] - cap) for r in rows]}')
+
+
+def pvrcnn_center_path(dev, root):
+    """pv_rcnn_with_centerhead_rpn.yaml at full width over the Waymo tree
+    (f32 sparse backbone at 150 000 voxels, every stage uncapped; 4 096
+    keypoints): one train step and one test batch through the model, from
+    ``flax_init``, every kernel call against its plain version (K1 bit for
+    bit), the launches exactly, the RoI stage fed CenterHead's 64 decoded
+    boxes a frame.  Returns (the train step's calls, the test batch's
+    calls)."""
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, flax_init
+    from crb_active_3ddet_torch.models.roi_heads import roi_head_template as rht
+    from crb_active_3ddet_torch.runtime.eval import make_eval_step
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch, init_train_state,
+                                                      make_train_step, prepare_device_batch)
+    from crb_active_3ddet_torch.tools.train import INIT_SEED, SEED
+    tag = 'pv_rcnn_centerhead'
+    cfg = load_config(PVRCNN_CENTER_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.SAMPLED_INTERVAL = {'train': 1, 'test': 1}
+    n = len(SPARSE_LAYERS)
+    log(f'==== {tag}: {PVRCNN_CENTER_CFG} at its widths (CenterHead RPN, '
+        f'{cfg.MODEL.PFE.NUM_KEYPOINTS} keypoints, K2 f32 (no USE_BF16, no VOXEL_CAPS), batch '
+        f'{cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}): one train step and one test batch ====')
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                            training=True, seed=SEED)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), train_set, device='cpu')
+    flax_init(model, torch.Generator().manual_seed(INIT_SEED))
+    model = model.to(dev)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, len(loader), model.parameters())
+    step = make_train_step(model, optimizer, train_set)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with torch.no_grad():
+        model.train()
+        vox = prepare_device_batch(batch, train_set.voxel_cfg, train_set.grid_size,
+                                   train_set.point_cloud_range, train_set.voxel_size)
+        out = model(vox, torch.Generator(device=dev).manual_seed(SEED), dense_only=True)
+        props = rht.proposal_layer({k: out[k] for k in ('batch_box_preds', 'batch_cls_preds')},
+                                   cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN)
+    model.load_state_dict(state)            # the BN statistics as they were
+    boxes = out['batch_box_preds'].shape[1]
+    rois = props['roi_valid'].sum(-1).tolist()
+    if boxes != model.dense_head.max_objs or max(rois) > boxes:
+        raise RuntimeError(f'{tag}: {boxes} decoded boxes a frame, RoIs {rois}')
+    train_rec, before = {}, counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with kernel_calls(train_rec, clone=True):
+        _, metrics = step(init_train_state(model, optimizer), batch,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    made, want = launch_delta(before, n_k2=n, n_dgrad=n - 1, n_wgrad=n, n_fps=1, n_mask=1,
+                              n_float=1)
+    if made != want:
+        raise RuntimeError(f'{tag} train step launched {made}, expected {want}')
+    loss = float(metrics['loss'])
+    if not np.isfinite(loss):
+        raise RuntimeError(f'{tag} train step loss {loss}')
+    with torch.no_grad():
+        s = calls_vs_plain(train_rec, f'{tag} train step')
+        k1_calls_exact(train_rec, f'{tag} train step')
+    log(f'{tag} train step (batch 2, from flax_init): loss {loss:.4f}; CenterHead decoded '
+        f'{boxes} boxes a frame, the TRAIN proposal NMS kept {rois} as RoIs (NMS_PRE_MAXSIZE '
+        f'{cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE}, ROI_PER_IMAGE '
+        f'{cfg.MODEL.ROI_HEAD.TARGET_CONFIG.ROI_PER_IMAGE}); {ms:.1f} ms with this script\'s '
+        f'recording; peak device memory {peak / 2**30:.2f} GiB; launches {made}; {summary(s)}')
+
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2,
+                                                workers=0, training=False)
+    eval_step = make_eval_step(model, test_set, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES))
+    test_rec, before = {}, counters()
+    with kernel_calls(test_rec):
+        preds, _ = eval_step(host_to_device_batch(next(iter(test_loader)), dev))
+        torch.cuda.synchronize()
+    made, want = launch_delta(before, **PVRCNN_TEST_LAUNCHES)
+    if made != want:
+        raise RuntimeError(f'{tag} test batch launched {made}, expected {want}')
+    if not all(torch.isfinite(v).all() for v in preds.values() if v.is_floating_point()):
+        raise RuntimeError(f'{tag} test batch: non-finite predictions')
+    with torch.no_grad():
+        s = calls_vs_plain(test_rec, f'{tag} test batch')
+        k1_calls_exact(test_rec, f'{tag} test batch')
+    log(f'{tag} test batch: launches {made}; boxes kept {preds["pred_valid"].sum(-1).tolist()}; '
+        + summary(s))
+    return train_rec, test_rec
+
+
+def drive_waymo_centerpoint(dev):
+    """CenterPoint on the Waymo tree (``waymo_tree``) at the Waymo configs'
+    full MODEL and DATA_CONFIG widths, cut in depth only (``CENTER_DEPTH``):
+    centerpoint.yaml (MeanVFE, 150 000 voxels / 180 000 points, K2 bf16 with
+    VOXEL_CAPS, 3 classes, batch 2, LR 0.003) through ``tools/train.main``
+    with every K1 and K2 call of its steps against its plain version (K1 bit
+    for bit) and the launches exactly (12/11/12 K2 a step), ``tools/test.main``
+    on the val split on both paths (12 K2, 1 K1 mask at the model-level NMS
+    over 64 decoded boxes, 1 K1 float at the recall a batch;
+    ``CENTER_TEST_SETS``), the trained model ahead of its NMS with K2 f32
+    (``f32_ahead_of_nms``: CenterHead's maps and decoded boxes within
+    ``KITTI_F32_TOL``); centerpoint_dyn_pillar_1x.yaml (DynamicPillarVFE,
+    468 × 468 pillars, the three-level BEV backbone, no NMS: the score-only
+    selection) through both CLIs (no hand-written kernel in training, 1 K1
+    float at the recall a test batch), card against CPU (``CENTER_CPU_TOL``)
+    and the caps' drops; pv_rcnn_with_centerhead_rpn.yaml's train step and
+    test batch (``pvrcnn_center_path``); each path's stages; the kernels
+    timed at these shapes (``centerpoint.``, ``centerpoint_train.``,
+    ``centerpoint_test.``, ``centerpoint_dyn_pillar_test.``,
+    ``pv_rcnn_centerhead.``, ``pv_rcnn_centerhead_train.``).  Returns the
+    kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_centerpoint_'))
+    root = waymo_tree()
+    n = len(SPARSE_LAYERS)
+    sets = ['DATA_CONFIG.DATA_PATH', str(root), *CENTER_DEPTH]
+
+    # ---- centerpoint.yaml ----
+    state, w = center_train_cli('centerpoint', CENTERPOINT_CFG, root, work,
+                                dict(n_k2=n, n_dgrad=n - 1, n_wgrad=n))
+    cfg = load_config(CENTERPOINT_CFG)
+    cfg_from_list(sets + list(CENTER_TEST_SETS), cfg)
+    log(f'centerpoint test CLI and stages with --set {" ".join(CENTER_TEST_SETS)} (the '
+        'file\'s 0.1: a 7-step model\'s peaks may all read below it)')
+    test_rec = test_cli_paths('centerpoint', CENTERPOINT_CFG,
+                              work / 'centerpoint' / 'ckpt' / 'checkpoint_epoch_1.pth', work,
+                              sets + list(CENTER_TEST_SETS), batch=2,
+                              per_batch=dict(n_k2=n, n_mask=1, n_float=1))
+    f32_ahead_of_nms(state.model, cfg, dev, 'centerpoint', check=check_center_path)
+    center_stages(state.model, state.optimizer, cfg, dev, 'centerpoint')
+    first, n_steps = w['first'], len(w['steps'])
+    n_test = len(test_rec['float'])
+    results = [time_dgrad(f'centerpoint_train.gather_gemm_dgrad[{lname}]', args, n_steps)
+               for lname, (args, _, _) in zip(SPARSE_LAYERS[1:][::-1], first['dgrad'])]
+    results += [time_wgrad(f'centerpoint_train.gather_gemm_wgrad[{lname}]', args, n_steps)
+                for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], first['wgrad'])]
+    ((boxes, alive, thresh), _, _), fix = test_rec['mask'][0], test_rec['fix'][0]
+    results.append(time_mask('centerpoint.nms_mask[nms]', boxes, alive, thresh, n_test,
+                             fix[2][1], 'centerpoint test nms'))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap('centerpoint_test.overlap_bev[recall]', a_, b_, n_test,
+                                'centerpoint test recall'))
+    del state, w, test_rec, first
+
+    # ---- centerpoint_dyn_pillar_1x.yaml ----
+    state, w = center_train_cli('centerpoint_dyn_pillar', DYN_PILLAR_CFG, root, work, {})
+    cfg = load_config(DYN_PILLAR_CFG)
+    cfg_from_list(sets, cfg)
+    test_rec = test_cli_paths('centerpoint_dyn_pillar', DYN_PILLAR_CFG,
+                              work / 'centerpoint_dyn_pillar' / 'ckpt' / 'checkpoint_epoch_1.pth',
+                              work, sets, batch=2, per_batch=dict(n_float=1))
+    dyn_pillar_card_vs_cpu(state.model, cfg, dev, 'centerpoint_dyn_pillar')
+    center_stages(state.model, state.optimizer, cfg, dev, 'centerpoint_dyn_pillar')
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap('centerpoint_dyn_pillar_test.overlap_bev[recall]', a_, b_,
+                                len(test_rec['float']), 'centerpoint_dyn_pillar test recall'))
+    del state, w, test_rec
+
+    # ---- pv_rcnn_with_centerhead_rpn.yaml ----
+    train_rec, test_rec = pvrcnn_center_path(dev, root)
+    results += [time_gather_gemm(f'pv_rcnn_centerhead.gather_gemm[{lname}]', None, f[None], rbk,
+                                 1, cdt=torch.float32, weights=wt)
+                for lname, ((f, rbk, wt), _, _) in zip(SPARSE_LAYERS, test_rec['k2'])]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
+        results.append(time_mask(f'pv_rcnn_centerhead.nms_mask[{name}]', boxes, alive, thresh,
+                                 1, fix[2][1], f'pv_rcnn_centerhead test {name}'))
+    (points, valid, k), _, _ = test_rec['fps'][0]
+    results.append(time_fps('pv_rcnn_centerhead.fps', points, valid, k, 1))
+    (boxes, alive, thresh), _, _ = train_rec['mask'][0]
+    results.append(time_mask('pv_rcnn_centerhead_train.nms_mask[proposal_nms]', boxes, alive,
+                             thresh, 1, train_rec['fix'][0][2][1],
+                             'pv_rcnn_centerhead train proposal_nms'))
+    (a_, b_), _, _ = train_rec['float'][0]
+    results.append(time_overlap('pv_rcnn_centerhead_train.overlap_bev[roi_targets]', a_, b_, 1,
+                                'pv_rcnn_centerhead train roi_targets'))
+    shutil.rmtree(work)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -5411,6 +5881,8 @@ def main():
                                   'fps'])
     log(f'kernel build: {time.perf_counter() - t0:.1f} s wall, per source '
         + ', '.join(f'{k} {v:.1f} s' for k, v in built.items()))
+    log(f'cut for time: the plain versions of K1 and K3 timed over {PLAIN_K1_CALLS} and '
+        f'{PLAIN_K3_CALLS} calls, warm from their checks (were 3 after a warm-up, and 2)')
     for name, (_, report) in cuda_build.BUILD_LOG.items():
         log(f'  {name}: ptxas registers / static shared bytes / spill bytes: '
             + '; '.join(f'{entry} {regs}/{smem}/{spill}'
@@ -5455,6 +5927,9 @@ def main():
     results += phase('KITTI: SECONDNetIoU and the multi-head SECOND at their configs',
                      drive_kitti_second, dev)
     results += phase('Waymo: PV-RCNN CRB at the paper\'s config', drive_waymo, dev)
+    results += phase('Waymo: CenterPoint (centerpoint, centerpoint_dyn_pillar_1x, '
+                     'pv_rcnn_with_centerhead_rpn) at the files\' widths',
+                     drive_waymo_centerpoint, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16
     # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the

@@ -13,6 +13,8 @@ with the anchors in (H, W, class·S·R) order.
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 from torch import nn
@@ -30,7 +32,9 @@ class AnchorHeadTemplate(nn.Module):
     coder, the flat anchors in (H, W, class·S·R) order, the target assigner
     that ``TARGET_ASSIGNER_CONFIG.NAME`` selects, the box decoding and the
     forward's tail.  A head adds its convolutions, ``forward``, and lists
-    its output convolutions (``cls_convs``, ``box_convs``)."""
+    its output convolutions (``cls_convs``, whose biases start at
+    ``cls_bias_init``, and ``box_convs``)."""
+    cls_bias_init = -math.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR)
 
     def __init__(self, model_cfg, num_class, class_names, grid_size, point_cloud_range,
                  predict_boxes_when_training=True):
@@ -250,7 +254,13 @@ def get_loss(batch_dict, head, reduce=True):
 
 
 def build_dense_head(model_cfg, input_channels, num_class, class_names,
-                     grid_size, point_cloud_range, predict_boxes_when_training=True):
+                     grid_size, point_cloud_range, predict_boxes_when_training=True,
+                     voxel_size=None):
+    if model_cfg['NAME'] == 'CenterHead':
+        from .center_head import CenterHead
+        return CenterHead(model_cfg, input_channels, num_class, class_names, grid_size,
+                          point_cloud_range, voxel_size,
+                          predict_boxes_when_training)
     if model_cfg['NAME'] == 'AnchorHeadSingle':
         return AnchorHeadSingle(model_cfg, input_channels, num_class,
                                 class_names, grid_size, point_cloud_range,

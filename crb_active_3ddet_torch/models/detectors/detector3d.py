@@ -1,16 +1,20 @@
-"""Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU
-and PVRCNN topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
-(reference ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
-``second_net.py:9-34``, ``second_net_iou.py``, ``pv_rcnn.py:9-43``): vfe →
+"""Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU,
+CenterPoint and PVRCNN topologies of
+``crb_active_3ddet_tpu/models/detectors/detector3d.py`` (reference
+``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
+``second_net.py:9-34``, ``second_net_iou.py``, ``centerpoint.py``,
+``pv_rcnn.py:9-43``): vfe →
 [backbone_3d] → map_to_bev → [pfe] → backbone_2d → dense_head →
 [point_head] → [roi_head]; the bracketed modules are built when the config
 names them (PointPillars has no 3D backbone: its BEV width is
 ``MAP_TO_BEV.NUM_BEV_FEATURES``; SECONDNetIoU's RoI head reads the BEV map,
-PV-RCNN's the keypoints).  ``compute_loss`` is the training loss
-(``detector3d.py:154-218``): the anchor head's, plus the point head's and
-the RoI head's when the forward made their targets.  The modules that draw
-random numbers in training (the RoI heads: the RoI sample and the Dropout)
-take the ``torch.Generator`` that ``forward`` is given.
+PV-RCNN's the keypoints; a CenterHead's decoded peaks are PV-RCNN's
+proposals as an anchor head's boxes are).  ``compute_loss`` is the training
+loss (``detector3d.py:154-218``): the dense head's (anchor or CenterHead),
+plus the point head's and the RoI head's when the forward made their
+targets.  The modules that draw random numbers in training (the RoI heads:
+the RoI sample and the Dropout) take the ``torch.Generator`` that
+``forward`` is given.
 """
 
 from __future__ import annotations
@@ -28,14 +32,15 @@ from ..backbones_3d.pfe import build_pfe
 from ..backbones_3d.spconv_backbone import SparseConv3d, build_backbone_3d
 from ..backbones_3d.vfe import build_vfe
 from ..dense_heads import anchor_head_single as ahs
-from ..dense_heads.anchor_head_single import FOCAL_PRIOR, build_dense_head
+from ..dense_heads.anchor_head_single import build_dense_head
+from ..dense_heads.center_head import CenterHead, get_center_loss
 from ..point_heads import point_head_simple as phs
 from ..point_heads.point_head_simple import build_point_head
 from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
 from ..roi_heads.second_head import get_box_iou_layer_loss
 
-_PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'PVRCNN'}
+_PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'CenterPoint', 'PVRCNN'}
 _DRAWS = ('roi_head',)          # modules whose training forward draws
 # the modules whose outputs the dense head reads
 _DENSE_PATH = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d', 'dense_head')
@@ -62,7 +67,8 @@ class Detector3D(nn.Module):
         self.dense_head = build_dense_head(
             model_cfg['DENSE_HEAD'], self.backbone_2d.num_bev_features,
             num_class, class_names, grid_size, point_cloud_range,
-            predict_boxes_when_training=model_cfg.get('ROI_HEAD', None) is not None)
+            predict_boxes_when_training=model_cfg.get('ROI_HEAD', None) is not None,
+            voxel_size=voxel_size)
         topology += ['map_to_bev', 'backbone_2d', 'dense_head']
         if model_cfg.get('PFE', None) is not None:
             self.pfe = build_pfe(
@@ -85,7 +91,7 @@ class Detector3D(nn.Module):
 
     @property
     def device(self):
-        return self.dense_head.anchors.device
+        return next(self.dense_head.parameters()).device
 
     def forward(self, batch_dict, generator=None, dense_only=False):
         """``generator`` (a ``torch.Generator`` on the model's device) feeds
@@ -106,11 +112,16 @@ class Detector3D(nn.Module):
 
     def compute_loss(self, batch_dict, reduce: bool = True):
         """Training loss over the forward's output (training mode), as the
-        JAX ``compute_loss``: the anchor head's rpn loss, plus point_loss
-        when the point head assigned its targets and the rcnn loss when the
-        RoI head did.  Returns (loss, {term: value}); ``reduce=False`` keeps
-        one loss a frame."""
-        loss, tb = ahs.get_loss(batch_dict, self.dense_head, reduce=reduce)
+        JAX ``compute_loss``: the anchor head's rpn loss or CenterHead's
+        loss, plus point_loss when the point head assigned its targets and
+        the rcnn loss when the RoI head did.  Returns (loss, {term: value});
+        ``reduce=False`` keeps one loss a frame."""
+        if isinstance(self.dense_head, CenterHead):
+            loss, tb = get_center_loss(batch_dict,
+                                       self.model_cfg['DENSE_HEAD']['LOSS_CONFIG'],
+                                       reduce=reduce)
+        else:
+            loss, tb = ahs.get_loss(batch_dict, self.dense_head, reduce=reduce)
         if 'point_cls_labels' in batch_dict:
             lw = self.model_cfg['POINT_HEAD']['LOSS_CONFIG']['LOSS_WEIGHTS']
             point_loss = phs.get_point_loss(batch_dict, lw, reduce=reduce)
@@ -134,14 +145,16 @@ class Detector3D(nn.Module):
 def init_weights(model, generator: torch.Generator, box_std=None):
     """Seeded random weights: normal(0, 1/√fan_in) for every weight, small
     normal biases and BN affine terms, positive running variances.  The
-    anchor head keeps its focal-loss prior on the cls bias.  Fan-in: a sparse
-    conv weight is (K, Cin, Cout); every other weight (Conv2d, Conv1d,
-    ConvTranspose2d as laid out, Linear) has its outputs first.
+    dense head keeps its cls bias prior (the anchor heads' focal prior,
+    CenterHead's −2.19).  Fan-in: a sparse conv weight is (K, Cin, Cout);
+    every other weight (Conv2d, Conv1d, ConvTranspose2d as laid out,
+    Linear) has its outputs first.
 
-    ``box_std`` given, the anchor head's box layer weights are then drawn
-    again, normal(0, box_std), as the JAX package and OpenPCDet draw
-    ``conv_box`` (std 0.001).  A two-stage model trains from it: at
-    1/√fan_in its decoded proposals reach 1e26 m and overflow the RoI head's
+    ``box_std`` given, the dense head's box layer weights (CenterHead's
+    regression output convs) are then drawn again, normal(0, box_std), as
+    the JAX package and OpenPCDet draw ``conv_box`` (std 0.001).  A
+    two-stage model trains from it: at 1/√fan_in its decoded proposals
+    reach 1e26 m and overflow the RoI head's
     decode and corner loss.  The default keeps the weights from which the
     SECOND and eval readings of ``chip_smoke.py`` were recorded."""
     cls_biases = {id(conv.bias) for conv in model.dense_head.cls_convs()}
@@ -181,7 +194,8 @@ def flax_init(model, generator: torch.Generator):
     (a normal truncated at ±2 of its scale, std 1/√fan_in); each sparse conv
     kernel variance_scaling(1, fan_out, normal), a plain normal of std
     1/√(K·Cout); zero biases; BatchNorm scale 1, bias 0, mean 0, var 1; the
-    anchor head's cls biases at the focal prior and AnchorHeadSingle's box
+    dense head's cls biases at its ``cls_bias_init`` (the anchor heads'
+    focal prior, CenterHead's −2.19) and AnchorHeadSingle's box
     kernel normal(0, 0.001), as PV-RCNN's RoI head's two output kernels
     (AnchorHeadMulti's box kernels and SECONDHead's ``iou_out`` are
     lecun-normal; llal's LossNet: its convs and linear map lecun-normal,
@@ -220,7 +234,7 @@ def flax_init(model, generator: torch.Generator):
                 m.bias.zero_()
                 done.add(id(m.bias))
         for conv in head.cls_convs():
-            conv.bias.fill_(-math.log((1 - FOCAL_PRIOR) / FOCAL_PRIOR))
+            conv.bias.fill_(head.cls_bias_init)
     missed = [n for n, p in model.named_parameters() if id(p) not in done]
     if missed:
         raise NotImplementedError(f'flax_init has no initializer for {missed}')

@@ -11,8 +11,11 @@ when ``has_class_labels``: class-agnostic rcnn scores carry no class) and
 score fusions (``NMS_CONFIG.SCORE_TYPE``: ``iou``, ``cls``,
 ``weighted_iou_cls``, ``num_pts_iou_cls``, ``score_by_class``; JAX
 ``post_processing.py:123-158``) replace the scores before the NMS when the
-batch holds ``roi_scores``.  The score-only selection of configs without
-NMS_CONFIG comes with CenterPoint (ROADMAP Queue 1 item 14c).
+batch holds ``roi_scores``.  A config without a model-level NMS_CONFIG
+(CenterPoint's pillar configs: the head's peak test already suppressed)
+keeps the top ``MAX_OBJ_PER_SAMPLE`` scores at or above ``SCORE_THRESH``
+(JAX ``post_processing.py:81-93``), in ``jax.lax.top_k``'s order (ties to
+the lowest index).
 """
 
 from __future__ import annotations
@@ -83,12 +86,19 @@ def post_processing(batch_dict, post_cfg, num_class):
         labels = scores.argmax(dim=-1) + 1
     logits_src = batch_dict.get('full_cls_scores', cls_preds)
 
-    if nms_cfg is None:
-        raise NotImplementedError('post-processing without NMS_CONFIG is not '
-                                  'ported yet')
     score_thresh = post_cfg.get('SCORE_THRESH', None)
     score_thresh = float(score_thresh) if score_thresh else None
-    if bool(nms_cfg.get('MULTI_CLASSES_NMS', False)):
+    if nms_cfg is None:
+        keep_idx, keep_valid, keep_scores = score_only(
+            max_scores, post_cfg.get('MAX_OBJ_PER_SAMPLE', None), score_thresh)
+        out = {
+            'pred_boxes': _masked(keep_valid, take_rows(box_preds, keep_idx)),
+            'pred_scores': _masked(keep_valid, keep_scores),
+            'pred_labels': _masked(keep_valid, torch.gather(labels, 1, keep_idx)),
+            'pred_logits': _masked(keep_valid, take_rows(logits_src, keep_idx)),
+            'pred_valid': keep_valid,
+        }
+    elif bool(nms_cfg.get('MULTI_CLASSES_NMS', False)):
         mc_scores, mc_labels, mc_boxes, mc_valid, mc_idx = \
             nms_ops.multi_classes_nms(scores, box_preds, nms_cfg,
                                       score_thresh=score_thresh)
@@ -119,6 +129,20 @@ def post_processing(batch_dict, post_cfg, num_class):
             points[..., :3], out['pred_boxes'][..., :7],
             batch_dict.get('points_valid', None), out['pred_valid'])
     return out
+
+
+def score_only(max_scores, post_max, score_thresh):
+    """The selection without NMS: (B, A) scores → the indices, validity and
+    scores (−1e10 where invalid) of the top ``post_max`` (default min(500,
+    A)) scores at or above ``score_thresh``, each (B, min(post_max, A))."""
+    a = max_scores.shape[-1]
+    k = min(int(post_max) if post_max is not None else min(500, a), a)
+    s = torch.where(max_scores >= (score_thresh or 0.0), max_scores,
+                    torch.full_like(max_scores, float('-inf')))
+    keep_scores, keep_idx = nms_ops._top_k(s, k)
+    keep_valid = torch.isfinite(keep_scores)
+    return keep_idx, keep_valid, torch.where(keep_valid, keep_scores,
+                                             torch.full_like(keep_scores, -1e10))
 
 
 def post_process_frame(cls_preds, box_preds, post_cfg, num_class,

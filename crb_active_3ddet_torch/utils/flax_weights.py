@@ -15,7 +15,8 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
   * PillarVFE: ``vfe.PFNLayer_{i}.Dense_0`` (in, out) → OpenPCDet's
     ``vfe.pfn_layers.{i}.linear`` (out, in), ``BatchNorm_0`` →
     ``vfe.pfn_layers.{i}.norm`` (the names the JAX package's ``.pth``
-    importer reads);
+    importer reads); DynamicPillarVFE's ``vfe.Dense_{i}`` / ``BatchNorm_{i}``
+    likewise (OpenPCDet's ``PFNLayerV2`` names);
   * Dense (in, out) → Linear (out, in), or a k=1 Conv1d / Conv2d weight
     (out, in, 1[, 1]) where the port keeps OpenPCDet's conv layers (PV-RCNN's
     point branch).  Flax auto-names inside a StackSAModuleMSG run across the
@@ -35,6 +36,9 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     ``conv_cls.{3k, 3k+1}`` ahead of ``head{h}_conv_cls``, and
     ``head{h}_reg_{name}_mid{k}`` / ``_bn{k}`` + ``head{h}_conv_{name}`` →
     ``conv_box.conv_{name}.*`` likewise.
+  * CenterHead: ``Conv_0`` / ``BatchNorm_0`` → ``dense_head.shared_conv.{0,1}``;
+    ``{branch}_conv`` / ``{branch}_out`` →
+    ``dense_head.heads_list.0.{branch}.0.0`` / ``.1``.
 
 ``optax_to_optimizer_state`` moves the optimizer state of a JAX
 ``TrainState`` (Adam's ``mu``/``nu``/``count`` and the schedule's count)
@@ -168,10 +172,25 @@ def second_head_from_flax(sd, params, batch_stats, model_cfg):
               out='iou_out')
 
 
+def center_head_from_flax(sd, params, batch_stats):
+    """CenterHead's shared conv and BatchNorm and its branches' two convs."""
+    p, s = params['dense_head'], batch_stats['dense_head']
+    sd['dense_head.shared_conv.0.weight'] = conv2d_from_flax(p['Conv_0']['kernel'])
+    _bn(sd, 'dense_head.shared_conv.1', p['BatchNorm_0'], s['BatchNorm_0'])
+    for branch in ('hm', 'center', 'center_z', 'dim', 'rot'):
+        for flax_name, port in ((f'{branch}_conv', '0.0'), (f'{branch}_out', '1')):
+            target = f'dense_head.heads_list.0.{branch}.{port}'
+            sd[f'{target}.weight'] = conv2d_from_flax(p[flax_name]['kernel'])
+            sd[f'{target}.bias'] = p[flax_name]['bias']
+
+
 def dense_head_from_flax(sd, params, batch_stats):
-    """AnchorHeadSingle's three convs, or AnchorHeadMulti's shared conv and
-    towers (the names say which; see the module docstring)."""
+    """AnchorHeadSingle's three convs, AnchorHeadMulti's shared conv and
+    towers, or CenterHead's convs (the names say which; see the module
+    docstring)."""
     import re
+    if 'hm_out' in params['dense_head']:
+        return center_head_from_flax(sd, params, batch_stats)
     p, s = params['dense_head'], batch_stats.get('dense_head', {})
     towers, separate = {}, set()    # (head, tag) -> middle convs; SEPARATE_REG heads
     for name in p:
@@ -218,22 +237,30 @@ def dense_head_from_flax(sd, params, batch_stats):
 
 
 def pillar_vfe_from_flax(sd, params, batch_stats):
-    """PillarVFE's PFN layers; a layer without BatchNorm has a bias."""
+    """PillarVFE's PFN layers (``PFNLayer_{i}``) or DynamicPillarVFE's
+    (``Dense_{i}`` and ``BatchNorm_{i}`` side by side); a layer without
+    BatchNorm has a bias."""
     pv, sv = params['vfe'], batch_stats.get('vfe', {})
+
+    def layer(i):       # (Dense, BatchNorm, its statistics) of layer i
+        if 'Dense_0' in pv:
+            return pv.get(f'Dense_{i}'), pv.get(f'BatchNorm_{i}'), sv.get(f'BatchNorm_{i}')
+        p, s = pv.get(f'PFNLayer_{i}', {}), sv.get(f'PFNLayer_{i}', {})
+        return p.get('Dense_0'), p.get('BatchNorm_0'), s.get('BatchNorm_0')
     i = 0
-    while f'PFNLayer_{i}' in pv:
-        layer = pv[f'PFNLayer_{i}']
-        sd[f'vfe.pfn_layers.{i}.linear.weight'] = _dense(layer['Dense_0']['kernel'])
-        if 'bias' in layer['Dense_0']:
-            sd[f'vfe.pfn_layers.{i}.linear.bias'] = layer['Dense_0']['bias']
-        if 'BatchNorm_0' in layer:
-            _bn(sd, f'vfe.pfn_layers.{i}.norm', layer['BatchNorm_0'],
-                sv[f'PFNLayer_{i}']['BatchNorm_0'])
+    while (parts := layer(i))[0] is not None:
+        dense, bn, stats = parts
+        sd[f'vfe.pfn_layers.{i}.linear.weight'] = _dense(dense['kernel'])
+        if 'bias' in dense:
+            sd[f'vfe.pfn_layers.{i}.linear.bias'] = dense['bias']
+        if bn is not None:
+            _bn(sd, f'vfe.pfn_layers.{i}.norm', bn, stats)
         i += 1
 
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
-    """Flax PointPillar, SECONDNet, SECONDNetIoU or PVRCNN variables → port
+    """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint or PVRCNN
+    variables → port
     ``state_dict`` (torch tensors).  PVRCNN and SECONDNetIoU need
     ``model_cfg`` (the MODEL node): the Flax names of the point branch do not
     say where one MLP ends and the next begins, nor those of an FC tower

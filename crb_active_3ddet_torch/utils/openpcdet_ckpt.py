@@ -5,12 +5,15 @@ map_openpcdet_state`` and ``:834 import_openpcdet_checkpoint`` (reference
 ``pcdet/models/detectors/detector3d_template.py:455-536``,
 ``load_params_from_file``) for the families the port runs: SECOND
 (``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), SECOND-IoU (``SECONDHead``),
-PointPillars (``PillarVFE``) and PV-RCNN (voxel set abstraction, point head,
-PV-RCNN head).  Another family raises, naming ROADMAP Queue 1 item 14 (14c-14h
-are to come), and so does ``AnchorHeadMulti``: under
+PointPillars (``PillarVFE``), CenterPoint (``CenterHead``, ``DynPillarVFE``)
+and PV-RCNN (voxel set abstraction, point head, PV-RCNN head, and a
+CenterHead RPN).  Another family raises, naming ROADMAP Queue 1 item 14
+(14d-14h are to come), and so does ``AnchorHeadMulti``: under
 ``SEPARATE_MULTIHEAD`` an OpenPCDet head predicts its own classes only, the
 JAX head (and so the port's) every class, so their cls layers have other
-shapes and no weight maps across exactly.
+shapes and no weight maps across exactly; and a CenterHead of more than
+one head group (``CLASS_NAMES_EACH_HEAD``): the port's head, as the JAX
+package's, has one group over every class.
 
 The port's parameter and buffer names are OpenPCDet's
 (``utils/flax_weights.py``), so a source tensor goes to the target of its
@@ -31,6 +34,14 @@ own name; its layout is changed only where the two differ:
     (``crb_active_3ddet_tpu/models/roi_heads/second_head.py:64``).
   * BatchNorm weights and running statistics, ``num_batches_tracked``
     included, are copied.
+  * CenterHead's branches: OpenPCDet's ``heads_list.0.{branch}.0`` is conv
+    (bias-free) → BatchNorm → ReLU, the port's (as the JAX head's) a biased
+    conv → ReLU, so the BatchNorm folds into the conv in f64 (exact at
+    inference only: an imported model does not train as OpenPCDet's),
+    ignoring the conv's own bias as the JAX importer does
+    (``torch_ckpt.py:417 _fold_bn_into_conv2d``, ``:440 _map_center_head``);
+    the shared conv's bias (``USE_BIAS_BEFORE_NORM``) has no target and
+    stays unused, as there.
 A tensor whose shape still differs is skipped and reported, and every
 target without a source keeps its value (the reference's ``strict=False``;
 llal's LossNet, which OpenPCDet lacks, stays at its init).  Files are read
@@ -41,7 +52,7 @@ from __future__ import annotations
 
 import torch
 
-FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'PVRCNN')
+FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'CenterPoint', 'PVRCNN')
 SHARED_FC = 'roi_head.shared_fc_layer.0.weight'
 
 
@@ -52,8 +63,14 @@ def check_family(model_cfg):
     if name not in FAMILIES:
         raise NotImplementedError(
             f'OpenPCDet import of {name}: the port imports {", ".join(FAMILIES)}; '
-            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14c-14h)')
-    if (model_cfg.get('DENSE_HEAD', None) or {}).get('NAME') == 'AnchorHeadMulti':
+            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14d-14h)')
+    head = model_cfg.get('DENSE_HEAD', None) or {}
+    if head.get('NAME') == 'CenterHead' and len(head.get('CLASS_NAMES_EACH_HEAD', [[]])) > 1:
+        raise NotImplementedError(
+            f"OpenPCDet import of a CenterHead of {len(head['CLASS_NAMES_EACH_HEAD'])} head "
+            'groups: each OpenPCDet group predicts its own classes, the port\'s head (as the '
+            'JAX package\'s) is one group over every class, so the heatmap layers differ')
+    if head.get('NAME') == 'AnchorHeadMulti':
         raise NotImplementedError(
             'OpenPCDet import of AnchorHeadMulti: an OpenPCDet head under '
             'SEPARATE_MULTIHEAD predicts its own classes only, the port\'s head (as the '
@@ -115,6 +132,30 @@ def channel_major(w, grid_points, reversed_xy=False):
     return _grid_axes(w, grid_points, reversed_xy, False)
 
 
+def fold_center_branches(sd, eps=1e-3):
+    """``sd`` with each CenterHead branch's first conv and BatchNorm
+    (``dense_head.heads_list.0.{branch}.0.{0,1}``) folded into one biased
+    conv (``.0.0.weight`` and ``.0.0.bias``), in f64 and rounded to f32;
+    a branch without BatchNorm keeps its conv, its bias zero if it has
+    none."""
+    out = dict(sd)
+    prefix = 'dense_head.heads_list.0.'
+    for key in [k for k in sd if k.startswith(prefix) and k.endswith('.0.0.weight')]:
+        conv = key[:-len('.weight')]
+        bn = conv[:-1] + '1'
+        w = sd[key]
+        if f'{bn}.running_mean' in sd:
+            inv = sd[f'{bn}.weight'].double() / torch.sqrt(sd[f'{bn}.running_var'].double() + eps)
+            out[key] = (w.double() * inv[:, None, None, None]).float()
+            out[f'{conv}.bias'] = (sd[f'{bn}.bias'].double()
+                                   - sd[f'{bn}.running_mean'].double() * inv).float()
+            for name in ('weight', 'bias', 'running_mean', 'running_var', 'num_batches_tracked'):
+                out.pop(f'{bn}.{name}', None)
+        elif f'{conv}.bias' not in sd:
+            out[f'{conv}.bias'] = w.new_zeros(w.shape[0])
+    return out
+
+
 def _squeeze_trailing(shape):
     shape = list(shape)
     while len(shape) > 2 and shape[-1] == 1:
@@ -146,6 +187,8 @@ def map_openpcdet_state(sd, model):
     ((name, source shape, target shape) skipped), ``unmatched_target``
     (targets kept) and ``unused_source`` (source names the model lacks)."""
     check_family(model.model_cfg)
+    if model.model_cfg['DENSE_HEAD']['NAME'] == 'CenterHead':
+        sd = fold_center_branches(sd)
     layout = shared_fc_layout(model)
     target = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     out = dict(target)

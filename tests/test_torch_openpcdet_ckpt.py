@@ -193,7 +193,7 @@ def test_bare_state_dict_and_weights_only(tmp_path):
 
 
 def test_unported_families_and_bad_kernels_raise():
-    for name in ('CenterPoint', 'PartA2Net', 'VoxelRCNN', 'PointRCNN'):
+    for name in ('PVRCNNPlusPlus', 'PartA2Net', 'VoxelRCNN', 'PointRCNN'):
         stub = type('Stub', (), {'model_cfg': {'NAME': name}})()
         with pytest.raises(NotImplementedError, match='item 14'):
             ockpt.map_openpcdet_state({}, stub)
