@@ -605,17 +605,27 @@ def check_kernel_path(model, vox, tol=None):
     the proposal NMS may pick other RoIs, after which nothing compares.
     SECONDNetIoU likewise: its IoU head runs on both paths' BEV maps from
     the kernel path's RoIs, and the RoIs are compared where the two paths'
-    proposal layers kept the same ones (counted).  ``tol``, where given, is
-    the limit at every tensor (else the bf16 limits of ``E2E_TOL`` and
-    ``POINT_TOL``)."""
+    proposal layers kept the same ones (counted).  VoxelRCNN likewise: its
+    RoI head runs on both paths' sparse stages from the kernel path's RoIs
+    (rcnn_cls, rcnn_reg and the decoded boxes compared).  ``tol``, where
+    given, is the limit at every tensor (else the bf16 limits of
+    ``E2E_TOL`` and ``POINT_TOL``)."""
     two_stage = hasattr(model, 'pfe')
+    voxel_head = type(getattr(model, 'roi_head', None)).__name__ == 'VoxelRCNNHead'
     iou_head = hasattr(model, 'roi_head') and not two_stage
     pillars = not hasattr(model, 'backbone_3d')
     with torch.no_grad():
         out = model(vox)
         with plain_versions():
             ref = model(vox)
-        if iou_head:
+        if voxel_head:
+            roi_ref = model.roi_head({k: ref[k] for k in ('multi_scale_3d_features',
+                                                          'multi_scale_3d_strides')}
+                                     | {'rois': out['rois']})
+            rois_ref = ref['rois']
+            ref = {**ref, **{k: roi_ref[k] for k in ('rcnn_cls', 'rcnn_reg',
+                                                     'batch_box_preds')}}
+        elif iou_head:
             roi_ref = model.roi_head({'spatial_features_2d': ref['spatial_features_2d'],
                                       'rois': out['rois']})
             rois_ref = ref['rois']
@@ -638,16 +648,20 @@ def check_kernel_path(model, vox, tol=None):
         del tols['batch_box_preds']       # the roi head's: other RoIs on ref
     if iou_head:
         if tol is None:
-            raise ValueError('check_kernel_path: an IoU head is held at a given tol')
-        del tols['batch_box_preds']       # the RoIs (compared below)
-        tols['rcnn_cls'] = tol
+            raise ValueError('check_kernel_path: a RoI head is held at a given tol')
+        if voxel_head:                    # the boxes decoded from common RoIs
+            tols['rcnn_cls'] = tols['rcnn_reg'] = tol
+        else:
+            del tols['batch_box_preds']   # the RoIs (compared below)
+            tols['rcnn_cls'] = tol
         rows = ((out['rois'] - rois_ref).abs() / (1 + rois_ref.abs())).amax(-1) <= tol
         rows &= out['roi_valid'] == ref['roi_valid']
         err_rows = rel_err(out['rois'][rows], rois_ref[rows])[0] if rows.any() else 0.0
         log(f'kernel path vs plain, RoIs {tuple(rois_ref.shape)}: {int(rows.sum())} of '
             f'{rows.numel()} agree within {tol:.0e} (max |diff|/(1+|ref|) {err_rows:.3e}); '
-            'the others follow a near-tie of the proposal NMS (counted, no limit); the IoU '
-            'head from the kernel path\'s RoIs on both paths\' BEV maps:')
+            'the others follow a near-tie of the proposal NMS (counted, no limit); the RoI '
+            'head from the kernel path\'s RoIs on both paths\' '
+            + ('sparse stages:' if voxel_head else 'BEV maps:'))
     if tol is not None:
         tols = dict.fromkeys(tols, tol)
     errs, diffs = {}, {}
@@ -4884,11 +4898,12 @@ def module_ms(model, totals, iters):
             h.remove()
 
 
-def second_stages(model, optimizer, cfg, dev, tag):
+def second_stages(model, optimizer, cfg, dev, tag, iters=3):
     """One eval step's stages (``stage_ms``: each module, the NMS and the
     recall) on the first val batch and one train step's (``train_stage_ms``,
     its forward by module) on the first train batch, at the file's batch
-    size, logged.  The train steps move the weights."""
+    size, each the mean of ``iters``, logged.  The train steps move the
+    weights."""
     from crb_active_3ddet_torch.datasets import build_dataloader
     from crb_active_3ddet_torch.runtime.train import host_to_device_batch
     bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
@@ -4896,17 +4911,17 @@ def second_stages(model, optimizer, cfg, dev, tag):
                                                 workers=0, training=False)
     model.eval()
     stages = stage_ms(model, test_set, host_to_device_batch(next(iter(test_loader)), dev),
-                      cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES))
-    log(f'{tag} eval step stages (ms, synchronised, mean of 3, batch {bs}): '
+                      cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES), iters)
+    log(f'{tag} eval step stages (ms, synchronised, mean of {iters}, batch {bs}): '
         + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
         + f'; sum {sum(stages.values()):.2f}')
     train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
                                             training=True)
     batch = host_to_device_batch(first_batch(loader), dev)
     gen = torch.Generator(device=dev).manual_seed(0)
-    with module_ms(model, {}, 3) as forward:
-        stages = train_stage_ms(model, optimizer, train_set, batch, gen)
-    log(f'{tag} train step stages (ms, synchronised, mean of 3, batch {bs}): '
+    with module_ms(model, {}, iters) as forward:
+        stages = train_stage_ms(model, optimizer, train_set, batch, gen, iters)
+    log(f'{tag} train step stages (ms, synchronised, mean of {iters}, batch {bs}): '
         + ', '.join(f'{k} {v:.2f}' for k, v in stages.items())
         + f'; sum {sum(stages.values()):.2f}; the forward by module: '
         + ', '.join(f'{k} {v:.2f}' for k, v in forward.items()))
@@ -5856,6 +5871,383 @@ def drive_waymo_centerpoint(dev):
     return results
 
 
+VOXEL_RCNN_CFG = 'tools/cfgs/kitti_models/voxel_rcnn_car.yaml'
+VOXEL_RCNN_WAYMO_CFG = 'tools/cfgs/waymo_models/voxel_rcnn_with_centerhead_dyn_voxel.yaml'
+# the Waymo file's one train step and one test batch at the CenterPoint
+# phase's cuts: batch 2 (the file's 4; its f32 BEV takes ~0.8 s a forward at
+# batch 2) and LR 0.003 (the file's 0.01 overflows a short one-cycle,
+# ROADMAP Queue 3); every frame of a sequence (the file samples every 10th)
+VOXEL_RCNN_WAYMO_SETS = ('OPTIMIZATION.BATCH_SIZE_PER_GPU', '2', 'OPTIMIZATION.LR', '0.003',
+                         'DATA_CONFIG.SAMPLED_INTERVAL.train', '1',
+                         'DATA_CONFIG.SAMPLED_INTERVAL.test', '1')
+
+
+def k2_f32_exact(rec, tag):
+    """Every f32 K2 call in ``rec`` (``kernel_calls``) bit-equal to its
+    plain version; returns how many there were."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    n = 0
+    for (f, rbk, w), _, got in rec['k2']:
+        if f.dtype == torch.float32:
+            if not torch.equal(got, subm_conv3d_gather(f, rbk, w)):
+                raise RuntimeError(f'{tag}: an f32 K2 call is not bit-equal to its plain version')
+            n += 1
+    return n
+
+
+def queries_card_vs_cpu(calls, sources, tag):
+    """Each recorded ``voxel_query`` call (one a source, in ``sources``
+    order) against the same function on CPU copies of its inputs: idx and
+    cnt equal.  Logs each source's queries, share of grid points with a hit,
+    mean cnt where hit and ms (CUDA events, the call alone)."""
+    from crb_active_3ddet_torch.ops import voxel_query as vq
+    if len(calls) != len(sources):
+        raise RuntimeError(f'{tag}: {len(calls)} voxel queries for sources {sources}')
+    rows = []
+    for src, (args, _, (idx, cnt)) in zip(sources, calls):
+        ref_idx, ref_cnt = vq.voxel_query(*[a.cpu() if torch.is_tensor(a) else a for a in args])
+        if not (torch.equal(idx.cpu(), ref_idx) and torch.equal(cnt.cpu(), ref_cnt)):
+            raise RuntimeError(f'{tag} voxel query at {src}: the card and the CPU differ')
+        ms = cuda_time_ms(lambda a=args: vq.voxel_query(*a), warmup=1, iters=5)
+        hit = cnt > 0
+        mean = cnt[hit].float().mean().item() if hit.any() else 0.0
+        rows.append(f'{src} {tuple(cnt.shape)} queries x {idx.shape[-1]} slots over a '
+                    f'{tuple(args[2].shape[:2])} buffer, range {args[6]}, radius {args[7]}: '
+                    f'hit {hit.float().mean().item():.4f}, mean cnt where hit {mean:.3f}, '
+                    f'{ms:.4f} ms')
+    log(f'{tag} voxel queries, card equal to the CPU (idx and cnt): ' + '; '.join(rows))
+
+
+def voxel_rcnn_gt_rois(model, vox, tol, tag):
+    """The RoI head at the batch's gt boxes as its RoIs (the padded rows
+    zero), on the kernel path's and on the plain path's sparse stages (a
+    briefly trained or seeded model's own proposals find no voxel): the
+    voxel queries card against CPU, rcnn_cls and rcnn_reg within ``tol``,
+    and a hit at some source."""
+    from crb_active_3ddet_torch.ops import voxel_query as vq
+    keys = ('multi_scale_3d_features', 'multi_scale_3d_strides')
+    model.eval()
+    calls = []
+    with torch.no_grad():
+        out = model(vox)
+        with plain_versions():
+            ref = model(vox)
+        rois = vox['gt_boxes'][..., :7].contiguous()
+        with recording(vq, 'voxel_query', calls):
+            got = model.roi_head({k: out[k] for k in keys} | {'rois': rois})
+        want = model.roi_head({k: ref[k] for k in keys} | {'rois': rois})
+    queries_card_vs_cpu(calls, model.roi_head.sources, f'{tag} at the gt boxes')
+    if not any((cnt > 0).any() for _, _, (_, cnt) in calls):
+        raise RuntimeError(f'{tag}: no grid point of the gt boxes found a voxel')
+    errs = {k: rel_err(got[k], want[k]) for k in ('rcnn_cls', 'rcnn_reg')}
+    log(f'{tag} RoI head at the gt boxes {tuple(rois.shape)}, kernel path vs plain: '
+        + ', '.join(f'{k} max |diff|/(1+|ref|) {e[0]:.3e} (max |diff| {e[1]:.3e})'
+                    for k, e in errs.items()) + f' (limit {tol:.0e})')
+    bad = [k for k, e in errs.items() if not e[0] <= tol]
+    if bad:
+        raise RuntimeError(f'{tag}: the RoI head at the gt boxes disagrees at {bad}')
+
+
+def voxel_rcnn_check(tag):
+    """``check_kernel_path`` then ``voxel_rcnn_gt_rois`` on the same batch,
+    as ``f32_ahead_of_nms`` calls a check."""
+    def check(model, vox, tol):
+        out = check_kernel_path(model, vox, tol)
+        voxel_rcnn_gt_rois(model, vox, tol, tag)
+        return out
+    return check
+
+
+def profiled_train_step(model, optimizer, cfg, dev, tag):
+    """One warm train step of ``model`` on the first train batch at the
+    config's batch size under torch.profiler (``profile_step``)."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch, init_train_state,
+                                                      make_train_step)
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                            training=True)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    step = make_train_step(model, optimizer, train_set)
+    state = init_train_state(model, optimizer)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    step(state, batch, gen)
+    log(f'{tag} train step, batch {bs}, under torch.profiler:')
+    profile_step(lambda b: step(state, b, gen), batch, rows=8)
+
+
+def voxel_rcnn_head_ms(model, out, generator=None):
+    """The RoI head's parts alone on a forward's output (CUDA events): its
+    voxel queries, the rest of the pooling (the stages' centres and query
+    cells, the MLPs, the gathers and the pools) and the towers; in training
+    mode the forwards with autograd recording."""
+    from crb_active_3ddet_torch.ops import voxel_query as vq
+    head = model.roi_head
+    calls = []
+    with torch.set_grad_enabled(head.training):
+        with recording(vq, 'voxel_query', calls):
+            pooled = head.roi_grid_pool(out)
+        query = sum(cuda_time_ms(lambda a=args: vq.voxel_query(*a), warmup=1, iters=3)
+                    for args, _, _ in calls)
+        pool = cuda_time_ms(lambda: head.roi_grid_pool(out), warmup=1, iters=3)
+        tower = cuda_time_ms(lambda: head.tower(pooled, generator), warmup=1, iters=3)
+    return {'queries': query, 'pooling MLPs': pool - query, 'towers': tower}
+
+
+def voxel_rcnn_stages(model, optimizer, cfg, dev, tag, iters=3):
+    """``second_stages`` (the eval and train steps by stage, the forward by
+    module) with its peak device memory, then the RoI head's parts
+    (``voxel_rcnn_head_ms``) on an eval forward of the first val batch and
+    a training forward of the first train batch."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    second_stages(model, optimizer, cfg, dev, tag, iters)
+    log(f'{tag} stages: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    parts = {}
+    for mode in ('eval', 'train'):
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                         training=mode == 'train')
+        vox = prepare_device_batch(host_to_device_batch(first_batch(loader), dev), ds.voxel_cfg,
+                                   ds.grid_size, ds.point_cloud_range, ds.voxel_size)
+        gen = torch.Generator(device=dev).manual_seed(0) if mode == 'train' else None
+        model.train(mode == 'train')
+        with torch.no_grad():
+            out = model(vox, gen)
+        parts[mode] = voxel_rcnn_head_ms(model, out, gen)
+    model.eval()
+    log(f'{tag} RoI head alone (ms, CUDA events, batch {bs}): '
+        + '; '.join(f'{mode} ' + ', '.join(f'{k} {v:.3f}' for k, v in p.items())
+                    for mode, p in parts.items()))
+
+
+def voxel_rcnn_waymo_path(dev, root):
+    """voxel_rcnn_with_centerhead_dyn_voxel.yaml at its widths over the
+    Waymo tree (DynMeanVFE, 40 000 voxels, K2 f32 uncapped, CenterHead
+    RPN, MLPS 64, QUERY_RANGES [3, 3, 2]), cut to batch 2 and LR 0.003
+    (``VOXEL_RCNN_WAYMO_SETS``): one train step and one test batch from
+    ``flax_init``, the launches exactly, every kernel call against its plain
+    version (K1 bit for bit, every f32 K2 call bit-equal), the voxel
+    queries card against CPU, the stages (mean of 1).  Returns (the train
+    step's calls, its dgrad and wgrad calls, the test batch's calls)."""
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, flax_init
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops import voxel_query as vq
+    from crb_active_3ddet_torch.runtime.eval import make_eval_step
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch, init_train_state,
+                                                      make_train_step, prepare_device_batch)
+    from crb_active_3ddet_torch.tools.train import INIT_SEED, SEED
+    tag = 'voxel_rcnn_waymo'
+    cfg = load_config(VOXEL_RCNN_WAYMO_CFG)
+    batch_file, lr_file = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, cfg.OPTIMIZATION.LR
+    cfg_from_list(['DATA_CONFIG.DATA_PATH', str(root), *VOXEL_RCNN_WAYMO_SETS], cfg)
+    n = len(SPARSE_LAYERS)
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    log(f'==== {tag}: {VOXEL_RCNN_WAYMO_CFG} at its widths ({cfg.MODEL.VFE.NAME}, '
+        f'{cfg.DATA_CONFIG.DATA_PROCESSOR[-1].NAME}, K2 f32 (no USE_BF16, no VOXEL_CAPS), '
+        f'{cfg.MODEL.DENSE_HEAD.NAME} RPN, MLPS '
+        f'{cfg.MODEL.ROI_HEAD.ROI_GRID_POOL.POOL_LAYERS.x_conv2.MLPS}, QUERY_RANGES '
+        f'{cfg.MODEL.ROI_HEAD.ROI_GRID_POOL.POOL_LAYERS.x_conv2.QUERY_RANGES}); cut: batch '
+        f'{bs} (the file\'s {batch_file}), LR {cfg.OPTIMIZATION.LR} (the file\'s {lr_file}), '
+        'every frame; one train step and one test batch ====')
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                            training=True, seed=SEED)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), train_set, device='cpu')
+    flax_init(model, torch.Generator().manual_seed(INIT_SEED))
+    model = model.to(dev)
+    sources = model.roi_head.sources
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, len(loader), model.parameters())
+    step = make_train_step(model, optimizer, train_set)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    train_rec, dcalls, wcalls, qcalls = {}, [], [], []
+    before = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with kernel_calls(train_rec, clone=True), \
+            recording(cuda_kernels, 'gather_gemm_dgrad', dcalls, clone=True), \
+            recording(cuda_kernels, 'gather_gemm_wgrad', wcalls, clone=True), \
+            recording(vq, 'voxel_query', qcalls):
+        _, metrics = step(init_train_state(model, optimizer), batch,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    made, want = launch_delta(before, n_k2=n, n_dgrad=n - 1, n_wgrad=n, n_mask=1, n_float=1)
+    if made != want:
+        raise RuntimeError(f'{tag} train step launched {made}, expected {want}')
+    loss = float(metrics['loss'])
+    if not np.isfinite(loss):
+        raise RuntimeError(f'{tag} train step loss {loss}')
+    with torch.no_grad():
+        s = calls_vs_plain(train_rec, f'{tag} train step')
+        k1_calls_exact(train_rec, f'{tag} train step')
+        n_f32 = k2_f32_exact(train_rec, f'{tag} train step')
+    log(f'{tag} train step (batch {bs}, from flax_init): loss {loss:.4f}; {ms:.1f} ms with this '
+        f'script\'s recording; peak device memory {peak / 2**30:.2f} GiB; launches {made}; '
+        f'{n_f32} f32 K2 calls bit-equal to their plain versions; {summary(s)}')
+    queries_card_vs_cpu(qcalls, sources, f'{tag} train step')
+
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs,
+                                                workers=0, training=False)
+    eval_step = make_eval_step(model, test_set, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES))
+    test_rec, qcalls = {}, []
+    before = counters()
+    with kernel_calls(test_rec), recording(vq, 'voxel_query', qcalls):
+        preds, _ = eval_step(host_to_device_batch(next(iter(test_loader)), dev))
+        torch.cuda.synchronize()
+    made, want = launch_delta(before, n_k2=n, n_mask=2, n_float=1)
+    if made != want:
+        raise RuntimeError(f'{tag} test batch launched {made}, expected {want}')
+    if not all(torch.isfinite(v).all() for v in preds.values() if v.is_floating_point()):
+        raise RuntimeError(f'{tag} test batch: non-finite predictions')
+    with torch.no_grad():
+        s = calls_vs_plain(test_rec, f'{tag} test batch')
+        k1_calls_exact(test_rec, f'{tag} test batch')
+        n_f32 = k2_f32_exact(test_rec, f'{tag} test batch')
+    log(f'{tag} test batch: launches {made}; boxes kept {preds["pred_valid"].sum(-1).tolist()}; '
+        f'{n_f32} f32 K2 calls bit-equal to their plain versions; ' + summary(s))
+    queries_card_vs_cpu(qcalls, sources, f'{tag} test batch')
+    vox = prepare_device_batch(host_to_device_batch(next(iter(test_loader)), dev),
+                               test_set.voxel_cfg, test_set.grid_size,
+                               test_set.point_cloud_range, test_set.voxel_size)
+    voxel_rcnn_gt_rois(model, vox, KITTI_F32_TOL, f'{tag} test batch')
+    voxel_rcnn_stages(model, optimizer, cfg, dev, tag, iters=1)
+    return train_rec, dcalls, wcalls, test_rec
+
+
+def drive_voxel_rcnn(dev):
+    """VoxelRCNN at its two configs' full MODEL and DATA_CONFIG widths:
+    kitti_models/voxel_rcnn_car.yaml over the KITTI phases' tree
+    (``kitti_tree``: 40 000 / 16 000 voxels, K2 bf16 with VOXEL_CAPS, batch
+    4, LR 0.003, G = 6, 128 RoIs in training and 100 at test, three
+    sources, NSAMPLE 16), cut in depth only (``SECOND_KITTI_DEPTH``):
+    ``tools/train.main`` under ``held_train_steps`` (a step: 12/11/12 K2, 1
+    K1 mask at the TRAIN proposal NMS, 1 K1 float in the proposal targets),
+    ``tools/test.main`` on the val split on the kernel and the plain path (a
+    batch: 12 K2, 2 K1 masks, 1 K1 float at the recall), the trained model
+    ahead of its NMS with K2 f32 (``f32_ahead_of_nms``: the RoI head from
+    common RoIs), the voxel queries of the first val batch card against
+    CPU, the stages; then the Waymo file (``voxel_rcnn_waymo_path``); the
+    kernels timed at these shapes (``voxel_rcnn.``, ``voxel_rcnn_train.``,
+    ``voxel_rcnn_waymo.``, ``voxel_rcnn_waymo_train.``).  Returns the
+    kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.ops import voxel_query as vq
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_voxel_rcnn_'))
+    root = kitti_tree()
+    n = len(SPARSE_LAYERS)
+    key = 'voxel_rcnn'
+    cfg = load_config(VOXEL_RCNN_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    out = work / key
+    args = ['--cfg_file', VOXEL_RCNN_CFG, '--output_dir', str(out), '--set',
+            'DATA_CONFIG.DATA_PATH', str(root), *SECOND_KITTI_DEPTH]
+    vox_cfg = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]
+    pool = cfg.MODEL.ROI_HEAD.ROI_GRID_POOL
+    log(f'==== {key}: {VOXEL_RCNN_CFG} at its widths ({cfg.MODEL.NAME}, '
+        f'{cfg.MODEL.DENSE_HEAD.NAME}, {cfg.MODEL.ROI_HEAD.NAME} (G {pool.GRID_SIZE}, sources '
+        f'{list(pool.FEATURES_SOURCE)}), {len(cfg.CLASS_NAMES)} class, voxel buffers '
+        f'{dict(vox_cfg.MAX_NUMBER_OF_VOXELS)}, K2 bf16 {cfg.MODEL.BACKBONE_3D.USE_BF16} caps '
+        f'{list(cfg.MODEL.BACKBONE_3D.VOXEL_CAPS)}, batch {cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}, '
+        f'LR {cfg.OPTIMIZATION.LR}); cut in depth only: --set {" ".join(SECOND_KITTI_DEPTH)} '
+        f'(the file\'s {cfg.OPTIMIZATION.NUM_EPOCHS} epochs) ====')
+    torch.backends.cudnn.allow_tf32 = True          # as a user runs train.main
+    t = time.perf_counter()
+    with held_train_steps(key, dict(n_k2=n, n_dgrad=n - 1, n_wgrad=n, n_mask=1,
+                                    n_float=1)) as w:
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    steps = w['steps']
+    if len(steps) < 3:
+        raise RuntimeError(f'{key}: train.main ran {len(steps)} steps')
+    log(f'{key} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every K1 '
+        f'and K2 call against its plain version (K1 bit for bit); peak device memory of a '
+        f'step {max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    test_rec = test_cli_paths(key, VOXEL_RCNN_CFG, out / 'ckpt' / 'checkpoint_epoch_1.pth', out,
+                              ['DATA_CONFIG.DATA_PATH', str(root)], batch=bs,
+                              per_batch=dict(n_k2=n, n_mask=2, n_float=1))
+    model = state.model
+    f32_ahead_of_nms(model, cfg, dev, key, check=voxel_rcnn_check(key))
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs,
+                                                workers=0, training=False)
+    vox = prepare_device_batch(host_to_device_batch(next(iter(test_loader)), dev),
+                               test_set.voxel_cfg, test_set.grid_size,
+                               test_set.point_cloud_range, test_set.voxel_size)
+    qcalls = []
+    model.eval()
+    with recording(vq, 'voxel_query', qcalls), torch.no_grad():
+        model(vox)
+    queries_card_vs_cpu(qcalls, model.roi_head.sources, f'{key} val batch 0')
+    voxel_rcnn_stages(model, state.optimizer, cfg, dev, key)
+    profiled_train_step(model, state.optimizer, cfg, dev, key)
+
+    # ---- the Waymo file ----
+    wtrain, wdgrad, wwgrad, wtest = voxel_rcnn_waymo_path(dev, waymo_tree())
+
+    # ---- the kernels at the path's shapes, timed ----
+    first, n_steps = w['first'], len(w['steps'])
+    n_test = len(test_rec['float'])
+    results = [time_gather_gemm(f'voxel_rcnn.gather_gemm[{lname}]', layer, f[None], rbk, n_test,
+                                cdt=f.dtype)
+               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, sparse_layers(model),
+                                                             test_rec['k2'])]
+    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
+    results += [time_dgrad(f'voxel_rcnn_train.gather_gemm_dgrad[{lname}]', a, n_steps)
+                for lname, (a, _, _) in zip(dnames, first['dgrad'])]
+    results += [time_wgrad(f'voxel_rcnn_train.gather_gemm_wgrad[{lname}]', a, n_steps)
+                for lname, (a, _, _) in zip(wnames, first['wgrad'])]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
+        results.append(time_mask(f'voxel_rcnn.nms_mask[{name}]', boxes, alive, thresh, n_test,
+                                 fix[2][1], f'{key} test {name}'))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap('voxel_rcnn.overlap_bev[recall]', a_, b_, n_test,
+                                f'{key} test recall'))
+    rec = first['rec']
+    (boxes, alive, thresh), _, _ = rec['mask'][0]
+    results.append(time_mask('voxel_rcnn_train.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             n_steps, rec['fix'][0][2][1], f'{key} train proposal_nms'))
+    (a_, b_), _, _ = rec['float'][0]
+    results.append(time_overlap('voxel_rcnn_train.overlap_bev[roi_targets]', a_, b_, n_steps,
+                                f'{key} train roi_targets'))
+    wkey = 'voxel_rcnn_waymo'
+    results += [time_gather_gemm(f'{wkey}.gather_gemm[{lname}]', None, f[None], rbk, 1,
+                                 cdt=torch.float32, weights=wt)
+                for lname, ((f, rbk, wt), _, _) in zip(SPARSE_LAYERS, wtest['k2'])]
+    results += [time_dgrad(f'{wkey}_train.gather_gemm_dgrad[{lname}]', a, 1)
+                for lname, (a, _, _) in zip(dnames, wdgrad)]
+    results += [time_wgrad(f'{wkey}_train.gather_gemm_wgrad[{lname}]', a, 1)
+                for lname, (a, _, _) in zip(wnames, wwgrad)]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), wtest['mask'], wtest['fix']):
+        results.append(time_mask(f'{wkey}.nms_mask[{name}]', boxes, alive, thresh, 1, fix[2][1],
+                                 f'{wkey} test {name}'))
+    (a_, b_), _, _ = wtest['float'][0]
+    results.append(time_overlap(f'{wkey}.overlap_bev[recall]', a_, b_, 1, f'{wkey} test recall'))
+    (boxes, alive, thresh), _, _ = wtrain['mask'][0]
+    results.append(time_mask(f'{wkey}_train.nms_mask[proposal_nms]', boxes, alive, thresh, 1,
+                             wtrain['fix'][0][2][1], f'{wkey} train proposal_nms'))
+    (a_, b_), _, _ = wtrain['float'][0]
+    results.append(time_overlap(f'{wkey}_train.overlap_bev[roi_targets]', a_, b_, 1,
+                                f'{wkey} train roi_targets'))
+    w.clear()
+    shutil.rmtree(work)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -5930,6 +6322,8 @@ def main():
     results += phase('Waymo: CenterPoint (centerpoint, centerpoint_dyn_pillar_1x, '
                      'pv_rcnn_with_centerhead_rpn) at the files\' widths',
                      drive_waymo_centerpoint, dev)
+    results += phase('VoxelRCNN (voxel_rcnn_car on KITTI, voxel_rcnn_with_centerhead_dyn_voxel '
+                     'on Waymo) at the files\' widths', drive_voxel_rcnn, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16
     # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the

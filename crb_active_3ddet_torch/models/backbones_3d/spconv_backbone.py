@@ -109,7 +109,9 @@ def flat_rulebook(rulebook, v_in):
 class VoxelBackBone8x(nn.Module):
     """conv_input → conv1 (16) → conv2 (32, /2) → conv3 (64, /4) →
     conv4 (64, /8) → conv_out (128, z/2), then a dense (B, D, H, W, C)
-    volume for HeightCompression.
+    volume for HeightCompression.  ``multi_scale_3d_features`` holds each
+    stage's features, coords, validity and static (nz, ny, nx) ``grid``, as
+    the JAX stage dicts do.
 
     ``VOXEL_CAPS`` bounds the active-site buffers after each downsample
     (fraction ≤ 1 of the input cap, or an absolute count); ``USE_BF16`` casts
@@ -182,22 +184,22 @@ class VoxelBackBone8x(nn.Module):
 
         feats = subm_stage(feats, [self.conv_input, self.conv1[0]], coords,
                            valid, grid)
-        stages = {'x_conv1': (feats, coords, valid)}
+        stages = {'x_conv1': (feats, coords, valid, grid)}
         for name, stage, max_out in (('x_conv2', self.conv2, caps[0]),
                                      ('x_conv3', self.conv3, caps[1]),
                                      ('x_conv4', self.conv4, caps[2])):
             feats, coords, valid, grid = down(feats, stage[0], coords, valid,
                                               grid, max_out)
             feats = subm_stage(feats, list(stage)[1:], coords, valid, grid)
-            stages[name] = (feats, coords, valid)
+            stages[name] = (feats, coords, valid, grid)
         feats, coords, valid, grid = down(feats, self.conv_out, coords, valid,
                                           grid, caps[3])
         batch_dict['encoded_spconv_features'] = sparse_tensor_to_dense(
             feats, coords, valid, grid)             # (B, D, H, W, C)
         batch_dict['encoded_spconv_tensor_stride'] = 8
         batch_dict['multi_scale_3d_features'] = {
-            k: {'features': f, 'coords': c, 'valid': m}
-            for k, (f, c, m) in stages.items()}
+            k: {'features': f, 'coords': c, 'valid': m, 'grid': g}
+            for k, (f, c, m, g) in stages.items()}
         batch_dict['multi_scale_3d_strides'] = {
             'x_conv1': 1, 'x_conv2': 2, 'x_conv3': 4, 'x_conv4': 8}
         return batch_dict

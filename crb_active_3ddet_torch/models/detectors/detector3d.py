@@ -1,20 +1,21 @@
 """Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU,
-CenterPoint and PVRCNN topologies of
+CenterPoint, VoxelRCNN and PVRCNN topologies of
 ``crb_active_3ddet_tpu/models/detectors/detector3d.py`` (reference
 ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
 ``second_net.py:9-34``, ``second_net_iou.py``, ``centerpoint.py``,
-``pv_rcnn.py:9-43``): vfe →
+``voxel_rcnn.py``, ``pv_rcnn.py:9-43``): vfe →
 [backbone_3d] → map_to_bev → [pfe] → backbone_2d → dense_head →
 [point_head] → [roi_head]; the bracketed modules are built when the config
 names them (PointPillars has no 3D backbone: its BEV width is
 ``MAP_TO_BEV.NUM_BEV_FEATURES``; SECONDNetIoU's RoI head reads the BEV map,
-PV-RCNN's the keypoints; a CenterHead's decoded peaks are PV-RCNN's
-proposals as an anchor head's boxes are).  ``compute_loss`` is the training
-loss (``detector3d.py:154-218``): the dense head's (anchor or CenterHead),
-plus the point head's and the RoI head's when the forward made their
-targets.  The modules that draw random numbers in training (the RoI heads:
-the RoI sample and the Dropout) take the ``torch.Generator`` that
-``forward`` is given.
+VoxelRCNN's the sparse backbone's stages, PV-RCNN's the keypoints; a
+CenterHead's decoded peaks are PV-RCNN's and VoxelRCNN's proposals as an
+anchor head's boxes are).  ``compute_loss`` is the training loss
+(``detector3d.py:154-218``): the dense head's (anchor or CenterHead), plus
+the point head's and the RoI head's when the forward made their targets.
+The modules that draw random numbers in training (the RoI heads: the RoI
+sample and the Dropout) take the ``torch.Generator`` that ``forward`` is
+given.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
 from ..roi_heads.second_head import get_box_iou_layer_loss
 
-_PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'CenterPoint', 'PVRCNN'}
+_PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'CenterPoint', 'VoxelRCNN', 'PVRCNN'}
 _DRAWS = ('roi_head',)          # modules whose training forward draws
 # the modules whose outputs the dense head reads
 _DENSE_PATH = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d', 'dense_head')
@@ -85,7 +86,8 @@ class Detector3D(nn.Module):
             self.roi_head = build_roi_head(
                 model_cfg['ROI_HEAD'], num_class,
                 self.pfe.num_point_features if hasattr(self, 'pfe')
-                else self.backbone_2d.num_bev_features, voxel_size, point_cloud_range)
+                else self.backbone_2d.num_bev_features, voxel_size, point_cloud_range,
+                getattr(getattr(self, 'backbone_3d', None), 'backbone_channels', None))
             topology.append('roi_head')
         self.module_topology = tuple(topology)
 
@@ -197,7 +199,8 @@ def flax_init(model, generator: torch.Generator):
     dense head's cls biases at its ``cls_bias_init`` (the anchor heads'
     focal prior, CenterHead's −2.19) and AnchorHeadSingle's box
     kernel normal(0, 0.001), as PV-RCNN's RoI head's two output kernels
-    (AnchorHeadMulti's box kernels and SECONDHead's ``iou_out`` are
+    (AnchorHeadMulti's box kernels, SECONDHead's ``iou_out`` and
+    VoxelRCNNHead's ``cls_pred_layer`` and ``reg_pred_layer`` are
     lecun-normal; llal's LossNet: its convs and linear map lecun-normal,
     biases 0).  Fan-in as Flax counts it:
     a ConvTranspose2d weight (in, out, kh, kw) has in·kh·kw, every other

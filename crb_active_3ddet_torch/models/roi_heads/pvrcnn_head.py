@@ -180,10 +180,11 @@ class PVRCNNHead(nn.Module):
 
 
 def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
-                   point_cloud_range=None):
+                   point_cloud_range=None, backbone_channels=None):
     """CLASS_AGNOSTIC RoI heads score one class.  ``input_channels``: the
     keypoint features' width (PVRCNNHead) or the BEV map's (SECONDHead, which
-    also takes the voxel size and the point cloud range)."""
+    also takes the voxel size and the point cloud range); VoxelRCNNHead
+    reads the sparse backbone's stages, of ``backbone_channels`` widths."""
     nc = 1 if model_cfg.get('CLASS_AGNOSTIC', True) else num_class
     if model_cfg['NAME'] == 'PVRCNNHead':
         return PVRCNNHead(model_cfg, input_channels, num_class=nc)
@@ -191,4 +192,8 @@ def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
         from .second_head import SECONDHead
         return SECONDHead(model_cfg, input_channels, num_class=nc, voxel_size=voxel_size,
                           point_cloud_range=point_cloud_range)
+    if model_cfg['NAME'] == 'VoxelRCNNHead':
+        from .voxelrcnn_head import VoxelRCNNHead
+        return VoxelRCNNHead(model_cfg, backbone_channels, num_class=nc,
+                             voxel_size=voxel_size, point_cloud_range=point_cloud_range)
     raise KeyError(f"roi head {model_cfg['NAME']} is not ported yet")

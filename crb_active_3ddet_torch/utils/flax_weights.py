@@ -29,6 +29,11 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
   * SECONDHead: ``shared_fc_{i}`` / ``shared_bn_{i}`` → ``roi_head.shared_fc_layer``,
     ``iou_fc_{i}`` / ``iou_bn_{i}`` + ``iou_out`` → ``roi_head.iou_layers``
     (its p = 0 Dropout entry after the first block shifts the indices).
+  * VoxelRCNNHead: ``pool_{src}_{k}_{in,pos,out}`` (+ ``_bn``) →
+    ``roi_head.roi_grid_pool_layers.{i}.mlps_{in,pos,out}.{k}.{0,1}``;
+    ``{shared,cls,reg}_fc_{i}`` / ``_fc_bn_{i}`` → ``roi_head.shared_fc_layer``,
+    ``cls_fc_layers``, ``reg_fc_layers`` (Linear); ``cls_pred`` /
+    ``reg_pred`` → ``roi_head.cls_pred_layer`` / ``reg_pred_layer``.
   * AnchorHeadMulti: ``shared_conv`` / ``shared_bn`` → ``dense_head.shared_conv.{0,1}``;
     ``head{h}_conv_cls`` / ``_conv_box`` / ``_conv_dir`` →
     ``dense_head.rpn_heads.{h}.conv_cls`` / ``conv_box`` / ``conv_dir_cls``;
@@ -99,17 +104,19 @@ def sa_module_from_flax(sd, prefix, params, stats, mlps):
             i += 1
 
 
-def _fc_stack(sd, prefix, params, stats, name, n_layers, dropout_after, out=None):
-    """``{name}_fc_k`` / ``{name}_bn_k`` (+ biased ``out``) → the Conv1d
-    stack ``prefix``; every Dropout entry shifts the later indices by one."""
+def _fc_stack(sd, prefix, params, stats, name, n_layers, dropout_after, out=None,
+              bn=None, extra_dims=1):
+    """``{name}_fc_k`` / ``{bn}_k`` (``bn`` defaults to ``{name}_bn``; +
+    biased ``out``) → the Conv1d stack ``prefix`` (a Linear stack with
+    ``extra_dims`` 0); every Dropout entry shifts the later indices by one."""
+    bn = bn or f'{name}_bn'
     pos = 0
     for k in range(n_layers):
-        sd[f'{prefix}.{pos}.weight'] = _dense(params[f'{name}_fc_{k}']['kernel'], 1)
-        _bn(sd, f'{prefix}.{pos + 1}', params[f'{name}_bn_{k}'],
-            stats[f'{name}_bn_{k}'])
+        sd[f'{prefix}.{pos}.weight'] = _dense(params[f'{name}_fc_{k}']['kernel'], extra_dims)
+        _bn(sd, f'{prefix}.{pos + 1}', params[f'{bn}_{k}'], stats[f'{bn}_{k}'])
         pos += 3 + (k in dropout_after)
     if out is not None:
-        sd[f'{prefix}.{pos}.weight'] = _dense(params[out]['kernel'], 1)
+        sd[f'{prefix}.{pos}.weight'] = _dense(params[out]['kernel'], extra_dims)
         sd[f'{prefix}.{pos}.bias'] = params[out]['bias']
 
 
@@ -170,6 +177,35 @@ def second_head_from_flax(sd, params, batch_stats, model_cfg):
     _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n_shared, between)
     _fc_stack(sd, 'roi_head.iou_layers', rh, srh, 'iou', len(roi_cfg['IOU_FC']), (0,),
               out='iou_out')
+
+
+def voxelrcnn_head_from_flax(sd, params, batch_stats, model_cfg):
+    """VoxelRCNN's RoI head: ``pool_{src}_{k}_{in,pos,out}`` (+ ``_bn``) →
+    ``roi_grid_pool_layers.{i}.mlps_{in,pos,out}.{k}`` (i in FEATURES_SOURCE
+    order; Conv1d, Conv2d(3, ·, 1), Conv1d), the ``shared_fc`` / ``cls_fc`` /
+    ``reg_fc`` towers (``{tower}_{i}`` / ``{tower}_bn_{i}``, Linear stacks,
+    a Dropout between their layers when DP_RATIO > 0), ``cls_pred`` and
+    ``reg_pred`` → ``cls_pred_layer`` and ``reg_pred_layer``."""
+    roi_cfg = model_cfg['ROI_HEAD']
+    rh, srh = params['roi_head'], batch_stats['roi_head']
+    pool = roi_cfg['ROI_GRID_POOL']
+    for i, src in enumerate(pool['FEATURES_SOURCE']):
+        for k in range(len(pool['POOL_LAYERS'][src]['MLPS'])):
+            nm, layer = f'pool_{src}_{k}', f'roi_head.roi_grid_pool_layers.{i}'
+            for part, dims in (('in', 1), ('pos', 2), ('out', 1)):
+                sd[f'{layer}.mlps_{part}.{k}.0.weight'] = _dense(
+                    rh[f'{nm}_{part}']['kernel'], dims)
+                _bn(sd, f'{layer}.mlps_{part}.{k}.1', rh[f'{nm}_{part}_bn'],
+                    srh[f'{nm}_{part}_bn'])
+    dp = float(roi_cfg.get('DP_RATIO', 0.3))
+    for tower in ('shared', 'cls', 'reg'):
+        n = len(roi_cfg[f'{tower.upper()}_FC'])
+        prefix = 'roi_head.shared_fc_layer' if tower == 'shared' else f'roi_head.{tower}_fc_layers'
+        _fc_stack(sd, prefix, rh, srh, tower, n, range(n - 1) if dp > 0 else (),
+                  bn=f'{tower}_fc_bn', extra_dims=0)
+    for name in ('cls_pred', 'reg_pred'):
+        sd[f'roi_head.{name}_layer.weight'] = _dense(rh[name]['kernel'])
+        sd[f'roi_head.{name}_layer.bias'] = rh[name]['bias']
 
 
 def center_head_from_flax(sd, params, batch_stats):
@@ -259,17 +295,19 @@ def pillar_vfe_from_flax(sd, params, batch_stats):
 
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
-    """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint or PVRCNN
-    variables → port
-    ``state_dict`` (torch tensors).  PVRCNN and SECONDNetIoU need
-    ``model_cfg`` (the MODEL node): the Flax names of the point branch do not
-    say where one MLP ends and the next begins, nor those of an FC tower
-    where its Dropout entries stand."""
+    """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint, VoxelRCNN or
+    PVRCNN variables → port ``state_dict`` (torch tensors).  The two-stage
+    models need ``model_cfg`` (the MODEL node): the Flax names of the point
+    branch do not say where one MLP ends and the next begins, nor those of
+    an FC tower where its Dropout entries stand, nor VoxelRCNN's the order
+    of its sources."""
     sd = {}
     if 'vfe' in params:
         pillar_vfe_from_flax(sd, params, batch_stats)
     if 'pfe' in params:
         _point_branch(sd, params, batch_stats, model_cfg)
+    elif 'cls_pred' in params.get('roi_head', {}):
+        voxelrcnn_head_from_flax(sd, params, batch_stats, model_cfg)
     elif 'roi_head' in params:
         second_head_from_flax(sd, params, batch_stats, model_cfg)
     if 'backbone_3d' in params:

@@ -5,10 +5,11 @@ map_openpcdet_state`` and ``:834 import_openpcdet_checkpoint`` (reference
 ``pcdet/models/detectors/detector3d_template.py:455-536``,
 ``load_params_from_file``) for the families the port runs: SECOND
 (``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), SECOND-IoU (``SECONDHead``),
-PointPillars (``PillarVFE``), CenterPoint (``CenterHead``, ``DynPillarVFE``)
-and PV-RCNN (voxel set abstraction, point head, PV-RCNN head, and a
-CenterHead RPN).  Another family raises, naming ROADMAP Queue 1 item 14
-(14d-14h are to come), and so does ``AnchorHeadMulti``: under
+PointPillars (``PillarVFE``), CenterPoint (``CenterHead``, ``DynPillarVFE``),
+VoxelRCNN (``VoxelRCNNHead``; after ``torch_ckpt.py:668
+_map_voxelrcnn_roi_head``) and PV-RCNN (voxel set abstraction, point head,
+PV-RCNN head, and a CenterHead RPN).  Another family raises, naming ROADMAP
+Queue 1 item 14 (14e-14h are to come), and so does ``AnchorHeadMulti``: under
 ``SEPARATE_MULTIHEAD`` an OpenPCDet head predicts its own classes only, the
 JAX head (and so the port's) every class, so their cls layers have other
 shapes and no weight maps across exactly; and a CenterHead of more than
@@ -32,6 +33,9 @@ own name; its layout is changed only where the two differ:
     the permutation.)  SECONDHead's: OpenPCDet's ``grid_sample`` output
     (B·R, C, G_y, G_x) flattened, against the port's (G_x, G_y, C)
     (``crb_active_3ddet_tpu/models/roi_heads/second_head.py:64``).
+    VoxelRCNNHead's is not permuted: OpenPCDet flattens its (B·R, G³, C)
+    pooled grid grid-major too (its ``roi_grid_pool_layers`` and FC towers
+    carry the port's names and shapes: Conv1d / Conv2d k=1 and Linear).
   * BatchNorm weights and running statistics, ``num_batches_tracked``
     included, are copied.
   * CenterHead's branches: OpenPCDet's ``heads_list.0.{branch}.0`` is conv
@@ -52,7 +56,7 @@ from __future__ import annotations
 
 import torch
 
-FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'CenterPoint', 'PVRCNN')
+FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'CenterPoint', 'VoxelRCNN', 'PVRCNN')
 SHARED_FC = 'roi_head.shared_fc_layer.0.weight'
 
 
@@ -63,7 +67,7 @@ def check_family(model_cfg):
     if name not in FAMILIES:
         raise NotImplementedError(
             f'OpenPCDet import of {name}: the port imports {", ".join(FAMILIES)}; '
-            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14d-14h)')
+            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14e-14h)')
     head = model_cfg.get('DENSE_HEAD', None) or {}
     if head.get('NAME') == 'CenterHead' and len(head.get('CLASS_NAMES_EACH_HEAD', [[]])) > 1:
         raise NotImplementedError(
@@ -80,9 +84,10 @@ def check_family(model_cfg):
 def shared_fc_layout(model):
     """(grid points, OpenPCDet's grid axes reversed) of ``model``'s RoI head's
     pooled grid: PV-RCNN's G³ in one order, SECONDHead's G² with (G_y, G_x)
-    against the port's (G_x, G_y); None without a RoI head."""
+    against the port's (G_x, G_y); None without a RoI head or where the
+    layouts agree (VoxelRCNNHead)."""
     roi_head = getattr(model, 'roi_head', None)
-    if roi_head is None:
+    if roi_head is None or model.model_cfg['ROI_HEAD']['NAME'] == 'VoxelRCNNHead':
         return None
     if model.model_cfg['ROI_HEAD']['NAME'] == 'SECONDHead':
         return roi_head.grid_size ** 2, True

@@ -100,11 +100,25 @@ def run(tmp_path_factory, one_torch_thread):
         mp.setattr(module, 'MetricsLogger', Scalars)
     out = tmp / 'train'
     args = ['--cfg_file', str(yml), '--output_dir', str(out), *CPU]
+    # other test files that run a CLI with this recorder may have run first
+    # in the same process: keep only the scalars of these two runs
+    Scalars.seen.clear()
     first = train.main(args + ['--epochs', '1'])
     first_step, first_count = first.step, first.optimizer.count
     second = train.main(args + ['--epochs', '2'])
-    yield {'yml': yml, 'tmp': tmp, 'out': out, 'steps': (first_step, first_count, second)}
+    yield {'yml': yml, 'tmp': tmp, 'out': out, 'steps': (first_step, first_count, second),
+           'scalars': list(Scalars.seen)}
     mp.undo()
+
+
+def test_foreign_scalars_come_first():
+    """Stands for a file that ran ``train.main`` with the recorder earlier in
+    this process (``tests/test_torch_kitti_second.py``, say): its epoch
+    scalars are in the list before ``run`` starts, and the next test must
+    read past them."""
+    Scalars().add_scalars({'train/epoch_loss': 1.0}, step=0)
+    Scalars().add_scalars({'train/epoch_loss': 1.0}, step=0)
+    assert [s for k, _, s in Scalars.seen if k == 'train/epoch_loss'][-2:] == [0, 0]
 
 
 def test_train_then_auto_resume(run):
@@ -116,7 +130,7 @@ def test_train_then_auto_resume(run):
     ck = ckpt_rt.load_checkpoint(str(run['out'] / 'ckpt' / 'checkpoint_epoch_2.pth'))
     assert (ck['epoch'], ck['it'], ck['step']) == (2, 6, 6)
     assert all(torch.isfinite(v).all() for v in ck['model_state'].values())
-    epochs = [s for k, _, s in Scalars.seen if k == 'train/epoch_loss']
+    epochs = [s for k, _, s in run['scalars'] if k == 'train/epoch_loss']
     assert epochs[:2] == [0, 1]
     log = next(run['out'].glob('log_train_*.txt')).read_text() \
         + ''.join(p.read_text() for p in run['out'].glob('log_train_*.txt'))

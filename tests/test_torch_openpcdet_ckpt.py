@@ -4,8 +4,9 @@ against the JAX package's (``crb_active_3ddet_tpu/utils/torch_ckpt.py``).
 Fabricated OpenPCDet state dicts (OpenPCDet's names and layouts, seeded
 values; the pattern of ``tests/test_torch_import.py``'s
 ``_fabricate_second_state_dict``) for the reduced SECOND
-(``test_torch_second_eval.py``), PointPillars (``test_torch_pointpillar.py``)
-and PV-RCNN with a LossNet (``test_torch_pvrcnn_active.py``), with the
+(``test_torch_second_eval.py``), PointPillars (``test_torch_pointpillar.py``),
+PV-RCNN with a LossNet (``test_torch_pvrcnn_active.py``) and VoxelRCNN
+(``test_torch_voxel_rcnn.py``'s reduced KITTI model), with the
 sparse conv kernels in spconv 1.x's (kz, ky, kx, Cin, Cout) and 2.x's native
 (Cout, kz, ky, kx, Cin) layouts.  Each ``.pth`` goes through the JAX importer
 into Flax trees of zeros shaped by ``jax.eval_shape`` of the JAX model's
@@ -16,6 +17,9 @@ OpenPCDet's channel-major input (C·G³) to its grid-major one (G³·C) and the
 JAX importer does not.  That the permutation is right is held to
 OpenPCDet's own product: the imported layer on grid-major pooled features
 equals the source weight on the same features flattened channel-major.
+VoxelRCNN's first shared FC maps across unpermuted, bit for bit with the
+JAX import, since OpenPCDet's VoxelRCNN head flattens its pooled grid
+grid-major too: held to OpenPCDet's product on the port's pooled grid.
 """
 
 import copy
@@ -46,6 +50,13 @@ import test_torch_second_eval
 META = {'epoch': 80, 'it': 37120, 'version': 'pcdet+0.5.2+0000000'}
 
 
+def _voxel_rcnn_tests():
+    """``tests/test_torch_voxel_rcnn.py``, imported at first use: through
+    ``test_torch_cli`` it imports this module."""
+    import test_torch_voxel_rcnn
+    return test_torch_voxel_rcnn
+
+
 def _pvrcnn(load):
     c = test_torch_pvrcnn_active._cfg(load, 'llal')
     c.DATA_CONFIG.NUM_SCENES = 2
@@ -56,6 +67,7 @@ CONFIGS = {
     'second': lambda load: test_torch_second_eval._reduced(load, False),
     'pointpillar': test_torch_pointpillar._reduced,
     'pvrcnn': _pvrcnn,
+    'voxelrcnn': lambda load: _voxel_rcnn_tests()._reduced_kitti(load),
 }
 
 
@@ -111,7 +123,7 @@ def _fabricate(model, layout, seed):
 
 
 CASES = [('second', '1.x'), ('second', '2.x'), ('pointpillar', '1.x'),
-         ('pvrcnn', '1.x'), ('pvrcnn', '2.x')]
+         ('pvrcnn', '1.x'), ('pvrcnn', '2.x'), ('voxelrcnn', '1.x'), ('voxelrcnn', '2.x')]
 
 
 @pytest.mark.parametrize('family, layout', CASES)
@@ -146,7 +158,7 @@ def test_import_equals_the_jax_import(tmp_path, family, layout):
             continue
         if key.endswith('num_batches_tracked'):
             assert torch.equal(got[key], sd[key]), key      # JAX keeps none
-        elif key == ockpt.SHARED_FC:
+        elif key == ockpt.SHARED_FC and family == 'pvrcnn':
             permuted = ockpt.grid_major(value, model.roi_head.grid_size ** 3)
             assert torch.equal(got[key], permuted)
             assert not torch.equal(got[key], value)
@@ -178,6 +190,41 @@ def test_shared_fc_equals_openpcdets_product(tmp_path):
     assert torch.equal(ockpt.channel_major(layer.weight.detach(), g3), w)
 
 
+def test_voxelrcnn_shared_fc_equals_openpcdets_product(tmp_path):
+    """OpenPCDet's VoxelRCNN head views its pooled grid (B·R, G³, C) as
+    (B·R, G³·C) and applies ``shared_fc_layer.0`` (a Linear): on the port's
+    pooled grid of a batch with RoIs at the gt boxes, the imported layer
+    computes the source weight's product unpermuted (f64)."""
+    _, _, model, _ = _models('voxelrcnn')
+    model = copy.deepcopy(model).eval()
+    sd = _fabricate(model, '2.x', seed=7)
+    path = tmp_path / 'openpcdet.pth'
+    torch.save({'model_state': sd}, path)
+    report, _ = ockpt.import_openpcdet_checkpoint(str(path), model)
+    assert not report['mismatched'] and report['unmatched_target'] == []
+    assert ockpt.shared_fc_layout(model) is None
+    head = model.roi_head
+    assert torch.equal(head.shared_fc_layer[0].weight.detach(), sd[ockpt.SHARED_FC])
+    assert torch.equal(head.roi_grid_pool_layers[2].mlps_pos[0][0].weight.detach(),
+                       sd['roi_head.roi_grid_pool_layers.2.mlps_pos.0.0.weight'])
+    vr = _voxel_rcnn_tests()
+    pair = vr.Pair('kitti', training=False)
+    pair.tmodel.load_state_dict(model.state_dict())
+    pair.tmodel.eval()
+    rois = vr.make_proposals(np.asarray(pair.host['gt_boxes']),
+                                                np.random.RandomState(1))['rois']
+    with torch.no_grad():
+        out = pair.tmodel({**pair.tbatch(), 'rois': torch.from_numpy(rois)})
+        pooled = pair.tmodel.roi_head.roi_grid_pool(out).double()           # (B·R, G³·C)
+    g3 = head.grid_size ** 3
+    grid = pooled.reshape(pooled.shape[0], g3, -1)              # OpenPCDet's (B·R, G³, C)
+    assert (grid != 0).any()
+    with torch.no_grad():
+        mine = copy.deepcopy(head.shared_fc_layer[0]).double()(pooled)
+    theirs = torch.nn.functional.linear(grid.view(grid.shape[0], -1), sd[ockpt.SHARED_FC].double())
+    np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-6, atol=0)
+
+
 def test_bare_state_dict_and_weights_only(tmp_path):
     _, _, model, _ = _models('second')
     sd = _fabricate(model, '2.x', seed=9)
@@ -193,7 +240,7 @@ def test_bare_state_dict_and_weights_only(tmp_path):
 
 
 def test_unported_families_and_bad_kernels_raise():
-    for name in ('PVRCNNPlusPlus', 'PartA2Net', 'VoxelRCNN', 'PointRCNN'):
+    for name in ('PVRCNNPlusPlus', 'PartA2Net', 'CaDDN', 'PointRCNN'):
         stub = type('Stub', (), {'model_cfg': {'NAME': name}})()
         with pytest.raises(NotImplementedError, match='item 14'):
             ockpt.map_openpcdet_state({}, stub)
