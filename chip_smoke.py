@@ -201,7 +201,21 @@ Run from the root of a checkout.  It
      with cudnn.benchmark and with TF32; the kernels at these shapes
      (``centerpoint.``, ``centerpoint_train.``, ``centerpoint_test.``,
      ``centerpoint_dyn_pillar_test.``, ``pv_rcnn_centerhead.``,
-     ``pv_rcnn_centerhead_train.``).  Each phase prints its wall time.
+     ``pv_rcnn_centerhead_train.``);
+ 18. VoxelRCNN (``drive_voxel_rcnn``) and PartA2 (``drive_parta2``) at
+     their files' widths: PartA2.yaml (UNetV2's 28 sparse convs, the bf16
+     ones beside the f32 SparseBasicBlocks, the inverse convs; the part
+     head, RoI-aware pooling and PartA2FCHead) through ``tools/train.main``
+     and ``tools/test.main`` over 14's tree with every K1 and K2 call of its
+     steps and batches against its plain version and the launches exactly,
+     the f32 check ahead of the NMS with the RoI head from common RoIs and
+     at the gt boxes, the stages, the RoI head's parts alone and a profiled
+     train step; the Waymo PartA2 file's train step and test batch (every
+     layer f32 at 150 000 voxels, bit-equal), PartA2_free's (the point
+     head's boxes as proposals) and VoxelResBackBone8x's step; the kernels
+     at these shapes (``parta2.``, ``parta2_train.``, ``parta2_waymo.``,
+     ``parta2_waymo_train.``, ``parta2_free.``, ``parta2_free_train.``).
+     Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
 
@@ -762,9 +776,9 @@ def _entry(name, source, replaces, n_launch, err, ms, plain_ms, nbytes, ops,
 
 
 # Calls timed of K1's and K3's plain versions (0.03-2.4 s each on the card),
-# each warm from its check on the same inputs: cut from 3 after a warm-up
-# and 2 to keep the script inside its time budget.
-PLAIN_K1_CALLS = 2
+# each warm from its check on the same inputs: one each, to keep the script
+# inside its time budget (K1's ~70 rows' plain calls take ~22 s a round).
+PLAIN_K1_CALLS = 1
 PLAIN_K3_CALLS = 1
 K1_SOURCE = 'crb_active_3ddet_torch/csrc/overlap_bev.cu'
 K1_REPLACES = 'crb_active_3ddet_tpu/ops/pallas_overlap.py:122'
@@ -1006,17 +1020,61 @@ def rulebook_emptiness(name, rbk, granularity=(16, 64)):
     log('; '.join(parts))
 
 
-def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weights=None):
-    """Hold the gather-GEMM against its plain version at one layer's inputs
-    (in ``cdt``, as the main path feeds it: bf16 on tensor cores, f32 on CUDA
-    cores; the weights ``layer``'s or ``weights``); time both and the matmul
-    yardstick.  The f32 route must equal its plain version bit for bit."""
+def fmaf(a, b, c):
+    """CUDA's fmaf on f32 tensors: a * b + c rounded to f32 once (the
+    product exact in f64, TwoSum's error, round to odd at 53 bits, then to
+    nearest f32), as ``tests/test_torch_gather_fma.py`` emulates it."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)
+    bits = s.view(torch.int64)
+    inexact = err != 0
+    bits = torch.where(inexact & ((err > 0) != (s > 0)), bits - 1, bits)
+    bits = torch.where(inexact, bits | 1, bits)
+    return bits.view(torch.float64).float()
+
+
+def fma_chain(feats, rbk, w):
+    """The f32 gather-GEMM's contract: one fmaf chain from 0 an output
+    element over every (offset, channel) in ascending order (a −1 entry
+    gives exact zeros, which leave the chain as it is)."""
+    g = feats[rbk.clamp(min=0).long()]
+    g = torch.where((rbk >= 0)[..., None], g, torch.zeros_like(g))
+    acc = torch.zeros((rbk.shape[0], w.shape[2]), dtype=torch.float32, device=feats.device)
+    for kk in range(rbk.shape[1]):
+        for c in range(w.shape[1]):
+            acc = fmaf(g[:, kk, c, None], w[kk, c][None, :], acc)
+    return acc
+
+
+FMA_CHAIN_S = [0, 0.0]      # the fmaf chains this run built, and their seconds
+
+
+def f32_route_exact(got, feats, rbk, w):
+    """Which exact reference an f32 K2 result equals bit for bit: 'matmul'
+    (``subm_conv3d_gather``, where cuBLAS sums one chain an element, in
+    the same ascending order), else 'fmaf chain' (``fma_chain``, where
+    cuBLAS splits the sum; its count and seconds add to ``FMA_CHAIN_S``),
+    else None."""
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    if torch.equal(got, subm_conv3d_gather(feats, rbk, w)):
+        return 'matmul'
+    t = time.perf_counter()
+    same = torch.equal(got, fma_chain(feats, rbk, w))
+    FMA_CHAIN_S[0] += 1
+    FMA_CHAIN_S[1] += time.perf_counter() - t
+    return 'fmaf chain' if same else None
+
+
+def gather_gemm_vs_plain(name, f, rbk, w):
+    """The gather-GEMM against its plain version at (B·V, Cin) inputs ``f``
+    and weights ``w`` of one dtype: within 1e-4 of 1 + max |ref|, equal bits
+    on a second run, and on the f32 route equal bits to its plain version
+    (``f32_route_exact``).  Returns (ref, err, tol, which exact reference)."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
-    b_, v, cin = feats.shape
-    f = feats.to(cdt).reshape(b_ * v, cin).contiguous()
-    w = (layer[0].weight if weights is None else weights).to(cdt).contiguous()
-    k, _, cout = w.shape
     got = cuda_kernels.sparse_conv_gather_gemm(f, rbk, w)
     ref = subm_conv3d_gather(f, rbk, w)
     err = (got - ref).abs().max().item()
@@ -1025,13 +1083,34 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weig
         raise RuntimeError(f'{name}: max err {err} > {tol}')
     if not torch.equal(got, cuda_kernels.sparse_conv_gather_gemm(f, rbk, w)):
         raise RuntimeError(f'{name}: two runs on the same inputs differ')
-    # the f32 route keeps the f32 matmul's summation order
-    if cdt == torch.float32 and not torch.equal(got, ref):
+    # the f32 route keeps the f32 matmul's summation order (the ascending fmaf
+    # chain's where cuBLAS splits the matmul's sums)
+    exact = f32_route_exact(got, f, rbk, w) if f.dtype == torch.float32 else None
+    if f.dtype == torch.float32 and exact is None:
         raise RuntimeError(f'{name}: the f32 route differs from its plain version')
+    return ref, err, tol, exact
+
+
+def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weights=None,
+                     timed=True):
+    """Hold the gather-GEMM against its plain version at one layer's inputs
+    (in ``cdt``, as the main path feeds it: bf16 on tensor cores, f32 on CUDA
+    cores; the weights ``layer``'s or ``weights``; ``gather_gemm_vs_plain``);
+    with ``timed``, time both and the matmul yardstick and return the row
+    (else None)."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    b_, v, cin = feats.shape
+    f = feats.to(cdt).reshape(b_ * v, cin).contiguous()
+    w = (layer[0].weight if weights is None else weights).to(cdt).contiguous()
+    k, _, cout = w.shape
+    ref, err, tol, exact = gather_gemm_vs_plain(name, f, rbk, w)
+    if not timed:
+        return None
     rulebook_emptiness(name, rbk)
     ms = graph_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
     call_ms = cuda_time_ms(lambda: cuda_kernels.sparse_conv_gather_gemm(f, rbk, w))
-    plain_ms = cuda_time_ms(lambda: subm_conv3d_gather(f, rbk, w))
+    plain_ms = cuda_time_ms(lambda: subm_conv3d_gather(f, rbk, w), warmup=1, iters=3)
     g = f[torch.clamp(rbk, min=0).long()].reshape(rbk.shape[0], k * cin)
     w2 = w.reshape(k * cin, cout)
     lib_ms = graph_time_ms(lambda: torch.matmul(g, w2))
@@ -1042,7 +1121,9 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weig
                    plain_ms, nbytes, 2 * nnz * cin * cout, PEAK[cdt], lib_ms)
     log(f'{name}: V_out {rbk.shape[0]} K {k} {cin}->{cout} '
         f'nnz {nnz}: err {err:.2e} (tol {tol:.1e})'
-        + (', equal bits to the plain version' if cdt == torch.float32 else '')
+        + (', equal bits to the plain version' if exact == 'matmul'
+           else ', equal bits to the ascending fmaf chain (cuBLAS splits the plain version\'s '
+           'sums here)' if exact else '')
         + f'; kernel {ms:.4f} ms on the card '
         f'(graph replay; {call_ms:.4f} ms a call as the host enqueues it), '
         f'plain {plain_ms:.4f} ms, matmul yardstick {lib_ms:.4f} ms (graph replay), '
@@ -1072,6 +1153,9 @@ def fps_equal(points, valid, k, tag):
     return got, float((got - ref).abs().max())
 
 
+_FPS_SWEPT = {}      # the FPS row that held the small shapes
+
+
 def time_fps(name, points, valid, k, n_launch):
     """Hold the FPS kernel to its plain version at the main path's inputs and
     at small shapes (random and snapped to a lattice, where the maxima tie);
@@ -1079,7 +1163,10 @@ def time_fps(name, points, valid, k, n_launch):
     from crb_active_3ddet_torch.ops import cuda_fps
     got, err = fps_equal(points, valid, k, 'main path')
     distinct = min(len(torch.unique(r)) for r in got)
-    for n, kk, nv in FPS_SMALL:
+    # the small shapes' inputs are the same at every row (seeded by shape):
+    # they are held once a run, at its first FPS row
+    swept = _FPS_SWEPT.setdefault('at', name)
+    for n, kk, nv in FPS_SMALL if swept == name else ():
         if n == 'capacity':
             n = nv = cuda_fps.max_points()
             if n < 180000:
@@ -1110,7 +1197,7 @@ def time_fps(name, points, valid, k, n_launch):
     log(f'{name} ({b}, {n}) -> {k}, valid points a frame {valid.sum(1).tolist()}: equal to '
         f'the plain version (also at '
         f'{len(FPS_SMALL)} other shapes, N = 1 up to the capacity '
-        f'{cuda_fps.max_points()}, random and snapped); fewest distinct '
+        f'{cuda_fps.max_points()}, random and snapped, at {swept}); fewest distinct '
         f'keypoints in a frame {distinct}; kernel {ms:.4f} ms ({one_ms:.4f} ms for '
         f'one frame alone), plain {plain_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
         f'(a serial chain of {k - 1} cluster-wide argmax steps, '
@@ -1145,7 +1232,7 @@ def check_reduced(cfg_file, dev):
         + ', '.join(f'{k} {v.tolist()}' for k, v in rc.items()) + ' (card = CPU)')
 
 
-def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
+def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter, k2_rows=True):
     """One detector's eval step at full width: counters to 0, one step,
     counters read; output checks; step time, stages, profile; kernel path vs
     plain path; every kernel vs its plain version at this path's inputs.
@@ -1269,9 +1356,11 @@ def drive_path(cfg_file, dev, prefix, nms_tags, overlap_tags, n_iter):
     profile_step(step, batch)
 
     # ---- each kernel against its plain version at this path's inputs ----
-    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n)
-               for lname, (layer, feats, rbk, _), n
-               in zip(SPARSE_LAYERS, captured, launched)]
+    # (K2's calls timed only with ``k2_rows``, held either way)
+    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n,
+                                timed=k2_rows)
+               for lname, (layer, feats, rbk, _), n in zip(SPARSE_LAYERS, captured, launched)]
+    results = [e for e in results if e is not None]
     for tag, ((boxes, alive, thresh), n, words), (_, _, (_, rounds)) in zip(
             nms_tags, mask_calls, fixpoint_calls):
         if not torch.equal(cuda_overlap.nms_mask(boxes, alive, thresh), words):
@@ -1400,16 +1489,17 @@ def check_train_kernel_path(model, vox, mode, tols):
                            f'least cosine {least_cos[1][1]:.6f} ({least_cos[0]})')
 
 
-def time_dgrad(name, args, n_launch, f64_tol=None):
-    """Hold the dgrad (K2 over the inverse rulebook) against its plain
-    version at one layer's backward inputs (error over the sum of the
-    products' magnitudes, as the wgrad's, within 1e-5; given ``f64_tol``,
+def dgrad_vs_plain(name, args, f64_tol=None):
+    """The dgrad (K2 over the inverse rulebook) against its plain version
+    at one layer's backward inputs ``args``: error over the sum of the
+    products' magnitudes, as the wgrad's, within 1e-5 (given ``f64_tol``,
     against the plain version in f64 within that, the f32 plain version's
-    own error beside it), check equal bits on a second run; time both and
-    the matmul yardstick over the materialised inverse gather."""
+    own error beside it), equal bits on a second run, and on the f32 route
+    equal bits to the f32 matmul over the inverse gather
+    (``f32_route_exact``).  Returns (err, |ref| max, |ref| median, which
+    exact reference)."""
     from crb_active_3ddet_torch.ops import cuda_kernels
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import (gather_gemm_dgrad_plain,
-                                                              subm_conv3d_gather)
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
     dout, rbk, inv, w, v_in = args
     tol = 1e-5 if f64_tol is None else f64_tol
     up = (lambda t: t) if f64_tol is None else (lambda t: t.double())
@@ -1428,10 +1518,25 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
     if not torch.equal(got, cuda_kernels.gather_gemm_dgrad(*args)):
         raise RuntimeError(f'{name}: two runs on the same inputs differ')
     # the f32 route keeps the order of the f32 matmul over the inverse gather
-    if w.dtype == torch.float32 and not torch.equal(
-            got, subm_conv3d_gather(dout, inv, w.transpose(1, 2).contiguous())):
-        raise RuntimeError(f'{name}: the f32 route differs from the f32 matmul over the '
-                           'inverse rulebook')
+    # (of the ascending fmaf chain where cuBLAS splits that matmul's sums)
+    exact = None
+    if w.dtype == torch.float32:
+        exact = f32_route_exact(got, dout, inv, w.transpose(1, 2).contiguous())
+        if exact is None:
+            raise RuntimeError(f'{name}: the f32 route differs from the f32 matmul over the '
+                               'inverse rulebook and from the ascending fmaf chain')
+    return err, ref_max, ref_median, exact
+
+
+def time_dgrad(name, args, n_launch, f64_tol=None):
+    """Hold the dgrad against its plain version at one layer's backward
+    inputs (``dgrad_vs_plain``); time both and the matmul yardstick over
+    the materialised inverse gather."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_dgrad_plain
+    dout, rbk, inv, w, v_in = args
+    tol = 1e-5 if f64_tol is None else f64_tol
+    err, ref_max, ref_median, exact = dgrad_vs_plain(name, args, f64_tol)
     k, cin, cout = w.shape
     ms = graph_time_ms(lambda: cuda_kernels.gather_gemm_dgrad(*args))
     plain_ms = cuda_time_ms(lambda: gather_gemm_dgrad_plain(dout, rbk, w, v_in),
@@ -1448,8 +1553,9 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
     log(f'{name}: V_in {v_in} K {k} {cout}->{cin} nnz {nnz}: |ref| max {ref_max:.3e}, '
         f'median {ref_median:.3e}; err {err:.2e} of the products\' magnitude (tol {tol:.0e}), '
         f'equal bits on a second run'
-        + (' and to the f32 matmul over the inverse gather' if w.dtype == torch.float32
-           else '')
+        + (' and to the f32 matmul over the inverse gather' if exact == 'matmul'
+           else ' and to the ascending fmaf chain (cuBLAS splits the matmul\'s sums here)'
+           if exact else '')
         + f'; call {ms:.4f} ms on the card (graph '
         f'replay: cast of dout, W transposed, pack, kernel), plain {plain_ms:.4f} ms, '
         f'matmul yardstick {lib_ms:.4f} ms, bound {entry["bound_ms"]:.4f} ms '
@@ -1458,19 +1564,15 @@ def time_dgrad(name, args, n_launch, f64_tol=None):
     return entry
 
 
-def time_wgrad(name, args, n_launch, f64_tol=None):
-    """Hold the wgrad kernel against its plain version at one layer's
-    backward inputs (error over the sum of the products' magnitudes, which
-    bounds an f32 sum's rounding), check equal bits on a second run and with
-    the transposed rulebook given or built by the wrapper, on the route the
-    step ran (bf16: tensor cores) and on the f32 route with the same
-    numbers; time the step's route, the plain version, the matmul yardstick
-    over the materialised gather and the transpose of the rulebook that both
-    routes read.  ``bound_ms`` counts the
-    route's own arithmetic (three bf16 products at the bf16 peak on tensor
-    cores), ``bound_f32_ms`` the f32 products at the f32 peak.  The errors
-    are held within 1e-5; given ``f64_tol``, against the plain version in
-    f64 within that, the f32 plain version's own error beside them."""
+def wgrad_vs_plain(name, args, f64_tol=None):
+    """The wgrad kernel against its plain version at one layer's backward
+    inputs ``args`` (error over the sum of the products' magnitudes, which
+    bounds an f32 sum's rounding, within 1e-5; given ``f64_tol``, against
+    the plain version in f64 within that, the f32 plain version's own error
+    beside it), equal bits on a second run and with the transposed rulebook
+    given or built by the wrapper, on the route the step ran (bf16: tensor
+    cores) and on the f32 route with the same numbers.  Returns (the step's
+    route, {route: err})."""
     from crb_active_3ddet_torch.ops import cuda_kernels
     from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
     from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
@@ -1499,6 +1601,22 @@ def time_wgrad(name, args, n_launch, f64_tol=None):
             raise RuntimeError(f'{name} ({r}): the transposed rulebook given and built by '
                                'the wrapper give other bits')
         errs[r] = err
+    return route, errs
+
+
+def time_wgrad(name, args, n_launch, f64_tol=None):
+    """Hold the wgrad kernel against its plain version at one layer's
+    backward inputs (``wgrad_vs_plain``); time the step's route, the plain
+    version, the matmul yardstick over the materialised gather and the
+    transpose of the rulebook that both routes read.  ``bound_ms`` counts
+    the route's own arithmetic (three bf16 products at the bf16 peak on
+    tensor cores), ``bound_f32_ms`` the f32 products at the f32 peak."""
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.ops.sparse.rulebook import transpose_rulebook
+    from crb_active_3ddet_torch.ops.sparse.sparse_ops import gather_gemm_wgrad_plain
+    feats, rbk, dout = args[:3]
+    tol = 1e-5 if f64_tol is None else f64_tol
+    route, errs = wgrad_vs_plain(name, args, f64_tol)
     k = rbk.shape[1]
     v_in, cin = feats.shape
     cout = dout.shape[1]
@@ -1532,6 +1650,26 @@ def time_wgrad(name, args, n_launch, f64_tol=None):
         f'{entry["bound_ms"]:.4f} ms ({entry["bound_by"]}, the route\'s arithmetic), f32 bound '
         f'{entry["bound_f32_ms"]:.4f} ms; rulebook transpose {t_ms:.4f} ms')
     return entry
+
+
+def backward_vs_plain(dcalls, wcalls, tag):
+    """Each recorded dgrad and wgrad call (``recording``: (args, launches,
+    result)) against its plain version at its inputs as the timed rows hold
+    it (``dgrad_vs_plain``, ``wgrad_vs_plain``), untimed; logs the largest
+    errors."""
+    t = time.perf_counter()
+    d_err, w_err, n_exact = 0.0, 0.0, 0
+    for i, (args, _, _) in enumerate(dcalls):
+        err, _, _, exact = dgrad_vs_plain(f'{tag} dgrad call {i}', args)
+        d_err, n_exact = max(d_err, err), n_exact + (exact is not None)
+    for i, (args, _, _) in enumerate(wcalls):
+        _, errs = wgrad_vs_plain(f'{tag} wgrad call {i}', args)
+        w_err = max(w_err, *errs.values())
+    log(f'{tag}: {len(dcalls)} dgrad and {len(wcalls)} wgrad calls against their plain '
+        f'versions, untimed: largest err {d_err:.2e} and {w_err:.2e} of the products\' '
+        f'magnitude (tol 1e-05), equal bits on a second run; {n_exact} f32 dgrad calls '
+        'bit-equal to the f32 matmul over the inverse gather or the ascending fmaf chain; '
+        f'{time.perf_counter() - t:.2f} s')
 
 
 def build_train(cfg, batch_size, device, seed, box_std=None):
@@ -1595,7 +1733,7 @@ def common_targets(model, vox, seed):
     return targets
 
 
-def drive_train(dev, cfg_file, prefix, tols, box_std=None, n_iter=5):
+def drive_train(dev, cfg_file, prefix, tols, box_std=None, n_iter=5, k2_rows=True):
     """One detector's train step at full width, batch 8: counters to 0, one
     step, counters read (12 K2 forward, 11 dgrad, 12 wgrad launches; a
     two-stage model also 1 FPS, 1 NMS mask and 1 float overlap); outputs
@@ -1734,14 +1872,20 @@ def drive_train(dev, cfg_file, prefix, tols, box_std=None, n_iter=5):
     model.load_state_dict(before)
 
     # K2 forward at each layer's inputs; dgrad runs from the last layer back
-    # (conv_out first, conv1.0 last); wgrad likewise, conv_input last
-    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n)
+    # (conv_out first, conv1.0 last); wgrad likewise, conv_input last (timed
+    # only with ``k2_rows``, held either way)
+    results = [time_gather_gemm(f'{prefix}gather_gemm[{lname}]', layer, feats, rbk, n,
+                                timed=k2_rows)
                for lname, (layer, feats, rbk, _), n in zip(SPARSE_LAYERS, captured, launched)]
+    results = [e for e in results if e is not None]
     dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
-    results += [time_dgrad(f'{prefix}gather_gemm_dgrad[{lname}]', args, n)
-                for lname, (args, n, _) in zip(dnames, dcalls)]
-    results += [time_wgrad(f'{prefix}gather_gemm_wgrad[{lname}]', args, n)
-                for lname, (args, n, _) in zip(wnames, wcalls)]
+    if k2_rows:
+        results += [time_dgrad(f'{prefix}gather_gemm_dgrad[{lname}]', args, n)
+                    for lname, (args, n, _) in zip(dnames, dcalls)]
+        results += [time_wgrad(f'{prefix}gather_gemm_wgrad[{lname}]', args, n)
+                    for lname, (args, n, _) in zip(wnames, wcalls)]
+    else:
+        backward_vs_plain(dcalls, wcalls, f'{name} train step')
     for lname, (args, _, _) in zip(wnames, wcalls):
         if args[0].shape[1] != dict(zip(SPARSE_LAYERS, (4, 16, 16, 32, 32, 32, 64, 64, 64,
                                                          64, 64, 64)))[lname]:
@@ -2270,8 +2414,11 @@ def drive_active(dev, cfg_file=ACTIVE_CFG, prefix='active', layer_names=SPARSE_L
     if not torch.equal(got, ref):
         raise RuntimeError(f'{prefix} full scan: the cls logits differ kernel path vs plain')
     strat = build_strategy('entropy', model, lab, unlab, 0, str(qdir), cfg)
-    log(f'profiled entropy scan of {len(unlab)} pool batches:')
-    profile_step(lambda _: strat.scan_pool(signals=('box_entropy',)), None)
+    # one pool batch under the profiler (the whole pool's 70 617 launches
+    # took ~17-29 s of trace processing); the next lines time the whole scan
+    first = next(iter(unlab))
+    log(f'profiled entropy scan of 1 of {len(unlab)} pool batches:')
+    profile_step(lambda _: strat.scan_pool(loader=[first], signals=('box_entropy',)), None)
     # the same scan, timed only: as the port runs it (f32, its guard turning
     # TF32 off) and with the guard lifted under PyTorch's default (cuDNN free
     # to use TF32)
@@ -2438,7 +2585,7 @@ def check_gpdb_forms(strat, recs, num_class, n_sel, tag, need_class=False):
 
 
 def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, every_class=True,
-              rounds=None, scenes=None):
+              rounds=None, scenes=None, scan_rows=True):
     """CRB: ``train_model_active`` on ``cfg_file`` with METHOD crb (set in
     code: PointPillars runs its entropy file) at its full width and sizes
     (K1 2, K2 1, kmeans++), from ``flax_init``, under PyTorch's default
@@ -2672,9 +2819,13 @@ def drive_crb(dev, cfg_file=CRB_CFG, prefix='crb', layer_names=SPARSE_LAYERS, ev
     if len(layers) != len(layer_names):
         raise RuntimeError(f'{prefix}: the model has {len(layers)} sparse layers, '
                            f'not the {len(layer_names)} of layer_names')
+    # the MC scan's K2 calls: the AL phase's scan rows (``active.``) time the
+    # same kernel, route and shape, so they are timed only with ``scan_rows``
+    # (held either way)
     results = [time_gather_gemm(f'{prefix}.gather_gemm[{lname}]', layer, f[None], rbk,
-                                MC_FORWARDS * scored, cdt=f.dtype)
+                                MC_FORWARDS * scored, cdt=f.dtype, timed=scan_rows)
                for lname, layer, ((f, rbk, _), _, _) in zip(layer_names, layers, k2_scan)]
+    results = [e for e in results if e is not None]
     results += [time_gather_gemm(f'{prefix}_grad.gather_gemm[{lname}]', layer, f[None], rbk,
                                  frames, cdt=f.dtype)
                 for lname, layer, ((f, rbk, _), _, _) in zip(layer_names, layers, k2_grad)]
@@ -3084,10 +3235,11 @@ def drive_pvrcnn_active(dev):
     (points, valid, k), _, _ = first_scan['fps']
     results.append(time_fps('pvrcnn_active.fps', points, valid, k, scored))
     fit_rec = first_fit['rec']
-    results += [time_gather_gemm(f'pvrcnn_llal.gather_gemm[{lname}]', layer, f[None], rbk,
-                                 n_fit, cdt=f.dtype)
-                for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
-                                                              fit_rec['k2'])]
+    # (the LossNet step's K2 forward calls held, untimed: ``pvrcnn_active.``
+    # times the same kernel, route and shapes)
+    for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers, fit_rec['k2']):
+        time_gather_gemm(f'pvrcnn_llal.gather_gemm[{lname}]', layer, f[None], rbk, n_fit,
+                         cdt=f.dtype, timed=False)
     results += [time_dgrad(f'pvrcnn_llal.gather_gemm_dgrad[{lname}]', args, n_fit)
                 for lname, (args, _, _) in zip(SPARSE_LAYERS[1:][::-1], first_fit['dcalls'])]
     results += [time_wgrad(f'pvrcnn_llal.gather_gemm_wgrad[{lname}]', args, n_fit)
@@ -3476,11 +3628,13 @@ def drive_pvrcnn_crb(dev):
                       'PV-RCNN seeded query')
 
     # ---- the kernels at the loop's MC scan and stage-2 inputs, timed ----
+    # (the MC scan's K2 calls held, untimed: the AL phase's ``pvrcnn_active.``
+    # rows time the same kernel, route and shape)
     layers = sparse_layers(model)
-    results = [time_gather_gemm(f'pvrcnn_crb.gather_gemm[{lname}]', layer, f[None], rbk,
-                                scored, cdt=f.dtype)
-               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers,
-                                                             first_scan['k2'])]
+    for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, layers, first_scan['k2']):
+        time_gather_gemm(f'pvrcnn_crb.gather_gemm[{lname}]', layer, f[None], rbk, scored,
+                         cdt=f.dtype, timed=False)
+    results = []
     for tag, ((boxes, alive, thresh), _, _), fix in zip(
             ('proposal_nms', 'nms'), first_scan['masks'], first_scan['fix']):
         results.append(time_mask(f'pvrcnn_crb.nms_mask[{tag}]', boxes, alive, thresh, scored,
@@ -3559,7 +3713,9 @@ GATE_MAP = 0.60             # gate 1: mAP@0.5 on unseen scenes must exceed it
 # 9 vs 9 over seeds 0-2 (``tests/gate_readings.py``, PERF.md); its recorded
 # 14 vs 7 came from unseeded draws.  ``gate_2`` prints seeds 0-2 on their own.
 GATE_SEEDS = tuple(range(16))
-GATE_WORKERS = 4            # processes that run gate 2's seeds side by side
+# processes that run gate 2's seeds side by side: one a core of the card
+# machine's 8 (a seed reads the same in any process)
+GATE_WORKERS = 8
 GATE_INIT_SEED = 0
 GATE_MARGIN = len(GATE_SEEDS)   # gate 2: crb_total >= rand_total + GATE_MARGIN
 JAX_GATE_SEEDS = (0, 1, 2)      # the JAX test's seeds, reported on their own
@@ -4612,7 +4768,8 @@ def test_cli_paths(tag, cfg_file, ckpt, work, sets, batch=2, per_batch=None):
     return runs['kernel']['rec']
 
 
-def f32_ahead_of_nms(model, cfg, dev, tag, each=None, check=check_kernel_path):
+def f32_ahead_of_nms(model, cfg, dev, tag, each=None, check=check_kernel_path,
+                     layer_names=SPARSE_LAYERS):
     """``model`` on every val batch of ``cfg`` with K2 on its f32 route,
     kernel path against plain path ahead of the NMS (``check``, at
     ``KITTI_F32_TOL``), every kernel call against
@@ -4642,7 +4799,7 @@ def f32_ahead_of_nms(model, cfg, dev, tag, each=None, check=check_kernel_path):
             s = calls_vs_plain(rec, f'{tag} val batch {i} f32')
             if each is not None:
                 each(out, i)
-            k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(SPARSE_LAYERS,
+            k2_apart.append([lname for lname, ((f, rbk, w), _, got) in zip(layer_names,
                                                                          rec['k2'])
                              if not torch.equal(got, subm_conv3d_gather(f, rbk, w))])
             log(f'{tag} val batch {i} f32, kernel path: {summary(s)}')
@@ -4824,7 +4981,8 @@ def held_train_steps(tag, per_step):
     """While open, every train step of ``train_one_epoch`` runs with its
     K1, K2 and K3 calls recorded: launches exactly ``per_step`` (keyword
     arguments of ``launch_delta``) a step, each call against its plain
-    version (``calls_vs_plain``; K1 bit for bit, ``k1_calls_exact``), the
+    version (``calls_vs_plain``; K1 bit for bit, ``k1_calls_exact``; the
+    first step's dgrad and wgrad calls too, ``backward_vs_plain``), the
     peak device memory of each step logged.  Yields the records: ``steps``
     (each step's summary and peak), ``first`` (the first step's calls, its
     dgrad and wgrad calls too)."""
@@ -4854,6 +5012,8 @@ def held_train_steps(tag, per_step):
             with torch.no_grad():
                 s = calls_vs_plain(rec, f'{tag} train step {len(w["steps"])}')
                 k1_calls_exact(rec, f'{tag} train step {len(w["steps"])}')
+                if first:
+                    backward_vs_plain(dcalls, wcalls, f'{tag} train step 0')
             loss = float(out[1]['loss'])
             if not np.isfinite(loss):
                 raise RuntimeError(f'{tag} train step loss {loss}')
@@ -5823,10 +5983,10 @@ def drive_waymo_centerpoint(dev):
     center_stages(state.model, state.optimizer, cfg, dev, 'centerpoint')
     first, n_steps = w['first'], len(w['steps'])
     n_test = len(test_rec['float'])
-    results = [time_dgrad(f'centerpoint_train.gather_gemm_dgrad[{lname}]', args, n_steps)
-               for lname, (args, _, _) in zip(SPARSE_LAYERS[1:][::-1], first['dgrad'])]
-    results += [time_wgrad(f'centerpoint_train.gather_gemm_wgrad[{lname}]', args, n_steps)
-                for lname, (args, _, _) in zip(SPARSE_LAYERS[::-1], first['wgrad'])]
+    # (no dgrad or wgrad rows: the Waymo phase's ``waymo_train.`` rows time
+    # the same kernel, route and shapes, the same backbone and caps at batch 2;
+    # ``held_train_steps`` holds the first step's calls, untimed)
+    results = []
     ((boxes, alive, thresh), _, _), fix = test_rec['mask'][0], test_rec['fix'][0]
     results.append(time_mask('centerpoint.nms_mask[nms]', boxes, alive, thresh, n_test,
                              fix[2][1], 'centerpoint test nms'))
@@ -5884,12 +6044,13 @@ VOXEL_RCNN_WAYMO_SETS = ('OPTIMIZATION.BATCH_SIZE_PER_GPU', '2', 'OPTIMIZATION.L
 
 def k2_f32_exact(rec, tag):
     """Every f32 K2 call in ``rec`` (``kernel_calls``) bit-equal to its
-    plain version; returns how many there were."""
-    from crb_active_3ddet_torch.ops.sparse.sparse_ops import subm_conv3d_gather
+    plain version (or, where cuBLAS splits the plain version's sums, to the
+    ascending fmaf chain: ``f32_route_exact``); returns how many there
+    were."""
     n = 0
     for (f, rbk, w), _, got in rec['k2']:
         if f.dtype == torch.float32:
-            if not torch.equal(got, subm_conv3d_gather(f, rbk, w)):
+            if f32_route_exact(got, f, rbk, w) is None:
                 raise RuntimeError(f'{tag}: an f32 K2 call is not bit-equal to its plain version')
             n += 1
     return n
@@ -6198,17 +6359,18 @@ def drive_voxel_rcnn(dev):
     wtrain, wdgrad, wwgrad, wtest = voxel_rcnn_waymo_path(dev, waymo_tree())
 
     # ---- the kernels at the path's shapes, timed ----
+    # (no K2 rows at voxel_rcnn_car's shapes: the SECONDNetIoU phase's
+    # ``second_iou.`` and ``second_iou_train.`` rows time the same kernel, route
+    # and shapes, the same backbone over the same tree; the test CLI holds the
+    # forward calls and ``held_train_steps`` the first step's; here the
+    # forward calls as a row holds them, untimed)
     first, n_steps = w['first'], len(w['steps'])
     n_test = len(test_rec['float'])
-    results = [time_gather_gemm(f'voxel_rcnn.gather_gemm[{lname}]', layer, f[None], rbk, n_test,
-                                cdt=f.dtype)
-               for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, sparse_layers(model),
-                                                             test_rec['k2'])]
-    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
-    results += [time_dgrad(f'voxel_rcnn_train.gather_gemm_dgrad[{lname}]', a, n_steps)
-                for lname, (a, _, _) in zip(dnames, first['dgrad'])]
-    results += [time_wgrad(f'voxel_rcnn_train.gather_gemm_wgrad[{lname}]', a, n_steps)
-                for lname, (a, _, _) in zip(wnames, first['wgrad'])]
+    for lname, layer, ((f, rbk, _), _, _) in zip(SPARSE_LAYERS, sparse_layers(model),
+                                                  test_rec['k2']):
+        time_gather_gemm(f'voxel_rcnn.gather_gemm[{lname}]', layer, f[None], rbk, n_test,
+                         cdt=f.dtype, timed=False)
+    results = []
     for name, ((boxes, alive, thresh), _, _), fix in zip(
             ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
         results.append(time_mask(f'voxel_rcnn.nms_mask[{name}]', boxes, alive, thresh, n_test,
@@ -6224,6 +6386,7 @@ def drive_voxel_rcnn(dev):
     results.append(time_overlap('voxel_rcnn_train.overlap_bev[roi_targets]', a_, b_, n_steps,
                                 f'{key} train roi_targets'))
     wkey = 'voxel_rcnn_waymo'
+    dnames, wnames = SPARSE_LAYERS[1:][::-1], SPARSE_LAYERS[::-1]
     results += [time_gather_gemm(f'{wkey}.gather_gemm[{lname}]', None, f[None], rbk, 1,
                                  cdt=torch.float32, weights=wt)
                 for lname, ((f, rbk, wt), _, _) in zip(SPARSE_LAYERS, wtest['k2'])]
@@ -6244,6 +6407,487 @@ def drive_voxel_rcnn(dev):
     results.append(time_overlap(f'{wkey}_train.overlap_bev[roi_targets]', a_, b_, 1,
                                 f'{wkey} train roi_targets'))
     w.clear()
+    shutil.rmtree(work)
+    return results
+
+
+PARTA2_CFG = 'tools/cfgs/kitti_models/PartA2.yaml'
+PARTA2_FREE_CFG = 'tools/cfgs/kitti_models/PartA2_free.yaml'
+PARTA2_WAYMO_CFG = 'tools/cfgs/waymo_models/PartA2.yaml'
+PARTA2_RES_CFG = 'tools/cfgs/kitti_models/second.yaml'
+# the Waymo file's one train step and one test batch at its own batch 2, LR
+# 0.003 (the file's 0.01 overflows a short one-cycle, ROADMAP Queue 3), every
+# frame of a sequence
+PARTA2_KITTI_SETS = (*SECOND_KITTI_DEPTH, 'OPTIMIZATION.LR', '0.003')
+PARTA2_WAYMO_SETS = ('OPTIMIZATION.LR', '0.003', 'DATA_CONFIG.SAMPLED_INTERVAL.train', '1',
+                     'DATA_CONFIG.SAMPLED_INTERVAL.test', '1')
+ENCODER_LAYERS = SPARSE_LAYERS[:-1]         # conv_input … conv4.2; then conv_out
+UNET_DECODER_LAYERS = [name for level in (4, 3, 2, 1) for name in (
+    f'conv_up_t{level}.conv1', f'conv_up_t{level}.conv2', f'conv_up_m{level}',
+    f'inv_conv{level}' if level > 1 else 'conv5.0')]
+# the Waymo path's layers whose K2 forward rows an earlier phase times at the
+# same kernel, route and shapes: the encoder's and conv_out
+# (``pv_rcnn_centerhead.``, f32 uncapped at 150 000 voxels, batch 2); their
+# backward rows are new and stay
+PARTA2_WAYMO_SKIP_FORWARD = ENCODER_LAYERS + ['conv_out']
+
+
+def _rbk_key(rbk):
+    return (tuple(rbk.shape), int(rbk.sum()), int((rbk >= 0).sum()))
+
+
+def k2_groups(names, calls):
+    """The forward K2 calls of one pass (``kernel_calls``' 'k2' records,
+    named by ``names``) grouped by (rulebook, Cin, Cout, dtype): layers of
+    one stage with one shape run the same kernel on the same rulebook.
+    Returns ([(names, first record)], {backward key: names})."""
+    groups, back = {}, {}
+    for name, call in zip(names, calls):
+        (f, rbk, w), _, _ = call
+        key = (_rbk_key(rbk), tuple(w.shape), w.dtype)
+        groups.setdefault(key, ([], call))[0].append(name)
+        back[key] = groups[key][0]
+    return list(groups.values()), back
+
+
+def backward_groups(calls, back, kind):
+    """The dgrad ('dgrad') or wgrad ('wgrad') calls of one step grouped by
+    their layer's forward group (``k2_groups``): [(names, args, calls a
+    step)]."""
+    out = {}
+    for args, _, _ in calls:
+        if kind == 'dgrad':
+            _, rbk, _, w, _ = args
+            key = (_rbk_key(rbk), tuple(w.shape), w.dtype)
+        else:
+            feats, rbk, dout = args[:3]
+            key = (_rbk_key(rbk), (rbk.shape[1], feats.shape[1], dout.shape[1]), feats.dtype)
+        names = '|'.join(back[key])
+        if names not in out:
+            out[names] = [args, 0]
+        out[names][1] += 1
+    return [(names, args, n) for names, (args, n) in out.items()]
+
+
+def parta2_gt_rois(model, out, ref, tol, tag):
+    """The RoI head at the batch's gt boxes as its RoIs on the kernel
+    path's and the plain path's point features: rcnn_cls and rcnn_reg
+    within ``tol``; logs the share of the pooled grids' cells that are
+    occupied.  Returns that share."""
+    keys = ('point_features', 'point_coords', 'point_valid', 'point_cls_scores',
+            'point_part_offset')
+    rois = out['gt_boxes'][..., :7].contiguous()
+    head = model.roi_head
+    with torch.no_grad():
+        got = head({k: out[k] for k in keys} | {'rois': rois})
+        want = head({k: ref[k] for k in keys} | {'rois': rois})
+        _, _, mask = head.roiaware_pool({k: out[k] for k in keys} | {'rois': rois})
+    real = (rois.abs().sum(-1) > 0).reshape(-1)
+    share = mask.reshape(mask.shape[0], -1)[real].float().mean().item()
+    errs = {k: rel_err(got[k], want[k]) for k in ('rcnn_cls', 'rcnn_reg')}
+    log(f'{tag} RoI head at the gt boxes {tuple(rois.shape)}, kernel path vs plain: '
+        + ', '.join(f'{k} max |diff|/(1+|ref|) {e[0]:.3e} (max |diff| {e[1]:.3e})'
+                    for k, e in errs.items())
+        + f' (limit {tol:.0e}); occupied cells of the gt boxes\' pooled grids {share:.4f}')
+    bad = [k for k, e in errs.items() if not e[0] <= tol]
+    if bad:
+        raise RuntimeError(f'{tag}: the RoI head at the gt boxes disagrees at {bad}')
+    if not share > 0:
+        raise RuntimeError(f'{tag}: no cell of the gt boxes\' pooled grids is occupied')
+    return share
+
+
+def parta2_check(tag):
+    """A ``check`` for ``f32_ahead_of_nms``: the same batch on the plain
+    path, held against the kernel path at ``tol`` ahead of any NMS: the
+    encoded volume (when the model has conv_out), the UNet's point features,
+    the part head's scores and offsets, the dense head's raw maps (when it
+    has one); the RoI head from the kernel path's RoIs on both paths' point
+    features (a near-tie of the proposal NMS may keep other RoIs), and at
+    the gt boxes (``parta2_gt_rois``)."""
+    def check(model, vox, tol):
+        keys = ('point_features', 'point_coords', 'point_valid', 'point_cls_scores',
+                'point_part_offset')
+        with torch.no_grad():
+            out = model(vox)
+            with plain_versions():
+                ref = model(vox)
+            roi_ref = model.roi_head({k: ref[k] for k in keys} | {'rois': out['rois']})
+        same_rois = torch.equal(out['rois'], ref['rois'])
+        if not (torch.equal(out['point_coords'], ref['point_coords'])
+                and torch.equal(out['point_valid'], ref['point_valid'])):
+            raise RuntimeError(f'{tag}: the paths\' voxel sets differ')
+        cmp = {k: (out[k], ref[k]) for k in ('encoded_spconv_features', 'point_features',
+                                              'point_cls_scores', 'point_part_offset',
+                                              'cls_preds', 'box_preds') if k in out}
+        cmp.update({k: (out[k], roi_ref[k]) for k in ('rcnn_cls', 'rcnn_reg',
+                                                      'batch_box_preds')})
+        errs = {}
+        for k, (a, b) in cmp.items():
+            errs[k] = rel_err(a, b)
+            log(f'{tag} kernel path vs plain, {k} {tuple(b.shape)}: max |diff|/(1+|ref|) '
+                f'{errs[k][0]:.3e} (limit {tol:.0e}), max |diff| {errs[k][1]:.3e}')
+        log(f'{tag}: RoI sets of the two paths equal: {same_rois} (the RoI head compared from '
+            'the kernel path\'s RoIs)')
+        bad = [k for k, e in errs.items() if not e[0] <= tol]
+        if bad:
+            raise RuntimeError(f'{tag}: the kernel path disagrees with the plain path at {bad}')
+        parta2_gt_rois(model, {**out, 'gt_boxes': vox['gt_boxes']}, ref, tol, tag)
+        return out
+    return check
+
+
+def parta2_head_ms(model, out, generator=None):
+    """The RoI head's parts alone on a forward's output (CUDA events): the
+    two RoI-aware poolings, the two conv branches (cuDNN's 3D convs, TF32
+    off) and the FC towers; in training mode with autograd recording, and
+    then their backward."""
+    from crb_active_3ddet_torch.utils.common import full_f32
+    head = model.roi_head
+    train = head.training
+    with torch.set_grad_enabled(train), full_f32():
+        pooled = head.roiaware_pool(out)
+        merged = head.convs(*pooled)
+        parts = {'pooling': cuda_time_ms(lambda: head.roiaware_pool(out), warmup=1, iters=3),
+                 'conv branches': cuda_time_ms(lambda: head.convs(*pooled), warmup=1, iters=3),
+                 'FC towers': cuda_time_ms(lambda: head.tower(merged, generator), warmup=1,
+                                           iters=3)}
+        if train:
+            def both():
+                m = head.convs(*[p.detach() for p in pooled[:2]], pooled[2])
+                s = sum(t.sum() for t in head.tower(m, generator))
+                s.backward()
+            parts['conv branches + FCs forward and backward'] = cuda_time_ms(both, warmup=1,
+                                                                              iters=3)
+    return parts
+
+
+def parta2_head_trace(model, out, tag):
+    """One training-mode forward and backward of the RoI head's conv branches
+    under torch.profiler: the top device kernels by time, which name the
+    convolution algorithms cuDNN chose."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from crb_active_3ddet_torch.utils.common import full_f32
+    head = model.roi_head
+    with full_f32():
+        part, rpn, mask = head.roiaware_pool(out)
+        head.convs(part, rpn, mask).sum().backward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            head.convs(part, rpn, mask).sum().backward()
+            torch.cuda.synchronize()
+    rows = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)[:6]
+    log(f'{tag} RoI head conv branches {tuple(part.shape[:4])} cells, forward and backward '
+        'under torch.profiler, top device kernels: '
+        + '; '.join(f'{e.key[:90]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms'
+                    for e in rows))
+
+
+def parta2_stages(model, optimizer, cfg, dev, tag, iters=3):
+    """``second_stages`` with peak device memory, then the RoI head's parts
+    (``parta2_head_ms``) on an eval forward of the first val batch and a
+    training forward of the first train batch, and a profiler trace of its
+    conv branches."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    second_stages(model, optimizer, cfg, dev, tag, iters)
+    log(f'{tag} stages: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    parts = {}
+    for mode in ('eval', 'train'):
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                         training=mode == 'train')
+        vox = prepare_device_batch(host_to_device_batch(first_batch(loader), dev), ds.voxel_cfg,
+                                   ds.grid_size, ds.point_cloud_range, ds.voxel_size)
+        gen = torch.Generator(device=dev).manual_seed(0) if mode == 'train' else None
+        model.train(mode == 'train')
+        with torch.no_grad():
+            out = model(vox, gen)
+        out = {k: (v.detach() if torch.is_tensor(v) else v) for k, v in out.items()}
+        parts[mode] = parta2_head_ms(model, out, gen)
+        if mode == 'train':
+            parta2_head_trace(model, out, tag)
+    model.eval()
+    model.zero_grad(set_to_none=True)
+    log(f'{tag} RoI head alone (ms, CUDA events, batch {bs}): '
+        + '; '.join(f'{mode} ' + ', '.join(f'{k} {v:.3f}' for k, v in p.items())
+                    for mode, p in parts.items()))
+
+
+def parta2_rows(prefix, names, test_rec, first, n_test, n_steps, skip_forward=(),
+                skip_backward=(), k1_rows=True):
+    """The kernels timed at one PartA2 path's shapes: K2 forward at the test
+    batch's inputs and its dgrad and wgrad at the first train step's, a row
+    a group of layers with one rulebook and shape (``k2_groups``); the
+    groups that hold a layer of ``skip_forward`` (``skip_backward``) have no
+    forward (dgrad and wgrad) row, since an earlier phase times the same
+    kernel, route and shape: their forward calls are held as a row holds
+    them, untimed, and their backward calls by the train step's
+    ``backward_vs_plain``.  K1's masks at the test NMS and the train
+    proposal NMS and its float entry at the recall and the proposal targets
+    with ``k1_rows``."""
+    groups, _ = k2_groups(names, test_rec['k2'])
+    results = [time_gather_gemm(f'{prefix}.gather_gemm[{"|".join(g)}]', None, f[None], rbk,
+                                n_test * len(g), cdt=f.dtype, weights=w,
+                                timed=not set(g) & set(skip_forward))
+               for g, ((f, rbk, w), _, _) in groups]
+    results = [e for e in results if e is not None]
+    _, back = k2_groups(names, first['rec']['k2'])
+    for kind, timer in (('dgrad', time_dgrad), ('wgrad', time_wgrad)):
+        results += [timer(f'{prefix}_train.gather_gemm_{kind}[{g}]', args, n * n_steps)
+                    for g, args, n in backward_groups(first[kind], back, kind)
+                    if not set(g.split('|')) & set(skip_backward)]
+    if not k1_rows:
+        return results
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
+        results.append(time_mask(f'{prefix}.nms_mask[{name}]', boxes, alive, thresh, n_test,
+                                 fix[2][1], f'{prefix} test {name}'))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap(f'{prefix}.overlap_bev[recall]', a_, b_, n_test,
+                                f'{prefix} test recall'))
+    rec = first['rec']
+    (boxes, alive, thresh), _, _ = rec['mask'][0]
+    results.append(time_mask(f'{prefix}_train.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             n_steps, rec['fix'][0][2][1], f'{prefix} train proposal_nms'))
+    (a_, b_), _, _ = rec['float'][0]
+    results.append(time_overlap(f'{prefix}_train.overlap_bev[roi_targets]', a_, b_, n_steps,
+                                f'{prefix} train roi_targets'))
+    return results
+
+
+def one_step_and_batch(dev, cfg_file, sets, tag, per_step, per_batch, check_f32=False):
+    """One train step (from ``flax_init``) and one test batch of ``cfg_file``
+    with ``--set sets``: the launches exactly, every K1 and K2 call against
+    its plain version (K1 bit for bit; with ``check_f32`` every f32 K2 call
+    bit-equal to its plain version; the step's dgrad and wgrad calls,
+    ``backward_vs_plain``), peak memory.  Returns (the train
+    step's calls as ``held_train_steps`` keeps its first, the test batch's
+    calls, the model, the config, its optimizer)."""
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.models.detectors import build_detector, flax_init
+    from crb_active_3ddet_torch.ops import cuda_kernels
+    from crb_active_3ddet_torch.runtime.eval import make_eval_step
+    from crb_active_3ddet_torch.runtime.optimization import build_optimizer
+    from crb_active_3ddet_torch.runtime.train import (host_to_device_batch, init_train_state,
+                                                      make_train_step)
+    from crb_active_3ddet_torch.tools.train import INIT_SEED, SEED
+    cfg = load_config(cfg_file)
+    cfg_from_list(list(sets), cfg)
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    train_set, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                            training=True, seed=SEED)
+    model = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), train_set, device='cpu')
+    flax_init(model, torch.Generator().manual_seed(INIT_SEED))
+    model = model.to(dev)
+    optimizer, _ = build_optimizer(cfg.OPTIMIZATION, len(loader), model.parameters())
+    step = make_train_step(model, optimizer, train_set)
+    batch = host_to_device_batch(first_batch(loader), dev)
+    rec, dcalls, wcalls = {}, [], []
+    before = counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    with kernel_calls(rec, clone=True), \
+            recording(cuda_kernels, 'gather_gemm_dgrad', dcalls, clone=True), \
+            recording(cuda_kernels, 'gather_gemm_wgrad', wcalls, clone=True):
+        _, metrics = step(init_train_state(model, optimizer), batch,
+                          torch.Generator(device=dev).manual_seed(SEED))
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    made, want = launch_delta(before, **per_step)
+    if made != want:
+        raise RuntimeError(f'{tag} train step launched {made}, expected {want}')
+    loss = float(metrics['loss'])
+    if not np.isfinite(loss):
+        raise RuntimeError(f'{tag} train step loss {loss}')
+    with torch.no_grad():
+        s = calls_vs_plain(rec, f'{tag} train step')
+        k1_calls_exact(rec, f'{tag} train step')
+        n_f32 = k2_f32_exact(rec, f'{tag} train step') if check_f32 else 0
+        backward_vs_plain(dcalls, wcalls, f'{tag} train step')
+    log(f'{tag} train step (batch {bs}, from flax_init): loss {loss:.4f}; {ms:.1f} ms with this '
+        f'script\'s recording; peak device memory {peak / 2**30:.2f} GiB; launches {made}; '
+        + (f'{n_f32} f32 K2 calls bit-equal to their plain versions; ' if check_f32 else '')
+        + summary(s))
+    first = {'rec': rec, 'dgrad': dcalls, 'wgrad': wcalls}
+    if per_batch is None:
+        return first, None, model, cfg, optimizer
+    test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs,
+                                                workers=0, training=False)
+    eval_step = make_eval_step(model, test_set, cfg.MODEL.POST_PROCESSING, len(cfg.CLASS_NAMES))
+    test_rec = {}
+    before = counters()
+    torch.cuda.reset_peak_memory_stats()
+    with kernel_calls(test_rec):
+        preds, _ = eval_step(host_to_device_batch(next(iter(test_loader)), dev))
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    made, want = launch_delta(before, **per_batch)
+    if made != want:
+        raise RuntimeError(f'{tag} test batch launched {made}, expected {want}')
+    if not all(torch.isfinite(v).all() for v in preds.values() if v.is_floating_point()):
+        raise RuntimeError(f'{tag} test batch: non-finite predictions')
+    with torch.no_grad():
+        s = calls_vs_plain(test_rec, f'{tag} test batch')
+        k1_calls_exact(test_rec, f'{tag} test batch')
+        n_f32 = k2_f32_exact(test_rec, f'{tag} test batch') if check_f32 else 0
+    log(f'{tag} test batch: launches {made}; peak device memory {peak / 2**30:.2f} GiB; boxes '
+        f'kept {preds["pred_valid"].sum(-1).tolist()}; '
+        + (f'{n_f32} f32 K2 calls bit-equal to their plain versions; ' if check_f32 else '')
+        + summary(s))
+    return first, test_rec, model, cfg, optimizer
+
+
+def drive_parta2(dev):
+    """PartA2 at its configs' full MODEL and DATA_CONFIG widths:
+    kitti_models/PartA2.yaml over the KITTI phases' tree (``kitti_tree``:
+    40 000 / 16 000 voxels, UNetV2 with K2 bf16 and VOXEL_CAPS and its
+    SparseBasicBlocks f32, batch 4, LR 0.003, G = 12, 128 RoIs a frame in
+    training and 100 at test), cut in depth only (``SECOND_KITTI_DEPTH``):
+    ``tools/train.main`` under ``held_train_steps`` (a step: 28/27/28 K2, 1
+    K1 mask at the TRAIN proposal NMS, 1 K1 float in the proposal targets),
+    ``tools/test.main`` on the kernel and the plain path (a batch: 28 K2, 2
+    K1 masks, 1 K1 float at the recall), the trained model ahead of its
+    NMS with K2 f32 (``f32_ahead_of_nms`` with ``parta2_check``: the RoI
+    head from common RoIs and at the gt boxes), the stages, the RoI head
+    alone and a profiled train step; then waymo_models/PartA2.yaml over the
+    Waymo tree (every layer f32 at 150 000 voxels, batch 2): one train step
+    and one test batch, every f32 K2 call bit-equal to its plain version;
+    kitti_models/PartA2_free.yaml (no BEV branch, the point head's boxes the
+    proposals): one train step and one test batch; VoxelResBackBone8x in
+    kitti_models/second.yaml's MODEL: one train step; the kernels timed at
+    these shapes (``parta2.``, ``parta2_train.``, ``parta2_waymo.``,
+    ``parta2_waymo_train.``, ``parta2_free.``, ``parta2_free_train.``).
+    Returns the kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_parta2_'))
+    root = kitti_tree()
+    key = 'parta2'
+    cfg = load_config(PARTA2_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    names = ENCODER_LAYERS + ['conv_out'] + UNET_DECODER_LAYERS
+    n = len(names)
+    out = work / key
+    args = ['--cfg_file', PARTA2_CFG, '--output_dir', str(out), '--set',
+            'DATA_CONFIG.DATA_PATH', str(root), *PARTA2_KITTI_SETS]
+    vox_cfg = cfg.DATA_CONFIG.DATA_PROCESSOR[-1]
+    head = cfg.MODEL.ROI_HEAD
+    log(f'==== {key}: {PARTA2_CFG} at its widths ({cfg.MODEL.NAME}, {cfg.MODEL.BACKBONE_3D.NAME} '
+        f'({n} sparse convs: K2 bf16 {cfg.MODEL.BACKBONE_3D.USE_BF16} with caps '
+        f'{list(cfg.MODEL.BACKBONE_3D.VOXEL_CAPS)}, its 8 SparseBasicBlock convs f32), '
+        f'{cfg.MODEL.POINT_HEAD.NAME}, {head.NAME} (POOL_SIZE {head.ROI_AWARE_POOL.POOL_SIZE}, '
+        f'{head.TARGET_CONFIG.ROI_PER_IMAGE} RoIs a frame in training, '
+        f'{head.NMS_CONFIG.TEST.NMS_POST_MAXSIZE} at test), voxel buffers '
+        f'{dict(vox_cfg.MAX_NUMBER_OF_VOXELS)}, batch {cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}, LR '
+        f'{cfg.OPTIMIZATION.LR}); cut in depth only: --set {" ".join(PARTA2_KITTI_SETS)} (the '
+        f'file\'s {cfg.OPTIMIZATION.NUM_EPOCHS} epochs; LR 0.003 as the other KITTI phases: the '
+        'file\'s 0.01 overflows a short one-cycle, ROADMAP Queue 3) ====')
+    torch.backends.cudnn.allow_tf32 = True          # as a user runs train.main
+    t = time.perf_counter()
+    with held_train_steps(key, dict(n_k2=n, n_dgrad=n - 1, n_wgrad=n, n_mask=1,
+                                    n_float=1)) as w:
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+    torch.backends.cudnn.allow_tf32 = False
+    steps = w['steps']
+    if len(steps) < 3:
+        raise RuntimeError(f'{key}: train.main ran {len(steps)} steps')
+    log(f'{key} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every K1 '
+        f'and K2 call against its plain version (K1 bit for bit); per step '
+        f'{[round(x["ms"], 1) for x in steps]} ms; peak device memory of a step '
+        f'{max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    test_rec = test_cli_paths(key, PARTA2_CFG, out / 'ckpt' / 'checkpoint_epoch_1.pth', out,
+                              ['DATA_CONFIG.DATA_PATH', str(root)], batch=bs,
+                              per_batch=dict(n_k2=n, n_mask=2, n_float=1))
+    model = state.model
+    f32_ahead_of_nms(model, cfg, dev, key, check=parta2_check(key), layer_names=names)
+    parta2_stages(model, state.optimizer, cfg, dev, key)
+    profiled_train_step(model, state.optimizer, cfg, dev, key)
+    t = time.perf_counter()
+    # (the encoder's K2 rows and K1's: the SECONDNetIoU phase times the same
+    # kernels, routes and shapes, the same encoder and NMS sizes over the tree)
+    encoder = ENCODER_LAYERS + ['conv_out']
+    results = parta2_rows(key, names, test_rec, w['first'], len(test_rec['float']),
+                          len(steps), skip_forward=encoder, skip_backward=encoder,
+                          k1_rows=False)
+    log(f'{key}: {len(results)} timing rows in {time.perf_counter() - t:.1f} s')
+    w.clear()
+    del state, model
+
+    # ---- the Waymo file: every layer f32 at 150 000 voxels ----
+    wkey = 'parta2_waymo'
+    wroot = waymo_tree()
+    wcfg = load_config(PARTA2_WAYMO_CFG)
+    log(f'==== {wkey}: {PARTA2_WAYMO_CFG} at its widths (no USE_BF16: every K2 layer f32, no '
+        f'VOXEL_CAPS, {wcfg.DATA_CONFIG.DATA_PROCESSOR[-1].MAX_NUMBER_OF_VOXELS} voxels, '
+        f'POOL_SIZE {wcfg.MODEL.ROI_HEAD.ROI_AWARE_POOL.POOL_SIZE}, batch '
+        f'{wcfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}); cut: LR 0.003 (the file\'s '
+        f'{wcfg.OPTIMIZATION.LR}), every frame; one train step and one test batch ====')
+    first, wtest, model, wcfg, optimizer = one_step_and_batch(
+        dev, PARTA2_WAYMO_CFG, ('DATA_CONFIG.DATA_PATH', str(wroot), *PARTA2_WAYMO_SETS), wkey,
+        dict(n_k2=n, n_dgrad=n - 1, n_wgrad=n, n_mask=1, n_float=1),
+        dict(n_k2=n, n_mask=2, n_float=1), check_f32=True)
+    parta2_stages(model, optimizer, wcfg, dev, wkey, iters=1)
+    t = time.perf_counter()
+    rows = parta2_rows(wkey, names, wtest, first, 1, 1, skip_forward=PARTA2_WAYMO_SKIP_FORWARD)
+    log(f'{wkey}: {len(rows)} timing rows in {time.perf_counter() - t:.1f} s')
+    results += rows
+    del model
+
+    # ---- PartA2_free: no BEV branch, the point head's boxes the proposals ----
+    fkey = 'parta2_free'
+    fcfg = load_config(PARTA2_FREE_CFG)
+    fnames = ENCODER_LAYERS + UNET_DECODER_LAYERS
+    nf = len(fnames)
+    log(f'==== {fkey}: {PARTA2_FREE_CFG} at its widths ({fcfg.MODEL.NAME} over '
+        f'{fcfg.MODEL.BACKBONE_3D.NAME}, RETURN_ENCODED_TENSOR '
+        f'{fcfg.MODEL.BACKBONE_3D.RETURN_ENCODED_TENSOR}, point head towers '
+        f'{list(fcfg.MODEL.POINT_HEAD.CLS_FC)}, proposals from its {nf}-layer UNet\'s voxels, '
+        f'batch {fcfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}); one train step and one test batch '
+        'over the KITTI tree ====')
+    ffirst, ftest, model, _, _ = one_step_and_batch(
+        dev, PARTA2_FREE_CFG, ('DATA_CONFIG.DATA_PATH', str(root), *SECOND_KITTI_DEPTH), fkey,
+        dict(n_k2=nf, n_dgrad=nf - 1, n_wgrad=nf, n_mask=1, n_float=1),
+        dict(n_k2=nf, n_mask=2, n_float=1))
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), ftest['mask'], ftest['fix']):
+        results.append(time_mask(f'{fkey}.nms_mask[{name}]', boxes, alive, thresh, 1,
+                                 fix[2][1], f'{fkey} test {name}'))
+    rec = ffirst['rec']
+    (boxes, alive, thresh), _, _ = rec['mask'][0]
+    results.append(time_mask(f'{fkey}_train.nms_mask[proposal_nms]', boxes, alive, thresh, 1,
+                             rec['fix'][0][2][1], f'{fkey} train proposal_nms'))
+    del model
+
+    # ---- VoxelResBackBone8x in second.yaml's MODEL ----
+    rkey = 'voxel_res'
+    nr = 19             # conv_input, 7 SparseBasicBlocks of 2, 3 downsamples, conv_out
+    log(f'==== {rkey}: {PARTA2_RES_CFG} with --set MODEL.BACKBONE_3D.NAME VoxelResBackBone8x '
+        '(K2 bf16 at its strided layers, f32 in its SparseBasicBlocks); one train step over '
+        'the KITTI tree ====')
+    rfirst, _, model, _, _ = one_step_and_batch(
+        dev, PARTA2_RES_CFG, ('DATA_CONFIG.DATA_PATH', str(root), 'MODEL.BACKBONE_3D.NAME',
+                              'VoxelResBackBone8x', *SECOND_KITTI_DEPTH), rkey,
+        dict(n_k2=nr, n_dgrad=nr - 1, n_wgrad=nr), None)
+    dtypes = sorted({str(f.dtype) for (f, _, _), _, _ in rfirst['rec']['k2']})
+    if dtypes != ['torch.bfloat16', 'torch.float32']:
+        raise RuntimeError(f'{rkey}: K2 ran {dtypes}, expected both routes')
+    with torch.no_grad():
+        n_f32 = k2_f32_exact(rfirst['rec'], f'{rkey} train step')
+    log(f'{rkey}: both K2 routes in one step, {n_f32} f32 calls bit-equal to their plain '
+        'versions')
+    del model
     shutil.rmtree(work)
     return results
 
@@ -6288,8 +6932,10 @@ def main():
 
     results = phase('SECOND eval', drive_path, SECOND_CFG, dev, '', ['nms'], ['recall'],
                     n_iter=5)
+    # (PV-RCNN's K2 rows off here and in its train phase: SECOND's train
+    # phase times the same kernel, route and shapes, ``train.``)
     results += phase('PV-RCNN eval', drive_path, PVRCNN_CFG, dev, 'pvrcnn.',
-                     ['proposal_nms', 'nms'], ['recall'], n_iter=5)
+                     ['proposal_nms', 'nms'], ['recall'], n_iter=5, k2_rows=False)
     results += phase('PointPillars eval', drive_path, PILLAR_CFG, dev, 'pointpillar.', ['nms'],
                      ['recall'], n_iter=5)
     phase('PV-RCNN OpenPCDet import and test CLI', drive_pvrcnn_import, dev)
@@ -6297,7 +6943,7 @@ def main():
     phase('SECOND train CLI', drive_train_cli, dev)
     # PV-RCNN trains from the JAX package's box layer init (init_weights)
     results += phase('PV-RCNN train', drive_train, dev, PVRCNN_CFG, 'pvrcnn_train.',
-                     PVRCNN_TRAIN_TOL, box_std=0.001)
+                     PVRCNN_TRAIN_TOL, box_std=0.001, k2_rows=False)
     phase('PointPillars train', drive_train, dev, PILLAR_CFG, 'pointpillar_train.',
           TRAIN_TOL)                                             # no kernel to list
     phase('mask stress', mask_stress, dev)
@@ -6312,7 +6958,9 @@ def main():
     # one round and 16 scenes (a pool of 8, K1·N: the PV-RCNN, KITTI, Waymo
     # and PointPillars CRB phases run the same query), to keep the script
     # within its time
-    results += phase('SECOND CRB', drive_crb, dev, rounds=1, scenes=16)
+    # (its MC scan's K2 rows off: the AL loop's scan rows time the same
+    # kernel, route and shape)
+    results += phase('SECOND CRB', drive_crb, dev, rounds=1, scenes=16, scan_rows=False)
     results += phase('PV-RCNN AL loop', drive_pvrcnn_active, dev)
     results += phase('PV-RCNN CRB', drive_pvrcnn_crb, dev)
     results += phase('KITTI: PV-RCNN CRB at the paper\'s config', drive_kitti, dev)
@@ -6324,6 +6972,8 @@ def main():
                      drive_waymo_centerpoint, dev)
     results += phase('VoxelRCNN (voxel_rcnn_car on KITTI, voxel_rcnn_with_centerhead_dyn_voxel '
                      'on Waymo) at the files\' widths', drive_voxel_rcnn, dev)
+    results += phase('PartA2 (PartA2 on KITTI and Waymo, PartA2_free, VoxelResBackBone8x) at '
+                     'the files\' widths', drive_parta2, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16
     # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the
@@ -6338,7 +6988,9 @@ def main():
     with tempfile.TemporaryDirectory() as gate_dir:
         phase('gate 1', gate_1, dev)
         phase('gate 2', gate_2, dev, gate_dir)
-    log(f'whole script: {time.perf_counter() - t0:.1f} s wall after the imports')
+    log(f'whole script: {time.perf_counter() - t0:.1f} s wall after the imports; the f32 '
+        f'checks built {FMA_CHAIN_S[0]} ascending fmaf chains (where cuBLAS split the '
+        f'matmul\'s sums) in {FMA_CHAIN_S[1]:.1f} s of it')
 
     log(json.dumps({'kernels': results}))
     log(json.dumps({'ok': True, 'device': {

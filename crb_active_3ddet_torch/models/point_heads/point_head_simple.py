@@ -75,7 +75,11 @@ class PointHeadSimple(nn.Module):
 
 
 def build_point_head(model_cfg, num_class, pfe):
-    """``pfe`` gives the width of the point features the head reads."""
+    """``pfe`` gives the width of the point features the head reads: PV-RCNN's
+    keypoint branch, or UNetV2 (PartA2's part head)."""
+    if model_cfg['NAME'] == 'PointIntraPartOffsetHead':
+        from .point_head_box import PointIntraPartOffsetHead
+        return PointIntraPartOffsetHead(model_cfg, num_class, pfe.num_point_features)
     if model_cfg['NAME'] == 'PointHeadSimple':
         before = model_cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
         return PointHeadSimple(

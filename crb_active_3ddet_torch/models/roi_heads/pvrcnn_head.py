@@ -77,12 +77,17 @@ class PVRCNNHead(nn.Module):
             [shared[-1], *model_cfg['REG_FC']], nn.Conv1d, nn.BatchNorm1d,
             dropout_after=(0,), dp_ratio=dp,
             out_channels=rht._CODER.code_size * num_class)
-        nn.init.normal_(self.cls_layers[-1].weight, std=0.001)
-        nn.init.normal_(self.reg_layers[-1].weight, std=0.001)
+        for w in self.small_init_weights:
+            nn.init.normal_(w, std=0.001)
         self.mc_rounds = int(model_cfg.get('SAMPLING_ROUND', 0) or 0)
         if model_cfg.get('LOSS_NET', None):
             self.loss_net = LossNet(
                 shared, model_cfg['NMS_CONFIG']['TEST']['NMS_POST_MAXSIZE'])
+
+    @property
+    def small_init_weights(self):
+        """The output kernels that JAX draws normal(0, 0.001)."""
+        return (self.cls_layers[-1].weight, self.reg_layers[-1].weight)
 
     def _dropouts(self):
         return [m for stack in (self.shared_fc_layer, self.cls_layers, self.reg_layers)
@@ -184,7 +189,8 @@ def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
     """CLASS_AGNOSTIC RoI heads score one class.  ``input_channels``: the
     keypoint features' width (PVRCNNHead) or the BEV map's (SECONDHead, which
     also takes the voxel size and the point cloud range); VoxelRCNNHead
-    reads the sparse backbone's stages, of ``backbone_channels`` widths."""
+    reads the sparse backbone's stages, of ``backbone_channels`` widths;
+    PartA2FCHead UNetV2's voxel features, ``input_channels`` wide."""
     nc = 1 if model_cfg.get('CLASS_AGNOSTIC', True) else num_class
     if model_cfg['NAME'] == 'PVRCNNHead':
         return PVRCNNHead(model_cfg, input_channels, num_class=nc)
@@ -192,6 +198,9 @@ def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
         from .second_head import SECONDHead
         return SECONDHead(model_cfg, input_channels, num_class=nc, voxel_size=voxel_size,
                           point_cloud_range=point_cloud_range)
+    if model_cfg['NAME'] == 'PartA2FCHead':
+        from .parta2_head import PartA2FCHead
+        return PartA2FCHead(model_cfg, input_channels, num_class=nc)
     if model_cfg['NAME'] == 'VoxelRCNNHead':
         from .voxelrcnn_head import VoxelRCNNHead
         return VoxelRCNNHead(model_cfg, backbone_channels, num_class=nc,

@@ -1,4 +1,4 @@
-"""Box coder (torch). Port of ``ResidualCoder`` from
+"""Box coders (torch). Ports of ``ResidualCoder`` and ``PointResidualCoder`` from
 ``crb_active_3ddet_tpu/utils/box_coder.py`` (reference
 ``pcdet/utils/box_coder_utils.py:5-78``): ``decode`` for the predictions,
 ``encode`` for the training targets."""
@@ -67,3 +67,50 @@ class ResidualCoder:
         extra = [cts[..., i:i + 1] + anchors[..., 7 + i:8 + i]
                  for i in range(cts.shape[-1])]
         return torch.cat([xg, yg, zg, dxg, dyg, dzg, rg, *extra], dim=-1)
+
+
+class PointResidualCoder:
+    """Point-anchored box coder (JAX ``utils/box_coder.py:80``, reference
+    ``box_coder_utils.py:147-200``): the point heads' 8-value code
+    [dx, dy, dz, log dims, cos, sin].  With ``use_mean_size`` the offsets
+    are scaled by the class's mean size, indexed ``mean_size[class − 1]``
+    (class 0 wraps to the last class, as in the JAX coder)."""
+
+    def __init__(self, code_size=8, use_mean_size=True, **kwargs):
+        self.code_size = code_size
+        self.use_mean_size = use_mean_size
+        if self.use_mean_size:
+            self.mean_size = torch.tensor(kwargs['mean_size'], dtype=torch.float32)
+
+    def _mean(self, classes):
+        return self.mean_size.to(classes.device)[classes.long() - 1].unbind(-1)
+
+    def encode(self, gt_boxes, points, gt_classes=None):
+        xg, yg, zg, dxg, dyg, dzg, rg = gt_boxes[..., :7].unbind(-1)
+        dxg, dyg, dzg = (torch.clamp(d, min=1e-5) for d in (dxg, dyg, dzg))
+        xa, ya, za = points[..., :3].unbind(-1)
+        if self.use_mean_size:
+            dxa, dya, dza = self._mean(gt_classes)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            t = [(xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
+                 torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza)]
+        else:
+            t = [xg - xa, yg - ya, zg - za, torch.log(dxg), torch.log(dyg), torch.log(dzg)]
+        return torch.stack(t + [torch.cos(rg), torch.sin(rg)], dim=-1)
+
+    def decode(self, box_encodings, points, pred_classes=None):
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = box_encodings[..., :8].unbind(-1)
+        xa, ya, za = points[..., :3].unbind(-1)
+        if self.use_mean_size:
+            dxa, dya, dza = self._mean(pred_classes)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            b = [xt * diagonal + xa, yt * diagonal + ya, zt * dza + za,
+                 torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza]
+        else:
+            b = [xt + xa, yt + ya, zt + za, torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)]
+        return torch.stack(b + [torch.atan2(sint, cost)], dim=-1)
+
+
+def build_box_coder(name, **kwargs):
+    return {'ResidualCoder': ResidualCoder, 'PointResidualCoder': PointResidualCoder}[name](
+        **kwargs)

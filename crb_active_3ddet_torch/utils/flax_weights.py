@@ -34,6 +34,13 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     ``{shared,cls,reg}_fc_{i}`` / ``_fc_bn_{i}`` → ``roi_head.shared_fc_layer``,
     ``cls_fc_layers``, ``reg_fc_layers`` (Linear); ``cls_pred`` /
     ``reg_pred`` → ``roi_head.cls_pred_layer`` / ``reg_pred_layer``.
+  * VoxelResBackBone8x and UNetV2: the Flax layers counted per class in
+    the JAX module's instantiation order (``backbone_3d_order``): a
+    ``SparseBasicBlock_n`` → ``{name}.conv{1,2}`` / ``bn{1,2}``, a
+    ``SparseInverseConvLayer_n`` → ``inv_conv{level}.{0,1}``.
+  * PartA2: the point head's towers (``cls_layers``, ``part_reg_layers``,
+    ``box_layers``) and PartA2FCHead (``part_head_from_flax``; its dense
+    conv kernels kept as (3, 3, 3, Cin, Cout)).
   * AnchorHeadMulti: ``shared_conv`` / ``shared_bn`` → ``dense_head.shared_conv.{0,1}``;
     ``head{h}_conv_cls`` / ``_conv_box`` / ``_conv_dir`` →
     ``dense_head.rpn_heads.{h}.conv_cls`` / ``conv_box`` / ``conv_dir_cls``;
@@ -65,6 +72,31 @@ VOXEL8X_ORDER = [
     'conv4.0', 'conv4.1', 'conv4.2',
     'conv_out',
 ]
+# UNetV2's decoder after its encoder, in the JAX module's instantiation
+# order (``ur_block`` level 4 to 1), each with its Flax class
+UNET_DECODER = [
+    (name, cls) for level in (4, 3, 2, 1) for name, cls in (
+        (f'conv_up_t{level}', 'SparseBasicBlock'), (f'conv_up_m{level}', 'SparseConvLayer'),
+        (f'inv_conv{level}', 'SparseInverseConvLayer') if level > 1
+        else ('conv5.0', 'SparseConvLayer'))]
+# the strided layers of VoxelBackBone8x: the rest are VoxelResBackBone8x's blocks
+STRIDED = ('conv_input', 'conv2.0', 'conv3.0', 'conv4.0', 'conv_out')
+
+
+def backbone_3d_order(model_cfg):
+    """[(port module name, Flax class)] of the 3D backbone's layers in the
+    JAX module's instantiation order; Flax names each ``{class}_{n}`` with
+    a counter per class."""
+    name = model_cfg['BACKBONE_3D']['NAME']
+    plain = [(n, 'SparseConvLayer') for n in VOXEL8X_ORDER]
+    if name == 'VoxelResBackBone8x':
+        return [(n, 'SparseConvLayer' if n in STRIDED else 'SparseBasicBlock')
+                for n in VOXEL8X_ORDER]
+    if name == 'UNetV2':
+        if not model_cfg['BACKBONE_3D'].get('RETURN_ENCODED_TENSOR', True):
+            plain = plain[:-1]
+        return plain + UNET_DECODER
+    return plain
 
 
 def conv2d_from_flax(w):
@@ -120,6 +152,72 @@ def _fc_stack(sd, prefix, params, stats, name, n_layers, dropout_after, out=None
         sd[f'{prefix}.{pos}.bias'] = params[out]['bias']
 
 
+def backbone_3d_from_flax(sd, p3, s3, model_cfg):
+    """The sparse backbone's layers: a ``SparseConvLayer_n`` (or
+    ``SparseInverseConvLayer_n``) → ``{name}.0.weight`` and ``{name}.1``; a
+    ``SparseBasicBlock_n``'s two layers → ``{name}.conv{1,2}.weight`` and
+    ``{name}.bn{1,2}``."""
+    count = {}
+    for name, cls in backbone_3d_order(model_cfg):
+        n = count[cls] = count.get(cls, -1) + 1
+        p, st = p3[f'{cls}_{n}'], s3[f'{cls}_{n}']
+        if cls == 'SparseBasicBlock':
+            for j in (1, 2):
+                q, sq = p[f'SparseConvLayer_{j - 1}'], st[f'SparseConvLayer_{j - 1}']
+                sd[f'backbone_3d.{name}.conv{j}.weight'] = q['kernel']
+                _bn(sd, f'backbone_3d.{name}.bn{j}', q['MaskedBatchNorm_0'],
+                    sq['MaskedBatchNorm_0'])
+        else:
+            sd[f'backbone_3d.{name}.0.weight'] = p['kernel']
+            _bn(sd, f'backbone_3d.{name}.1', p['MaskedBatchNorm_0'], st['MaskedBatchNorm_0'])
+
+
+def part_head_from_flax(sd, params, batch_stats, model_cfg):
+    """PartA2's point head (``Dense_i`` / ``BatchNorm_i`` counted across its
+    towers in call order: cls, part, box) and RoI head (``conv_part_i`` /
+    ``conv_rpn_i`` (a (3, 3, 3, Cin, Cout) kernel and ``MaskedBatchNorm_0``)
+    → ``roi_head.conv_part.{i}.{0,1}``; ``shared_fc_i`` / ``shared_bn_i`` →
+    ``roi_head.shared_fc_layer`` (Linear); ``{cls,reg}_i`` / ``_bn_i`` +
+    ``_out`` → ``roi_head.{cls,reg}_layers``, whose p = 0 Dropout after
+    the first block shifts the later indices)."""
+    ph, sph = params['point_head'], batch_stats.get('point_head', {})
+    head = model_cfg['POINT_HEAD']
+    k = n = 0                    # the Dense and the BatchNorm counters
+    for stack, fcs in (('cls_layers', head.get('CLS_FC', [])),
+                       ('part_reg_layers', head.get('PART_FC', [])),
+                       ('box_layers', head.get('REG_FC', None))):
+        if fcs is None or (stack == 'box_layers' and not fcs):
+            continue
+        for j in range(len(fcs)):
+            sd[f'point_head.{stack}.{3 * j}.weight'] = _dense(ph[f'Dense_{k}']['kernel'])
+            _bn(sd, f'point_head.{stack}.{3 * j + 1}', ph[f'BatchNorm_{n}'],
+                sph[f'BatchNorm_{n}'])
+            k, n = k + 1, n + 1
+        sd[f'point_head.{stack}.{3 * len(fcs)}.weight'] = _dense(ph[f'Dense_{k}']['kernel'])
+        sd[f'point_head.{stack}.{3 * len(fcs)}.bias'] = ph[f'Dense_{k}']['bias']
+        k += 1
+
+    roi_cfg = model_cfg['ROI_HEAD']
+    rh, srh = params['roi_head'], batch_stats['roi_head']
+    for branch in ('conv_part', 'conv_rpn'):
+        for i in range(2):
+            sd[f'roi_head.{branch}.{i}.0.weight'] = rh[f'{branch}_{i}']['kernel']
+            _bn(sd, f'roi_head.{branch}.{i}.1', rh[f'{branch}_{i}']['MaskedBatchNorm_0'],
+                srh[f'{branch}_{i}']['MaskedBatchNorm_0'])
+    n = len(roi_cfg['SHARED_FC'])
+    _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n,
+              range(n - 1) if float(roi_cfg.get('DP_RATIO', 0.3)) > 0 else (), extra_dims=0)
+    for tower in ('cls', 'reg'):
+        pos = 0
+        for j in range(len(roi_cfg[f'{tower.upper()}_FC'])):
+            sd[f'roi_head.{tower}_layers.{pos}.weight'] = _dense(rh[f'{tower}_{j}']['kernel'])
+            _bn(sd, f'roi_head.{tower}_layers.{pos + 1}', rh[f'{tower}_bn_{j}'],
+                srh[f'{tower}_bn_{j}'])
+            pos += 3 + (j == 0)
+        sd[f'roi_head.{tower}_layers.{pos}.weight'] = _dense(rh[f'{tower}_out']['kernel'])
+        sd[f'roi_head.{tower}_layers.{pos}.bias'] = rh[f'{tower}_out']['bias']
+
+
 def _point_branch(sd, params, batch_stats, model_cfg):
     """PV-RCNN's pfe, point_head and roi_head."""
     pfe, spfe = params['pfe'], batch_stats['pfe']
@@ -137,7 +235,7 @@ def _point_branch(sd, params, batch_stats, model_cfg):
     _bn(sd, 'pfe.vsa_point_feature_fusion.1', pfe['BatchNorm_0'],
         spfe['BatchNorm_0'])
 
-    ph, sph = params['point_head'], batch_stats['point_head']
+    ph, sph = params['point_head'], batch_stats.get('point_head', {})
     n = len(model_cfg['POINT_HEAD']['CLS_FC'])
     for j in range(n):
         sd[f'point_head.cls_layers.{3 * j}.weight'] = _dense(ph[f'Dense_{j}']['kernel'])
@@ -295,30 +393,29 @@ def pillar_vfe_from_flax(sd, params, batch_stats):
 
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
-    """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint, VoxelRCNN or
-    PVRCNN variables → port ``state_dict`` (torch tensors).  The two-stage
-    models need ``model_cfg`` (the MODEL node): the Flax names of the point
-    branch do not say where one MLP ends and the next begins, nor those of
-    an FC tower where its Dropout entries stand, nor VoxelRCNN's the order
-    of its sources."""
+    """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint, VoxelRCNN,
+    PVRCNN or PartA2 variables → port ``state_dict`` (torch tensors).  The
+    two-stage models and the backbones other than VoxelBackBone8x need
+    ``model_cfg`` (the MODEL node): the Flax names of the point branch do
+    not say where one MLP ends and the next begins, nor those of an FC tower
+    where its Dropout entries stand, nor VoxelRCNN's the order of its
+    sources, nor a sparse backbone's which layer is which."""
     sd = {}
     if 'vfe' in params:
         pillar_vfe_from_flax(sd, params, batch_stats)
     if 'pfe' in params:
         _point_branch(sd, params, batch_stats, model_cfg)
+    elif 'conv_part_0' in params.get('roi_head', {}):
+        part_head_from_flax(sd, params, batch_stats, model_cfg)
     elif 'cls_pred' in params.get('roi_head', {}):
         voxelrcnn_head_from_flax(sd, params, batch_stats, model_cfg)
     elif 'roi_head' in params:
         second_head_from_flax(sd, params, batch_stats, model_cfg)
     if 'backbone_3d' in params:
-        p3, s3 = params['backbone_3d'], batch_stats['backbone_3d']
-        for i, name in enumerate(VOXEL8X_ORDER):
-            layer = f'SparseConvLayer_{i}'
-            sd[f'backbone_3d.{name}.0.weight'] = p3[layer]['kernel']
-            _bn(sd, f'backbone_3d.{name}.1', p3[layer]['MaskedBatchNorm_0'],
-                s3[layer]['MaskedBatchNorm_0'])
+        backbone_3d_from_flax(sd, params['backbone_3d'], batch_stats['backbone_3d'],
+                              model_cfg or {'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'}})
 
-    p2, s2 = params['backbone_2d'], batch_stats['backbone_2d']
+    p2, s2 = params.get('backbone_2d', {}), batch_stats.get('backbone_2d', {})
     i = 0
     while f'_ConvBlock_{i}' in p2:
         blk, sblk = p2[f'_ConvBlock_{i}'], s2[f'_ConvBlock_{i}']
@@ -339,7 +436,8 @@ def flax_to_state_dict(params, batch_stats, model_cfg=None):
             sblk['BatchNorm_0'])
         i += 1
 
-    dense_head_from_flax(sd, params, batch_stats)
+    if 'dense_head' in params:
+        dense_head_from_flax(sd, params, batch_stats)
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 

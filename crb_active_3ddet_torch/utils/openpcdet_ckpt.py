@@ -7,9 +7,15 @@ map_openpcdet_state`` and ``:834 import_openpcdet_checkpoint`` (reference
 (``VoxelBackBone8x``, BEV, ``AnchorHeadSingle``), SECOND-IoU (``SECONDHead``),
 PointPillars (``PillarVFE``), CenterPoint (``CenterHead``, ``DynPillarVFE``),
 VoxelRCNN (``VoxelRCNNHead``; after ``torch_ckpt.py:668
-_map_voxelrcnn_roi_head``) and PV-RCNN (voxel set abstraction, point head,
-PV-RCNN head, and a CenterHead RPN).  Another family raises, naming ROADMAP
-Queue 1 item 14 (14e-14h are to come), and so does ``AnchorHeadMulti``: under
+_map_voxelrcnn_roi_head``), PV-RCNN (voxel set abstraction, point head,
+PV-RCNN head, and a CenterHead RPN) and PartA2 (``UNetV2``, the part head,
+``PartA2FCHead``; ``PartA2Net`` and a ``PointRCNN`` over UNetV2, i.e.
+PartA2_free).  Another family raises, naming ROADMAP Queue 1 item 14
+(14f-14h are to come), and so does ``VoxelResBackBone8x``: the JAX
+package's (and so the port's) has OpenPCDet's plain stage widths, one block
+in conv1 and 64 channels in conv4, where OpenPCDet's has two blocks in conv1
+and 128 channels in conv4, so its conv4 and conv_out kernels have other
+shapes and conv1.1 has no target.  ``AnchorHeadMulti`` raises too: under
 ``SEPARATE_MULTIHEAD`` an OpenPCDet head predicts its own classes only, the
 JAX head (and so the port's) every class, so their cls layers have other
 shapes and no weight maps across exactly; and a CenterHead of more than
@@ -33,9 +39,15 @@ own name; its layout is changed only where the two differ:
     the permutation.)  SECONDHead's: OpenPCDet's ``grid_sample`` output
     (B·R, C, G_y, G_x) flattened, against the port's (G_x, G_y, C)
     (``crb_active_3ddet_tpu/models/roi_heads/second_head.py:64``).
-    VoxelRCNNHead's is not permuted: OpenPCDet flattens its (B·R, G³, C)
+    PartA2FCHead's: OpenPCDet's ``.dense()`` of the merged sparse tensor is
+    (B·R, C, X, Y, Z), viewed as C·G³; the port's (as the JAX head's) is
+    (B·R, X, Y, Z, C), G³·C.  VoxelRCNNHead's is not permuted: OpenPCDet flattens its (B·R, G³, C)
     pooled grid grid-major too (its ``roi_grid_pool_layers`` and FC towers
     carry the port's names and shapes: Conv1d / Conv2d k=1 and Linear).
+  * PartA2FCHead's ``conv_part`` / ``conv_rpn`` kernels: OpenPCDet's
+    sparse convs over the RoI grid, in any shipped orientation as above,
+    become the port's dense (3, 3, 3, Cin, Cout) kernels over the grid's
+    (x, y, z) axes, as the JAX importer's ``_t_spconv_dense`` does.
   * BatchNorm weights and running statistics, ``num_batches_tracked``
     included, are copied.
   * CenterHead's branches: OpenPCDet's ``heads_list.0.{branch}.0`` is conv
@@ -56,7 +68,8 @@ from __future__ import annotations
 
 import torch
 
-FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'CenterPoint', 'VoxelRCNN', 'PVRCNN')
+FAMILIES = ('SECONDNet', 'SECONDNetIoU', 'PointPillar', 'CenterPoint', 'VoxelRCNN', 'PVRCNN',
+            'PartA2Net', 'PointRCNN')
 SHARED_FC = 'roi_head.shared_fc_layer.0.weight'
 
 
@@ -64,10 +77,18 @@ def check_family(model_cfg):
     """Raise unless the port can import an OpenPCDet checkpoint of the
     model that ``model_cfg`` (the MODEL node) describes."""
     name = model_cfg['NAME']
-    if name not in FAMILIES:
+    backbone = (model_cfg.get('BACKBONE_3D', None) or {}).get('NAME')
+    if name not in FAMILIES or (name == 'PointRCNN' and backbone != 'UNetV2'):
         raise NotImplementedError(
-            f'OpenPCDet import of {name}: the port imports {", ".join(FAMILIES)}; '
-            'the rest of the model zoo comes with ROADMAP Queue 1 item 14 (14e-14h)')
+            f'OpenPCDet import of {name} ({backbone}): the port imports '
+            f'{", ".join(FAMILIES)} (PointRCNN over UNetV2 only); the rest of the model zoo '
+            'comes with ROADMAP Queue 1 item 14 (14f-14h)')
+    if backbone == 'VoxelResBackBone8x':
+        raise NotImplementedError(
+            'OpenPCDet import of VoxelResBackBone8x: the port\'s (as the JAX package\'s) keeps '
+            'VoxelBackBone8x\'s shape, one SparseBasicBlock in conv1 and 64 channels in '
+            'conv4, where OpenPCDet\'s has two blocks in conv1 and 128 channels in conv4 (and '
+            'conv_out 128 -> 128), so those kernels have other shapes')
     head = model_cfg.get('DENSE_HEAD', None) or {}
     if head.get('NAME') == 'CenterHead' and len(head.get('CLASS_NAMES_EACH_HEAD', [[]])) > 1:
         raise NotImplementedError(
@@ -83,9 +104,9 @@ def check_family(model_cfg):
 
 def shared_fc_layout(model):
     """(grid points, OpenPCDet's grid axes reversed) of ``model``'s RoI head's
-    pooled grid: PV-RCNN's G³ in one order, SECONDHead's G² with (G_y, G_x)
-    against the port's (G_x, G_y); None without a RoI head or where the
-    layouts agree (VoxelRCNNHead)."""
+    pooled grid: PV-RCNN's and PartA2FCHead's G³ in one order, SECONDHead's
+    G² with (G_y, G_x) against the port's (G_x, G_y); None without a RoI head
+    or where the layouts agree (VoxelRCNNHead)."""
     roi_head = getattr(model, 'roi_head', None)
     if roi_head is None or model.model_cfg['ROI_HEAD']['NAME'] == 'VoxelRCNNHead':
         return None
@@ -170,9 +191,11 @@ def _squeeze_trailing(shape):
 
 def _convert(key, src, tgt, layout):
     """``src`` in the target's layout, or None when no rule makes it fit."""
-    if tgt.ndim == 3 and src.ndim == 5 and key.startswith('backbone_3d.'):
+    if src.ndim == 5 and (tgt.ndim == 3 and key.startswith('backbone_3d.')
+                          or tgt.ndim == 5 and key.startswith(('roi_head.conv_part.',
+                                                               'roi_head.conv_rpn.'))):
         try:
-            return spconv_kernel(src, tgt.shape[1], tgt.shape[2])
+            return spconv_kernel(src, tgt.shape[-2], tgt.shape[-1]).reshape(tgt.shape)
         except ValueError:
             return None
     if key == SHARED_FC and layout and src.numel() == tgt.numel():
@@ -192,7 +215,7 @@ def map_openpcdet_state(sd, model):
     ((name, source shape, target shape) skipped), ``unmatched_target``
     (targets kept) and ``unused_source`` (source names the model lacks)."""
     check_family(model.model_cfg)
-    if model.model_cfg['DENSE_HEAD']['NAME'] == 'CenterHead':
+    if (model.model_cfg.get('DENSE_HEAD', None) or {}).get('NAME') == 'CenterHead':
         sd = fold_center_branches(sd)
     layout = shared_fc_layout(model)
     target = {k: v.detach().cpu() for k, v in model.state_dict().items()}
