@@ -214,7 +214,18 @@ Run from the root of a checkout.  It
      layer f32 at 150 000 voxels, bit-equal), PartA2_free's (the point
      head's boxes as proposals) and VoxelResBackBone8x's step; the kernels
      at these shapes (``parta2.``, ``parta2_train.``, ``parta2_waymo.``,
-     ``parta2_waymo_train.``, ``parta2_free.``, ``parta2_free_train.``).
+     ``parta2_waymo_train.``, ``parta2_free.``, ``parta2_free_train.``);
+ 19. PointRCNN (``drive_pointrcnn``) at its files' widths:
+     pointrcnn.yaml over the shipped points-only data path (no voxel
+     processor, 16 384 sampled points a frame) through ``tools/train.main``
+     and ``tools/test.main`` over 14's tree (a step: 6 FPS launches, the
+     backbone's 4 and the RoI encoder's 2, 1 K1 mask, 1 K1 float), every K1
+     call bit for bit and every K3 call equal to its plain version, the f32
+     check of the point head and of the RoI head from common RoIs and at
+     the gt boxes, the stages, the backbone's and RoI head's parts (FPS,
+     ball query, three-NN apart) and a profiled train step;
+     pointrcnn_iou.yaml's train step and test batch; the kernels at these
+     shapes (``pointrcnn.``, ``pointrcnn_train.``, ``pointrcnn_iou.``).
      Each phase prints its wall time.
 Any failed check raises.  The last line is the device JSON; the line before
 it holds the per-kernel measurements.  Exits non-zero without a CUDA card.
@@ -1194,7 +1205,11 @@ def time_fps(name, points, valid, k, n_launch):
                    'crb_active_3ddet_tpu/ops/pallas_kernels.py:148', n_launch, err, ms,
                    plain_ms, nbytes, (k - 1) * n_valid * FPS_OPS_PER_POINT_STEP,
                    PEAK[torch.float32])
-    log(f'{name} ({b}, {n}) -> {k}, valid points a frame {valid.sum(1).tolist()}: equal to '
+    counts = valid.sum(1).tolist()
+    if b > 16:          # the RoI head's frames: a summary
+        counts = (f'{min(counts)}-{max(counts)} over {b} frames, '
+                  f'{sum(c == 0 for c in counts)} empty')
+    log(f'{name} ({b}, {n}) -> {k}, valid points a frame {counts}: equal to '
         f'the plain version (also at '
         f'{len(FPS_SMALL)} other shapes, N = 1 up to the capacity '
         f'{cuda_fps.max_points()}, random and snapped, at {swept}); fewest distinct '
@@ -1441,7 +1456,8 @@ def check_train_kernel_path(model, vox, mode, tols):
     hand-written kernels sum in a fixed order already); ``mode`` 'bf16' as
     configured, 'f32' with USE_BF16 off in both backbones; ``tols`` the
     limits by mode."""
-    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
+    cfgs = tuple(getattr(model, n).model_cfg for n in ('backbone_3d', 'backbone_2d')
+                 if hasattr(model, n))
     saved = [c.get('USE_BF16', False) for c in cfgs]
     for c in cfgs:
         c['USE_BF16'] = mode == 'bf16'
@@ -4782,7 +4798,8 @@ def f32_ahead_of_nms(model, cfg, dev, tag, each=None, check=check_kernel_path,
     test_set, test_loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
                                                 training=False)
     model.eval()
-    cfgs = (model.backbone_3d.model_cfg, model.backbone_2d.model_cfg)
+    cfgs = tuple(getattr(model, n).model_cfg for n in ('backbone_3d', 'backbone_2d')
+                 if hasattr(model, n))
     saved = [c.get('USE_BF16', False) for c in cfgs]
     k2_apart = []
     try:
@@ -6892,6 +6909,234 @@ def drive_parta2(dev):
     return results
 
 
+POINTRCNN_CFG = 'tools/cfgs/kitti_models/pointrcnn.yaml'
+POINTRCNN_IOU_CFG = 'tools/cfgs/kitti_models/pointrcnn_iou.yaml'
+# the launches of a PointRCNN train step and test batch: FPS at the
+# backbone's 4 SA levels and the RoI encoder's 2; K1's mask at the proposal
+# NMS (and at test the final NMS), its float entry in the proposal targets
+# (at test the recall)
+POINTRCNN_STEP = dict(n_fps=6, n_mask=1, n_float=1)
+POINTRCNN_BATCH = dict(n_fps=6, n_mask=2, n_float=1)
+POINT_KEYS = ('point_features', 'point_coords', 'point_valid', 'point_cls_scores')
+
+
+def pointrcnn_check(tag):
+    """A ``check`` for ``f32_ahead_of_nms``: the same batch on the plain
+    path, held against the kernel path at ``tol`` ahead of any NMS: the
+    backbone's point features and the point head's outputs (the FPS picks
+    equal, so the same points); the RoI head from the kernel path's RoIs on
+    both paths' point features (a near-tie of the proposal NMS may keep
+    other RoIs) and at the batch's gt boxes (a seeded or briefly trained
+    model's proposals may pool no point)."""
+    def check(model, vox, tol):
+        head = model.roi_head
+        with torch.no_grad():
+            out = model(vox)
+            rois = out['rois']
+            gt = {'rois': vox['gt_boxes'][..., :7].contiguous()}
+            at_gt = head({k: out[k] for k in POINT_KEYS} | gt)
+            with plain_versions():
+                ref = model(vox)
+                roi_ref = head({k: ref[k] for k in POINT_KEYS} | {'rois': rois})
+                gt_ref = head({k: ref[k] for k in POINT_KEYS} | gt)
+            _, empty = head.roipoint_pool({k: out[k] for k in POINT_KEYS} | gt)
+        real = (gt['rois'].abs().sum(-1) > 0).reshape(-1)
+        cmp = {k: (out[k], ref[k]) for k in ('point_features', 'point_cls_preds',
+                                              'point_box_preds_raw')}
+        cmp.update({k: (out[k], roi_ref[k]) for k in ('rcnn_cls', 'rcnn_reg',
+                                                      'batch_box_preds')})
+        cmp.update({f'{k} at the gt boxes': (at_gt[k], gt_ref[k]) for k in ('rcnn_cls',
+                                                                           'rcnn_reg')})
+        errs = {}
+        for k, (a, b) in cmp.items():
+            errs[k] = rel_err(a, b)
+            log(f'{tag} kernel path vs plain, {k} {tuple(b.shape)}: max |diff|/(1+|ref|) '
+                f'{errs[k][0]:.3e} (limit {tol:.0e}), max |diff| {errs[k][1]:.3e}')
+        log(f'{tag}: RoI sets of the two paths equal: {torch.equal(rois, ref["rois"])} (the RoI '
+            f'head compared from the kernel path\'s RoIs); gt boxes that pool points '
+            f'{int((~empty & real).sum())} of {int(real.sum())}')
+        bad = [k for k, e in errs.items() if not e[0] <= tol]
+        if bad:
+            raise RuntimeError(f'{tag}: the kernel path disagrees with the plain path at {bad}')
+        if not (~empty & real).any():
+            raise RuntimeError(f'{tag}: no gt box pools a point')
+        return out
+    return check
+
+
+def pointrcnn_parts(model, vox, generator=None):
+    """The backbone's and the RoI head's parts alone on one forward (CUDA
+    events; in training mode with autograd recording): each FPS, ball query
+    and three-NN call the forward made, timed at its own inputs, and the
+    rest of each module (its MLPs, gathers and interpolations); the point
+    head; the RoI head's pooling, its encoder (with its FPS and ball queries
+    apart) and its towers."""
+    from crb_active_3ddet_torch.models.backbones_3d.pfe import run_pointwise
+    from crb_active_3ddet_torch.models.roi_heads import roi_head_template as rht
+    from crb_active_3ddet_torch.ops import pointnet2
+    head = model.roi_head
+    parts = {}
+    with torch.set_grad_enabled(model.training):
+        def split(name, fn):
+            calls = {k: [] for k in ('farthest_point_sample_cuda', 'ball_query', 'three_nn')}
+            with contextlib.ExitStack() as stack:
+                for k, rec in calls.items():
+                    stack.enter_context(recording(pointnet2, k, rec))
+                out = fn()
+            total = cuda_time_ms(fn, warmup=1, iters=3)
+            for k, rec in calls.items():
+                ms = sum(cuda_time_ms(lambda a=args: getattr(pointnet2, k)(*a), warmup=1,
+                                      iters=3) for args, _, _ in rec)
+                if rec:
+                    parts[f'{name} {k} x{len(rec)}'] = ms
+                total -= ms
+            parts[f'{name} rest'] = total
+            return out
+        out = split('backbone_3d', lambda: model.backbone_3d(dict(vox)))
+        parts['point_head'] = cuda_time_ms(lambda: model.point_head(dict(out)), warmup=1,
+                                           iters=3)
+        out, _ = rht.rois_and_targets(model.point_head(dict(out)), head.model_cfg,
+                                      model.training, generator)
+        pooled = head.roipoint_pool(out)
+        parts['roi_head pooling'] = cuda_time_ms(lambda: head.roipoint_pool(out), warmup=1,
+                                                 iters=3)
+        shared = split('roi_head encoder', lambda: head.encode(*pooled))
+        parts['roi_head towers'] = cuda_time_ms(
+            lambda: (run_pointwise(head.cls_layers, shared),
+                     run_pointwise(head.reg_layers, shared)), warmup=1, iters=3)
+    return parts
+
+
+def pointrcnn_stages(model, optimizer, cfg, dev, tag, iters=3):
+    """``second_stages`` (the eval and train steps by stage, the forward by
+    module) with its peak device memory, then the parts of one eval forward
+    of the first val batch and one training forward of the first train
+    batch (``pointrcnn_parts``)."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    from crb_active_3ddet_torch.utils.common import geometry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    second_stages(model, optimizer, cfg, dev, tag, iters)
+    log(f'{tag} stages: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    for mode in ('eval', 'train'):
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                         training=mode == 'train')
+        vox = prepare_device_batch(host_to_device_batch(first_batch(loader), dev),
+                                   *geometry(ds))
+        gen = torch.Generator(device=dev).manual_seed(0) if mode == 'train' else None
+        model.train(mode == 'train')
+        parts = pointrcnn_parts(model, vox, gen)
+        log(f'{tag} {mode} forward by part (ms, CUDA events, batch {bs}, mean of 3): '
+            + ', '.join(f'{k} {v:.3f}' for k, v in parts.items()))
+    model.eval()
+    model.zero_grad(set_to_none=True)
+
+
+def pointrcnn_fps_rows(prefix, rec, names, n_launch):
+    """``time_fps`` at each recorded FPS call (``kernel_calls``' 'fps'
+    records) named in ``names`` (an index each)."""
+    return [time_fps(f'{prefix}.fps[{name}]', points, valid, k, n_launch)
+            for name, ((points, valid, k), _, _) in zip(names, rec['fps']) if name]
+
+
+def drive_pointrcnn(dev):
+    """PointRCNN at its configs' full MODEL and DATA_CONFIG widths:
+    kitti_models/pointrcnn.yaml as shipped (no voxel processor: 16 384
+    sampled points a frame, train and test buffers of 16 384 and 40 960
+    rows) over the KITTI phases' tree (``kitti_tree``), batch 4, LR 0.003,
+    cut in depth only (``SECOND_KITTI_DEPTH``): ``tools/train.main`` under
+    ``held_train_steps`` (a step: 6 K3, 1 K1 mask, 1 K1 float), ``tools/test.main``
+    on the kernel and the plain path (a batch: 6 K3, 2 K1 masks, 1 K1
+    float), every K1 call bit for bit and every K3 call equal to its plain
+    version; the trained model on every val batch (``f32_ahead_of_nms``
+    with ``pointrcnn_check``); the stages, the parts of the backbone and
+    the RoI head and a profiled train step; then pointrcnn_iou.yaml at its
+    batch of 3: one train step and one test batch; the kernels timed at
+    these shapes (``pointrcnn.``, ``pointrcnn_train.``, ``pointrcnn_iou.``).
+    Returns the kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import load_config
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_pointrcnn_'))
+    root = kitti_tree()
+    key = 'pointrcnn'
+    cfg = load_config(POINTRCNN_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    out = work / key
+    sets = ('DATA_CONFIG.DATA_PATH', str(root), *PARTA2_KITTI_SETS)
+    args = ['--cfg_file', POINTRCNN_CFG, '--output_dir', str(out), '--set', *sets]
+    head = cfg.MODEL.ROI_HEAD
+    log(f'==== {key}: {POINTRCNN_CFG} at its widths ({cfg.MODEL.NAME}, '
+        f'{cfg.MODEL.BACKBONE_3D.NAME} SA {list(cfg.MODEL.BACKBONE_3D.SA_CONFIG.NPOINTS)} '
+        f'points, {cfg.MODEL.POINT_HEAD.NAME}, {head.NAME} ({head.ROI_POINT_POOL.NUM_SAMPLED_POINTS}'
+        f' points a RoI, encoder {list(head.SA_CONFIG.NPOINTS)}, '
+        f'{head.TARGET_CONFIG.ROI_PER_IMAGE} RoIs a frame in training, '
+        f'{head.NMS_CONFIG.TEST.NMS_POST_MAXSIZE} at test), the shipped points-only data path '
+        f'(no voxel processor), batch {cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}); cut in depth only: '
+        f'--set {" ".join(PARTA2_KITTI_SETS)} (the file\'s {cfg.OPTIMIZATION.NUM_EPOCHS} epochs; '
+        f'LR 0.003 as the other KITTI phases: the file\'s {cfg.OPTIMIZATION.LR} overflows a short '
+        'one-cycle, ROADMAP Queue 3) ====')
+    t = time.perf_counter()
+    with held_train_steps(key, POINTRCNN_STEP) as w:
+        state = train_cli.main(args)
+        torch.cuda.synchronize()
+    steps = w['steps']
+    if len(steps) < 3:
+        raise RuntimeError(f'{key}: train.main ran {len(steps)} steps')
+    log(f'{key} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every K1 '
+        f'and K3 call against its plain version (K1 bit for bit, K3 equal); per step '
+        f'{[round(x["ms"], 1) for x in steps]} ms; peak device memory of a step '
+        f'{max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    test_rec = test_cli_paths(key, POINTRCNN_CFG, out / 'ckpt' / 'checkpoint_epoch_1.pth', out,
+                              ['DATA_CONFIG.DATA_PATH', str(root)], batch=bs,
+                              per_batch=POINTRCNN_BATCH)
+    with torch.no_grad():
+        n_float, n_mask = k1_calls_exact(test_rec, f'{key} test CLI')
+    log(f'{key} test CLI: {n_float} K1 float and {n_mask} K1 mask calls bit-equal to their '
+        'plain versions')
+    model = state.model
+    f32_ahead_of_nms(model, cfg, dev, key, check=pointrcnn_check(key), layer_names=[])
+    pointrcnn_stages(model, state.optimizer, cfg, dev, key)
+    profiled_train_step(model, state.optimizer, cfg, dev, key)
+    t = time.perf_counter()
+    n_test, n_steps = len(test_rec['float']), len(steps)
+    first = w['first']
+    # the train step's SA levels 1-3 run the test batch's shapes: their calls
+    # are held by held_train_steps, untimed
+    results = pointrcnn_fps_rows(key, test_rec, ('sa0', 'sa1', 'sa2', 'sa3', 'roi_sa0',
+                                                 'roi_sa1'), n_test)
+    results += pointrcnn_fps_rows(f'{key}_train', first['rec'], ('sa0', '', '', '',
+                                                                 'roi_sa0', 'roi_sa1'),
+                                  n_steps)
+    results += parta2_rows(key, [], test_rec, first, n_test, n_steps)
+    log(f'{key}: {len(results)} timing rows in {time.perf_counter() - t:.1f} s')
+    w.clear()
+    del state, model
+
+    # ---- pointrcnn_iou.yaml: one train step and one test batch ----
+    ikey = 'pointrcnn_iou'
+    icfg = load_config(POINTRCNN_IOU_CFG)
+    log(f'==== {ikey}: {POINTRCNN_IOU_CFG} at its widths (CLS_SCORE_TYPE '
+        f'{icfg.MODEL.ROI_HEAD.TARGET_CONFIG.CLS_SCORE_TYPE}, batch '
+        f'{icfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}); one train step and one test batch over the '
+        'KITTI tree ====')
+    ifirst, itest, model, _, _ = one_step_and_batch(dev, POINTRCNN_IOU_CFG, sets, ikey,
+                                                    POINTRCNN_STEP, POINTRCNN_BATCH)
+    results += pointrcnn_fps_rows(ikey, ifirst['rec'], ('', '', '', '', 'roi_sa0_train', ''),
+                                  1)
+    results += pointrcnn_fps_rows(ikey, itest, ('', '', '', '', 'roi_sa0_test', ''), 1)
+    (boxes, alive, thresh), _, _ = itest['mask'][0]
+    results.append(time_mask(f'{ikey}.nms_mask[proposal_nms]', boxes, alive, thresh, 1,
+                             itest['fix'][0][2][1], f'{ikey} test proposal_nms'))
+    del model
+    shutil.rmtree(work)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -6974,6 +7219,8 @@ def main():
                      'on Waymo) at the files\' widths', drive_voxel_rcnn, dev)
     results += phase('PartA2 (PartA2 on KITTI and Waymo, PartA2_free, VoxelResBackBone8x) at '
                      'the files\' widths', drive_parta2, dev)
+    results += phase('PointRCNN (pointrcnn, pointrcnn_iou on KITTI) at the files\' widths',
+                     drive_pointrcnn, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16
     # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the

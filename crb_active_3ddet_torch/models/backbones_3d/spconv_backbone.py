@@ -420,7 +420,7 @@ class UNetV2(VoxelBackBone8x):
 def build_backbone_3d(model_cfg, input_channels, grid_size, voxel_size=None,
                       point_cloud_range=None):
     """``voxel_size`` and ``point_cloud_range`` place UNetV2's voxel
-    centres."""
+    centres; PointNet2MSG reads the raw points, ``input_channels`` wide."""
     name = model_cfg['NAME']
     if name == 'VoxelBackBone8x':
         return VoxelBackBone8x(model_cfg, input_channels, grid_size)
@@ -428,4 +428,7 @@ def build_backbone_3d(model_cfg, input_channels, grid_size, voxel_size=None,
         return VoxelResBackBone8x(model_cfg, input_channels, grid_size)
     if name == 'UNetV2':
         return UNetV2(model_cfg, input_channels, grid_size, voxel_size, point_cloud_range)
+    if name == 'PointNet2MSG':
+        from .pointnet2_backbone import PointNet2MSG
+        return PointNet2MSG(model_cfg, input_channels)
     raise KeyError(f'backbone_3d {name} is not ported yet')

@@ -1,21 +1,24 @@
 """Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU,
-CenterPoint, VoxelRCNN, PVRCNN, PartA2Net and (UNetV2) PointRCNN
-topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
+CenterPoint, VoxelRCNN, PVRCNN, PartA2Net and PointRCNN (over PointNet2MSG
+or UNetV2) topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
 (reference ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
 ``second_net.py:9-34``, ``second_net_iou.py``, ``centerpoint.py``,
-``voxel_rcnn.py``, ``pv_rcnn.py:9-43``, ``PartA2_net.py``): vfe →
-[backbone_3d] → [map_to_bev] → [pfe] → [backbone_2d] → [dense_head] →
+``voxel_rcnn.py``, ``pv_rcnn.py:9-43``, ``PartA2_net.py``,
+``point_rcnn.py``): [vfe] → [backbone_3d] → [map_to_bev] → [pfe] → [backbone_2d] → [dense_head] →
 [point_head] → [roi_head]; each bracketed module is built when the config
 names it, as the JAX detector builds them (PointPillars has no 3D
 backbone: its BEV width is ``MAP_TO_BEV.NUM_BEV_FEATURES``; SECONDNetIoU's
 RoI head reads the BEV map, VoxelRCNN's the sparse backbone's stages,
 PV-RCNN's the keypoints, PartA2's UNetV2's voxel features and the part
 head's offsets; a CenterHead's decoded peaks are PV-RCNN's and VoxelRCNN's
-proposals as an anchor head's boxes are; PartA2_free (``PointRCNN`` over
-UNetV2) has no BEV branch: its point head's boxes are the proposals).
+proposals as an anchor head's boxes are; PointRCNN has no BEV branch: its
+point head's boxes are the proposals, over UNetV2's voxels (PartA2_free) or
+PointNet2MSG's points, and over PointNet2MSG it has no VFE: the backbone
+reads the raw points, ``num_point_features`` wide).
 ``compute_loss`` is the training loss (``detector3d.py:154-218``): the
 dense head's (anchor or CenterHead) when there is one, plus the point
-head's (PartA2's part head: the foreground, part and box terms) and the RoI
+head's (PartA2's part head: the foreground, part and box terms; PointHeadBox:
+the class and box terms) and the RoI
 head's when the forward made their targets.
 The modules that draw random numbers in training (the RoI heads: the RoI
 sample and the Dropout) take the ``torch.Generator`` that ``forward`` is
@@ -40,7 +43,8 @@ from ..dense_heads import anchor_head_single as ahs
 from ..dense_heads.anchor_head_single import build_dense_head
 from ..dense_heads.center_head import CenterHead, get_center_loss
 from ..point_heads import point_head_simple as phs
-from ..point_heads.point_head_box import PointIntraPartOffsetHead, get_point_part_loss
+from ..point_heads.point_head_box import (PointHeadBox, PointIntraPartOffsetHead,
+                                          get_point_box_loss, get_point_part_loss)
 from ..point_heads.point_head_simple import build_point_head
 from ..roi_heads import roi_head_template as rht
 from ..roi_heads.pvrcnn_head import build_roi_head
@@ -60,13 +64,16 @@ class Detector3D(nn.Module):
         self.model_cfg = model_cfg
         self.num_class = num_class
         self.class_names = tuple(class_names)
-        self.vfe = build_vfe(model_cfg['VFE'], num_point_features, voxel_size,
-                             point_cloud_range)
-        topology = ['vfe']
+        topology, point_feats = [], num_point_features
+        if model_cfg.get('VFE', None) is not None:
+            self.vfe = build_vfe(model_cfg['VFE'], num_point_features, voxel_size,
+                                 point_cloud_range)
+            topology.append('vfe')
+            point_feats = self.vfe.get_output_feature_dim()
         if model_cfg.get('BACKBONE_3D', None) is not None:
             self.backbone_3d = build_backbone_3d(
-                model_cfg['BACKBONE_3D'], self.vfe.get_output_feature_dim(),
-                grid_size, voxel_size, point_cloud_range)
+                model_cfg['BACKBONE_3D'], point_feats, grid_size, voxel_size,
+                point_cloud_range)
             topology.append('backbone_3d')
         if model_cfg.get('MAP_TO_BEV', None) is not None:
             self.map_to_bev = build_map_to_bev(model_cfg['MAP_TO_BEV'], grid_size)
@@ -90,7 +97,7 @@ class Detector3D(nn.Module):
             # the pfe reads the BEV map before the 2D backbone consumes it
             topology.insert(topology.index('backbone_2d'), 'pfe')
         # the per-point features: the pfe's keypoints, or a backbone's with a
-        # decoder (UNetV2) at its input voxels
+        # decoder (UNetV2 at its input voxels, PointNet2MSG at the points)
         point_source = getattr(self, 'pfe', None)
         if point_source is None and getattr(getattr(self, 'backbone_3d', None), 'decoder', False):
             point_source = self.backbone_3d
@@ -145,6 +152,8 @@ class Detector3D(nn.Module):
             lw = self.model_cfg['POINT_HEAD']['LOSS_CONFIG']['LOSS_WEIGHTS']
             if isinstance(self.point_head, PointIntraPartOffsetHead):
                 point_loss = get_point_part_loss(batch_dict, lw, reduce=reduce)
+            elif isinstance(self.point_head, PointHeadBox):
+                point_loss = get_point_box_loss(batch_dict, lw, reduce=reduce)
             else:
                 point_loss = phs.get_point_loss(batch_dict, lw, reduce=reduce)
             loss = loss + point_loss
@@ -266,15 +275,15 @@ def flax_init(model, generator: torch.Generator):
 
 
 def build_detector(model_cfg, num_class, dataset, device='cuda'):
-    """dataset provides grid_size, point_cloud_range, num_point_features and
-    class_names.  The model lives on ``device``: CUDA unless the caller asks
-    for the CPU."""
+    """dataset provides grid_size, voxel_size, point_cloud_range,
+    num_point_features and class_names; a points-only dataset (no voxel
+    processor: PointRCNN over PointNet2MSG) has no grid and no voxel size.
+    The model lives on ``device``: CUDA unless the caller asks for the
+    CPU."""
     name = model_cfg['NAME']
     if name not in _PORTED:
         raise KeyError(f'detector {name} is not ported yet')
-    model = Detector3D(model_cfg, num_class, dataset.class_names,
-                       tuple(int(g) for g in dataset.grid_size),
-                       tuple(float(x) for x in dataset.point_cloud_range),
-                       tuple(float(v) for v in dataset.voxel_size),
+    _, grid_size, pcr, voxel_size = common.geometry(dataset)
+    model = Detector3D(model_cfg, num_class, dataset.class_names, grid_size, pcr, voxel_size,
                        int(dataset.num_point_features))
     return model.to(resolve_device(device))

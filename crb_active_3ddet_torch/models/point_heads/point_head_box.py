@@ -1,10 +1,22 @@
-"""PartA2's point head (torch): port of ``PointIntraPartOffsetHead``,
-``assign_point_box_targets`` and ``get_point_part_loss`` from
-``crb_active_3ddet_tpu/models/point_heads/point_head_box.py:28, 117, 225``
-(reference ``pcdet/models/dense_heads/point_intra_part_head.py`` and
-``point_head_template.assign_stack_targets`` with part and box labels).
+"""PointRCNN's and PartA2's point heads (torch): port of ``PointHeadBox``,
+``PointIntraPartOffsetHead``, ``assign_point_box_targets``,
+``get_point_box_loss`` and ``get_point_part_loss`` from
+``crb_active_3ddet_tpu/models/point_heads/point_head_box.py:28, 60, 117, 192,
+225`` (reference ``pcdet/models/dense_heads/point_head_box.py``,
+``point_intra_part_head.py`` and ``point_head_template.assign_stack_targets``
+with part and box labels).
 
-Per voxel of UNetV2's output: a foreground logit tower (``cls_layers``), a
+PointHeadBox (PointRCNN's first stage), per point of PointNet2MSG's output:
+a class logit tower (``cls_layers``, one logit a class unless
+CLASS_AGNOSTIC) and a box tower (``box_layers``) whose
+``PointResidualCoder`` boxes, decoded at every point with the argmax class's
+mean size, are the RoI head's proposals; in training the targets of
+``assign_point_box_targets`` with the multi-class labels.  Its loss
+(``get_point_box_loss``): the focal loss against the one-hot class, each
+frame normalised by its foreground count, plus the smooth-L1 of the
+code-weighted residuals over the foreground.
+
+PartA2's, per voxel of UNetV2's output: a foreground logit tower (``cls_layers``), a
 part tower (``part_reg_layers``, sigmoid: the point's place inside its
 object, each axis in [0, 1]) and, when the config has ``REG_FC``
 (PartA2_free), a box tower (``box_layers``) whose ``PointResidualCoder``
@@ -104,15 +116,78 @@ class PointIntraPartOffsetHead(nn.Module):
                 batch_dict['point_box_labels'] = box_t
             batch_dict['point_part_labels'] = part_t
         if self.coder is not None:
-            classes = cls_preds.argmax(-1) + 1
-            batch_dict['batch_box_preds'] = self.coder.decode(box_preds, coords,
-                                                              pred_classes=classes)
-            # an invalid voxel's box must never win the NMS
-            batch_dict['batch_cls_preds'] = torch.where(valid[..., None], cls_preds,
-                                                        torch.full_like(cls_preds, -1e9))
-            batch_dict['batch_valid'] = valid
-            batch_dict['cls_preds_normalized'] = False
+            box_proposals(batch_dict, self.coder, cls_preds, box_preds, coords, valid)
         return batch_dict
+
+
+def box_proposals(batch_dict, coder, cls_preds, box_preds, coords, valid):
+    """Every point's decoded box (with its argmax class's mean size) and its
+    logits as the proposal layer's input; an invalid point's logits are
+    −1e9, so that its box never wins the NMS."""
+    classes = cls_preds.argmax(-1) + 1
+    batch_dict['batch_box_preds'] = coder.decode(box_preds, coords, pred_classes=classes)
+    batch_dict['batch_cls_preds'] = torch.where(valid[..., None], cls_preds,
+                                                torch.full_like(cls_preds, -1e9))
+    batch_dict['batch_valid'] = valid
+    batch_dict['cls_preds_normalized'] = False
+
+
+class PointHeadBox(nn.Module):
+    def __init__(self, model_cfg, num_class, input_channels):
+        super().__init__()
+        self.model_cfg = model_cfg
+        target = model_cfg['TARGET_CONFIG']
+        self.coder = build_box_coder(target.get('BOX_CODER', 'PointResidualCoder'),
+                                     **dict(target.get('BOX_CODER_CONFIG', {})))
+        n_cls = 1 if model_cfg['CLASS_AGNOSTIC'] else num_class
+        self.cls_layers = pointwise_stack([input_channels, *model_cfg['CLS_FC']], nn.Linear,
+                                          nn.BatchNorm1d, out_channels=n_cls)
+        self.box_layers = pointwise_stack([input_channels, *model_cfg['REG_FC']], nn.Linear,
+                                          nn.BatchNorm1d, out_channels=self.coder.code_size)
+
+    def forward(self, batch_dict):
+        feats = batch_dict['point_features']                    # (B, K, C)
+        cls_preds = run_pointwise(self.cls_layers, feats)
+        box_preds = run_pointwise(self.box_layers, feats)
+        batch_dict['point_cls_preds'] = cls_preds
+        batch_dict['point_box_preds_raw'] = box_preds
+        batch_dict['point_cls_scores'] = torch.sigmoid(cls_preds.max(dim=-1).values)
+        coords, valid = batch_dict['point_coords'], batch_dict['point_valid']
+        if self.training:
+            cls, box_t, _ = assign_point_box_targets(
+                coords, valid, batch_dict['gt_boxes'],
+                tuple(self.model_cfg['TARGET_CONFIG']['GT_EXTRA_WIDTH']), self.coder)
+            batch_dict['point_cls_labels'] = cls
+            batch_dict['point_box_labels'] = box_t
+        box_proposals(batch_dict, self.coder, cls_preds, box_preds, coords, valid)
+        return batch_dict
+
+
+def get_point_box_loss(batch_dict, loss_weights, reduce=True):
+    """The focal loss of every point's logits against its one-hot class (0
+    background, −1 ignored), each frame normalised by its foreground count,
+    plus the smooth-L1 (β 1/9) of the code-weighted box residuals over the
+    foreground, normalised likewise.  ``reduce=False`` keeps one loss a
+    frame."""
+    preds = batch_dict['point_cls_preds']                       # (B, K, C)
+    labels = batch_dict['point_cls_labels'].long()
+    positives = labels > 0
+    pos_norm = torch.clamp(positives.sum(1, keepdim=True).to(torch.float32), min=1.0)
+    cls_weights = (positives | (labels == 0)).to(torch.float32) / pos_norm
+    # a class past the logits' count (a class-agnostic head) is all 0, as
+    # jax.nn.one_hot makes it
+    one_hot = (labels[..., None] == torch.arange(1, preds.shape[-1] + 1,
+                                                 device=labels.device)).to(preds.dtype)
+    cls_loss = loss_utils.sigmoid_focal_cls_loss(preds, one_hot, cls_weights).sum((-1, -2)) \
+        * loss_weights.get('point_cls_weight', 1.0)
+    box_preds = batch_dict['point_box_preds_raw']               # (B, K, code)
+    code_w = box_preds.new_tensor(loss_weights.get('code_weights',
+                                                   [1.0] * box_preds.shape[-1]))
+    diff = loss_utils.smooth_l1_loss((box_preds - batch_dict['point_box_labels']) * code_w)
+    box_loss = (diff.sum(-1) * positives.to(torch.float32) / pos_norm).sum(-1) \
+        * loss_weights.get('point_box_weight', 1.0)
+    loss = cls_loss + box_loss
+    return loss.mean() if reduce else loss
 
 
 def get_point_part_loss(batch_dict, loss_weights, reduce=True):

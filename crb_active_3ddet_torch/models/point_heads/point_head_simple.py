@@ -76,10 +76,14 @@ class PointHeadSimple(nn.Module):
 
 def build_point_head(model_cfg, num_class, pfe):
     """``pfe`` gives the width of the point features the head reads: PV-RCNN's
-    keypoint branch, or UNetV2 (PartA2's part head)."""
+    keypoint branch, UNetV2 (PartA2's part head) or PointNet2MSG
+    (PointRCNN's box head)."""
     if model_cfg['NAME'] == 'PointIntraPartOffsetHead':
         from .point_head_box import PointIntraPartOffsetHead
         return PointIntraPartOffsetHead(model_cfg, num_class, pfe.num_point_features)
+    if model_cfg['NAME'] == 'PointHeadBox':
+        from .point_head_box import PointHeadBox
+        return PointHeadBox(model_cfg, num_class, pfe.num_point_features)
     if model_cfg['NAME'] == 'PointHeadSimple':
         before = model_cfg.get('USE_POINT_FEATURES_BEFORE_FUSION', False)
         return PointHeadSimple(

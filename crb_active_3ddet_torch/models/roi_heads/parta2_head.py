@@ -108,18 +108,7 @@ class PartA2FCHead(nn.Module):
         or, given ``rois`` and their ``roi_targets_dict``, those;
         ``roi_targets`` then carries the targets with rcnn_cls and rcnn_reg."""
         cfg = self.model_cfg
-        if 'rois' not in batch_dict:
-            batch_dict = rht.proposal_layer(
-                batch_dict, cfg['NMS_CONFIG']['TRAIN' if self.training else 'TEST'])
-            if self.training:
-                targets = rht.assign_targets(batch_dict, cfg['TARGET_CONFIG'], generator)
-                batch_dict['rois'] = targets['rois']
-                batch_dict['roi_labels'] = targets['roi_labels']
-                batch_dict['roi_valid'] = torch.ones(targets['rois'].shape[:2],
-                                                     dtype=torch.bool,
-                                                     device=targets['rois'].device)
-        elif self.training:
-            targets = batch_dict['roi_targets_dict']
+        batch_dict, targets = rht.rois_and_targets(batch_dict, cfg, self.training, generator)
         rois = batch_dict['rois']
         b, r = rois.shape[:2]
         merged = self.convs(*self.roiaware_pool(batch_dict))

@@ -131,19 +131,7 @@ class PVRCNNHead(nn.Module):
         carries the targets with rcnn_cls and rcnn_reg.  With a LossNet:
         ``loss_predictions`` (eval) or ``loss_predictions_train``, (B,)."""
         cfg = self.model_cfg
-        if 'rois' not in batch_dict:
-            batch_dict = rht.proposal_layer(
-                batch_dict, cfg['NMS_CONFIG']['TRAIN' if self.training else 'TEST'])
-            if self.training:
-                targets = rht.assign_targets(batch_dict, cfg['TARGET_CONFIG'],
-                                             generator)
-                batch_dict['rois'] = targets['rois']
-                batch_dict['roi_labels'] = targets['roi_labels']
-                batch_dict['roi_valid'] = torch.ones(targets['rois'].shape[:2],
-                                                     dtype=torch.bool,
-                                                     device=targets['rois'].device)
-        elif self.training:
-            targets = batch_dict['roi_targets_dict']
+        batch_dict, targets = rht.rois_and_targets(batch_dict, cfg, self.training, generator)
         b, r = batch_dict['rois'].shape[:2]
         pooled = self.roi_grid_pool(batch_dict)
         live = not self.training and generator is not None
@@ -190,7 +178,8 @@ def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
     keypoint features' width (PVRCNNHead) or the BEV map's (SECONDHead, which
     also takes the voxel size and the point cloud range); VoxelRCNNHead
     reads the sparse backbone's stages, of ``backbone_channels`` widths;
-    PartA2FCHead UNetV2's voxel features, ``input_channels`` wide."""
+    PartA2FCHead UNetV2's voxel features and PointRCNNHead PointNet2MSG's
+    point features, ``input_channels`` wide."""
     nc = 1 if model_cfg.get('CLASS_AGNOSTIC', True) else num_class
     if model_cfg['NAME'] == 'PVRCNNHead':
         return PVRCNNHead(model_cfg, input_channels, num_class=nc)
@@ -201,6 +190,9 @@ def build_roi_head(model_cfg, num_class, input_channels, voxel_size=None,
     if model_cfg['NAME'] == 'PartA2FCHead':
         from .parta2_head import PartA2FCHead
         return PartA2FCHead(model_cfg, input_channels, num_class=nc)
+    if model_cfg['NAME'] == 'PointRCNNHead':
+        from .pointrcnn_head import PointRCNNHead
+        return PointRCNNHead(model_cfg, input_channels, num_class=nc)
     if model_cfg['NAME'] == 'VoxelRCNNHead':
         from .voxelrcnn_head import VoxelRCNNHead
         return VoxelRCNNHead(model_cfg, backbone_channels, num_class=nc,

@@ -202,6 +202,27 @@ def assign_targets(batch_dict, sampler_cfg, generator):
     return targets_from_sel(batch_dict, sel, max_overlaps, gt_assignment, sampler_cfg)
 
 
+def rois_and_targets(batch_dict, model_cfg, training, generator):
+    """The RoIs a head runs on and, in training, their targets: the given
+    ``rois`` (in training with their ``roi_targets_dict``), else the
+    proposal layer's (``NMS_CONFIG.TRAIN`` / ``TEST``), which in training
+    the sampled targets' RoIs replace.  Returns (batch_dict, targets or
+    None)."""
+    targets = None
+    if 'rois' not in batch_dict:
+        batch_dict = proposal_layer(batch_dict,
+                                    model_cfg['NMS_CONFIG']['TRAIN' if training else 'TEST'])
+        if training:
+            targets = assign_targets(batch_dict, model_cfg['TARGET_CONFIG'], generator)
+            batch_dict['rois'] = targets['rois']
+            batch_dict['roi_labels'] = targets['roi_labels']
+            batch_dict['roi_valid'] = torch.ones(targets['rois'].shape[:2], dtype=torch.bool,
+                                                 device=targets['rois'].device)
+    elif training:
+        targets = batch_dict['roi_targets_dict']
+    return batch_dict, targets
+
+
 # ---------------------------------------------------------------------------
 # losses
 # ---------------------------------------------------------------------------

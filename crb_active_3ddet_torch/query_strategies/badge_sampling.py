@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ..runtime.train import host_to_device_batch, prepare_device_batch
+from ..utils import common
 from .crb_sampling import cls_weight_grad
 from .kmeans_pp import kmeans_plusplus
 from .strategy import Strategy
@@ -59,9 +60,7 @@ class BadgeSampling(Strategy):
         """Pass 1: {frame id: (A,) int64 argmax class index} over the pool
         loader's batches."""
         model, dataset = self.model, self.unlabelled_set
-        geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
-                tuple(float(x) for x in dataset.point_cloud_range),
-                tuple(float(v) for v in dataset.voxel_size))
+        geom = common.geometry(dataset)
         generator = torch.Generator(device=model.device).manual_seed(BADGE_SEED)
         model.eval()
         hyp = {}

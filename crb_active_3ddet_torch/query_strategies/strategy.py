@@ -46,6 +46,7 @@ from ..datasets import _identity_attrs
 from ..models import post_processing as pp
 from ..runtime.train import (host_to_device_batch, points_valid_mask,
                              prepare_device_batch)
+from ..utils import common
 
 MC_SEED = 0            # the JAX scan's PRNGKey(0)
 
@@ -123,9 +124,7 @@ class Strategy:
         post_cfg = self.cfg.MODEL.POST_PROCESSING
         num_class = self.num_class
         dataset = self.unlabelled_set
-        geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
-                tuple(float(x) for x in dataset.point_cloud_range),
-                tuple(float(v) for v in dataset.voxel_size))
+        geom = common.geometry(dataset)
 
         def wanted(name):
             return want is None or name in want
@@ -302,9 +301,7 @@ class Strategy:
         frames are loaded, moved and voxelized together, then sliced; the
         keys in ``drop`` are left out."""
         dataset, device = self.unlabelled_set, self.model.device
-        geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
-                tuple(float(x) for x in dataset.point_cloud_range),
-                tuple(float(v) for v in dataset.voxel_size))
+        geom = common.geometry(dataset)
         chunk = self.grad_chunk()
         for i0 in range(0, len(frame_ids), chunk):
             fids = frame_ids[i0:i0 + chunk]

@@ -140,9 +140,7 @@ def make_lossnet_train_step(model, optimizer, dataset):
     held out of the gradient; the gradients outside ``loss_net`` are
     multiplied by 0 (a parameter that the loss does not reach gets a zero
     gradient, as in JAX), so that only weight decay moves those."""
-    geom = (dataset.voxel_cfg, tuple(int(g) for g in dataset.grid_size),
-            tuple(float(x) for x in dataset.point_cloud_range),
-            tuple(float(v) for v in dataset.voxel_size))
+    geom = common.geometry(dataset)
 
     def step(state, device_batch, generator=None):
         model.train()

@@ -13,6 +13,7 @@ import time
 import torch
 
 from ..models import post_processing as pp
+from ..utils import common
 from .train import host_to_device_batch, prepare_device_batch
 
 EVAL_WINDOW = 8     # batches in flight (the JAX loop's window)
@@ -21,15 +22,12 @@ EVAL_WINDOW = 8     # batches in flight (the JAX loop's window)
 def make_eval_step(model, dataset, post_cfg, num_class):
     """Returns ``eval_step(device_batch) -> (preds, recall_record)``; the
     model runs in eval mode under ``torch.no_grad`` on its own device."""
-    voxel_cfg = dataset.voxel_cfg
-    grid_size = tuple(int(g) for g in dataset.grid_size)
-    pcr = tuple(float(x) for x in dataset.point_cloud_range)
-    vs = tuple(float(v) for v in dataset.voxel_size)
+    geom = common.geometry(dataset)
 
     @torch.no_grad()
     def eval_step(host_batch):
         model.eval()            # the model may have trained since
-        batch = prepare_device_batch(host_batch, voxel_cfg, grid_size, pcr, vs)
+        batch = prepare_device_batch(host_batch, *geom)
         out = model(batch)
         preds = pp.post_processing(out, post_cfg, num_class=num_class)
         rec = None

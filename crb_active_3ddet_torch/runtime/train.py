@@ -39,28 +39,25 @@ def points_valid_mask(points, num_points):
 def prepare_device_batch(batch, voxel_cfg, grid_size, point_cloud_range,
                          voxel_size):
     """Device tensors → the model's input dict, with per-frame voxelization
-    on the tensors' device.  Camera-only models carry no points/voxel_cfg —
-    image keys pass through, and so do given ``rois`` with their
-    ``roi_targets_dict`` (the two-stage heads' branch for precomputed RoI
-    targets)."""
+    on the tensors' device when the dataset has a voxel processor.  Without
+    one (PointRCNN over PointNet2MSG) the points, their validity and the
+    batch size pass on: the JAX function drops the points there, so that
+    the JAX package cannot run pointrcnn.yaml as shipped.  Camera-only
+    models carry no points — image keys pass through, and so do given
+    ``rois`` with their ``roi_targets_dict`` (the two-stage heads' branch
+    for precomputed RoI targets)."""
     out = {}
-    if 'points' in batch and voxel_cfg is not None:
+    if 'points' in batch:
         points = batch['points']            # (B, N, C)
         points_valid = points_valid_mask(points, batch['num_points'])
+        out.update(points=points, points_valid=points_valid, batch_size=points.shape[0])
+    if 'points' in batch and voxel_cfg is not None:
         vox = vx_ops.voxelize_batch(points, points_valid, point_cloud_range,
                                     voxel_size, tuple(grid_size),
                                     voxel_cfg['max_voxels'],
                                     voxel_cfg['max_points_per_voxel'])
-        out.update({
-            'points': points,
-            'points_valid': points_valid,
-            'voxels': vox['voxels'],
-            'voxel_coords': vox['voxel_coords'],
-            'voxel_num_points': vox['voxel_num_points'],
-            'voxel_valid': vox['voxel_valid'],
-            'point_slot': vox['point_slot'],
-            'batch_size': points.shape[0],
-        })
+        out.update({k: vox[k] for k in ('voxels', 'voxel_coords', 'voxel_num_points',
+                                        'voxel_valid', 'point_slot')})
     for k in _CAMERA_KEYS:
         if k in batch:
             out[k] = batch[k]
@@ -103,14 +100,11 @@ def make_train_step(model, optimizer, dataset):
     card), from which PV-RCNN's RoI sampler and Dropout draw; SECOND draws
     nothing and needs none.  The backward's f32 layers compute in f32, as
     the forward's (``full_f32``)."""
-    voxel_cfg = dataset.voxel_cfg
-    grid_size = tuple(int(g) for g in dataset.grid_size)
-    pcr = tuple(float(x) for x in dataset.point_cloud_range)
-    vs = tuple(float(v) for v in dataset.voxel_size)
+    geom = common.geometry(dataset)
 
     def train_step(state, device_batch, generator=None):
         model.train()
-        batch = prepare_device_batch(device_batch, voxel_cfg, grid_size, pcr, vs)
+        batch = prepare_device_batch(device_batch, *geom)
         out = model(batch, generator)
         loss, tb = model.compute_loss(out)
         optimizer.zero_grad()

@@ -47,6 +47,16 @@ def full_f32():
         cudnn.allow_tf32, matmul.allow_tf32 = saved
 
 
+def geometry(dataset):
+    """(voxel_cfg, grid_size, point_cloud_range, voxel_size) of a dataset as
+    the device step takes them, tuples of ints and floats; a points-only
+    dataset (no voxel processor) has None for all but the range."""
+    def tup(x, kind):
+        return None if x is None else tuple(kind(v) for v in x)
+    return (dataset.voxel_cfg, tup(dataset.grid_size, int),
+            tup(dataset.point_cloud_range, float), tup(dataset.voxel_size, float))
+
+
 def take_rows(x, idx):
     """x (B, A, ...) rows at idx (B, P) → (B, P, ...)."""
     return torch.gather(x, 1, idx.reshape(*idx.shape, *([1] * (x.ndim - 2)))

@@ -41,6 +41,16 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
   * PartA2: the point head's towers (``cls_layers``, ``part_reg_layers``,
     ``box_layers``) and PartA2FCHead (``part_head_from_flax``; its dense
     conv kernels kept as (3, 3, 3, Cin, Cout)).
+  * PointRCNN: PointNet2MSG's ``sa_{k}`` → ``backbone_3d.SA_modules.{k}``,
+    its FP levels' ``Dense_{i}`` / ``BatchNorm_{i}`` (counted from the
+    deepest level, the JAX call order) → ``backbone_3d.FP_modules.{k}.mlp``;
+    PointHeadBox's towers (``cls_layers``, ``box_layers``); PointRCNNHead's
+    ``xyz_up_{i}`` (+ ``xyz_up_bn_{i}`` with USE_BN), ``merge_down_0`` →
+    ``roi_head.xyz_up_layer`` / ``merge_down_layer``, ``sa_{k}`` and the
+    group-all level's ``sa{k}_d{li}`` / ``sa{k}_bn{li}`` →
+    ``roi_head.SA_modules.{k}``, ``{cls,reg}_{i}`` / ``_bn_{i}`` + ``_out``
+    → ``roi_head.{cls,reg}_layers`` (Conv1d stacks, a Dropout after the
+    first block).
   * AnchorHeadMulti: ``shared_conv`` / ``shared_bn`` → ``dense_head.shared_conv.{0,1}``;
     ``head{h}_conv_cls`` / ``_conv_box`` / ``_conv_dir`` →
     ``dense_head.rpn_heads.{h}.conv_cls`` / ``conv_box`` / ``conv_dir_cls``;
@@ -172,22 +182,14 @@ def backbone_3d_from_flax(sd, p3, s3, model_cfg):
             _bn(sd, f'backbone_3d.{name}.1', p['MaskedBatchNorm_0'], st['MaskedBatchNorm_0'])
 
 
-def part_head_from_flax(sd, params, batch_stats, model_cfg):
-    """PartA2's point head (``Dense_i`` / ``BatchNorm_i`` counted across its
-    towers in call order: cls, part, box) and RoI head (``conv_part_i`` /
-    ``conv_rpn_i`` (a (3, 3, 3, Cin, Cout) kernel and ``MaskedBatchNorm_0``)
-    → ``roi_head.conv_part.{i}.{0,1}``; ``shared_fc_i`` / ``shared_bn_i`` →
-    ``roi_head.shared_fc_layer`` (Linear); ``{cls,reg}_i`` / ``_bn_i`` +
-    ``_out`` → ``roi_head.{cls,reg}_layers``, whose p = 0 Dropout after
-    the first block shifts the later indices)."""
+def point_head_towers(sd, params, batch_stats, stacks):
+    """A point head's towers, ``stacks`` [(module name, FC widths)] in the
+    JAX call order: Flax's ``Dense_i`` / ``BatchNorm_i`` count across them →
+    ``point_head.{stack}.{3j}`` (Linear) / ``.{3j + 1}``, a biased Linear
+    last."""
     ph, sph = params['point_head'], batch_stats.get('point_head', {})
-    head = model_cfg['POINT_HEAD']
     k = n = 0                    # the Dense and the BatchNorm counters
-    for stack, fcs in (('cls_layers', head.get('CLS_FC', [])),
-                       ('part_reg_layers', head.get('PART_FC', [])),
-                       ('box_layers', head.get('REG_FC', None))):
-        if fcs is None or (stack == 'box_layers' and not fcs):
-            continue
+    for stack, fcs in stacks:
         for j in range(len(fcs)):
             sd[f'point_head.{stack}.{3 * j}.weight'] = _dense(ph[f'Dense_{k}']['kernel'])
             _bn(sd, f'point_head.{stack}.{3 * j + 1}', ph[f'BatchNorm_{n}'],
@@ -196,6 +198,87 @@ def part_head_from_flax(sd, params, batch_stats, model_cfg):
         sd[f'point_head.{stack}.{3 * len(fcs)}.weight'] = _dense(ph[f'Dense_{k}']['kernel'])
         sd[f'point_head.{stack}.{3 * len(fcs)}.bias'] = ph[f'Dense_{k}']['bias']
         k += 1
+
+
+def _tower(sd, prefix, params, stats, name, n_layers, extra_dims):
+    """``{name}_{j}`` / ``{name}_bn_{j}`` + ``{name}_out`` → a
+    ``make_fc_layers`` stack, whose Dropout after the first block shifts the
+    later indices."""
+    pos = 0
+    for j in range(n_layers):
+        sd[f'{prefix}.{pos}.weight'] = _dense(params[f'{name}_{j}']['kernel'], extra_dims)
+        _bn(sd, f'{prefix}.{pos + 1}', params[f'{name}_bn_{j}'], stats[f'{name}_bn_{j}'])
+        pos += 3 + (j == 0)
+    sd[f'{prefix}.{pos}.weight'] = _dense(params[f'{name}_out']['kernel'], extra_dims)
+    sd[f'{prefix}.{pos}.bias'] = params[f'{name}_out']['bias']
+
+
+def pointnet2_from_flax(sd, p3, s3, backbone_cfg, prefix='backbone_3d.'):
+    """PointNet2MSG's SA levels (``sa_{k}``) and FP levels (``Dense_{i}`` /
+    ``BatchNorm_{i}`` from the deepest level) → ``{prefix}SA_modules`` and
+    ``{prefix}FP_modules``."""
+    for k, mlps in enumerate(backbone_cfg['SA_CONFIG']['MLPS']):
+        sa_module_from_flax(sd, f'{prefix}SA_modules.{k}', p3[f'sa_{k}'], s3[f'sa_{k}'], mlps)
+    i = 0
+    fp = backbone_cfg['FP_MLPS']
+    for k in range(len(fp) - 1, -1, -1):
+        for j in range(len(fp[k])):
+            sd[f'{prefix}FP_modules.{k}.mlp.{3 * j}.weight'] = _dense(p3[f'Dense_{i}']['kernel'],
+                                                                     2)
+            _bn(sd, f'{prefix}FP_modules.{k}.mlp.{3 * j + 1}', p3[f'BatchNorm_{i}'],
+                s3[f'BatchNorm_{i}'])
+            i += 1
+
+
+def pointrcnn_from_flax(sd, params, batch_stats, model_cfg):
+    """PointRCNN over PointNet2MSG: the backbone's SA and FP levels, the
+    point head's towers and the RoI head (see the module docstring)."""
+    pointnet2_from_flax(sd, params['backbone_3d'], batch_stats['backbone_3d'],
+                        model_cfg['BACKBONE_3D'])
+    head = model_cfg['POINT_HEAD']
+    point_head_towers(sd, params, batch_stats, (('cls_layers', head['CLS_FC']),
+                                                ('box_layers', head['REG_FC'])))
+    roi_cfg = model_cfg['ROI_HEAD']
+    rh, srh = params['roi_head'], batch_stats.get('roi_head', {})
+    use_bn = bool(roi_cfg.get('USE_BN', False))
+    for name, module, n in (('xyz_up', 'xyz_up_layer', len(roi_cfg['XYZ_UP_LAYER'])),
+                            ('merge_down', 'merge_down_layer', 1)):
+        for j in range(n):
+            pos = (3 if use_bn else 2) * j
+            sd[f'roi_head.{module}.{pos}.weight'] = _dense(rh[f'{name}_{j}']['kernel'], 2)
+            if use_bn:
+                _bn(sd, f'roi_head.{module}.{pos + 1}', rh[f'{name}_bn_{j}'],
+                    srh[f'{name}_bn_{j}'])
+            else:
+                sd[f'roi_head.{module}.{pos}.bias'] = rh[f'{name}_{j}']['bias']
+    sa_cfg = roi_cfg['SA_CONFIG']
+    for k, (npoint, mlp) in enumerate(zip(sa_cfg['NPOINTS'], sa_cfg['MLPS'])):
+        if int(npoint) != -1:
+            sa_module_from_flax(sd, f'roi_head.SA_modules.{k}', rh[f'sa_{k}'], srh[f'sa_{k}'],
+                                [mlp])
+            continue
+        for li in range(len(mlp)):
+            sd[f'roi_head.SA_modules.{k}.mlps.0.{3 * li}.weight'] = _dense(
+                rh[f'sa{k}_d{li}']['kernel'], 2)
+            _bn(sd, f'roi_head.SA_modules.{k}.mlps.0.{3 * li + 1}', rh[f'sa{k}_bn{li}'],
+                srh[f'sa{k}_bn{li}'])
+    for tower in ('cls', 'reg'):
+        _tower(sd, f'roi_head.{tower}_layers', rh, srh, tower,
+               len(roi_cfg[f'{tower.upper()}_FC']), 1)
+
+
+def part_head_from_flax(sd, params, batch_stats, model_cfg):
+    """PartA2's point head (``Dense_i`` / ``BatchNorm_i`` counted across its
+    towers in call order: cls, part, box) and RoI head (``conv_part_i`` /
+    ``conv_rpn_i`` (a (3, 3, 3, Cin, Cout) kernel and ``MaskedBatchNorm_0``)
+    → ``roi_head.conv_part.{i}.{0,1}``; ``shared_fc_i`` / ``shared_bn_i`` →
+    ``roi_head.shared_fc_layer`` (Linear); ``{cls,reg}_i`` / ``_bn_i`` +
+    ``_out`` → ``roi_head.{cls,reg}_layers``, whose p = 0 Dropout after
+    the first block shifts the later indices)."""
+    head = model_cfg['POINT_HEAD']
+    point_head_towers(sd, params, batch_stats, (
+        ('cls_layers', head.get('CLS_FC', [])), ('part_reg_layers', head.get('PART_FC', [])),
+        *((('box_layers', head['REG_FC']),) if head.get('REG_FC', None) else ())))
 
     roi_cfg = model_cfg['ROI_HEAD']
     rh, srh = params['roi_head'], batch_stats['roi_head']
@@ -208,14 +291,8 @@ def part_head_from_flax(sd, params, batch_stats, model_cfg):
     _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n,
               range(n - 1) if float(roi_cfg.get('DP_RATIO', 0.3)) > 0 else (), extra_dims=0)
     for tower in ('cls', 'reg'):
-        pos = 0
-        for j in range(len(roi_cfg[f'{tower.upper()}_FC'])):
-            sd[f'roi_head.{tower}_layers.{pos}.weight'] = _dense(rh[f'{tower}_{j}']['kernel'])
-            _bn(sd, f'roi_head.{tower}_layers.{pos + 1}', rh[f'{tower}_bn_{j}'],
-                srh[f'{tower}_bn_{j}'])
-            pos += 3 + (j == 0)
-        sd[f'roi_head.{tower}_layers.{pos}.weight'] = _dense(rh[f'{tower}_out']['kernel'])
-        sd[f'roi_head.{tower}_layers.{pos}.bias'] = rh[f'{tower}_out']['bias']
+        _tower(sd, f'roi_head.{tower}_layers', rh, srh, tower,
+               len(roi_cfg[f'{tower.upper()}_FC']), 0)
 
 
 def _point_branch(sd, params, batch_stats, model_cfg):
@@ -394,7 +471,7 @@ def pillar_vfe_from_flax(sd, params, batch_stats):
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
     """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint, VoxelRCNN,
-    PVRCNN or PartA2 variables → port ``state_dict`` (torch tensors).  The
+    PVRCNN, PartA2 or PointRCNN variables → port ``state_dict`` (torch tensors).  The
     two-stage models and the backbones other than VoxelBackBone8x need
     ``model_cfg`` (the MODEL node): the Flax names of the point branch do
     not say where one MLP ends and the next begins, nor those of an FC tower
@@ -403,15 +480,18 @@ def flax_to_state_dict(params, batch_stats, model_cfg=None):
     sd = {}
     if 'vfe' in params:
         pillar_vfe_from_flax(sd, params, batch_stats)
+    pointnet2 = 'sa_0' in params.get('backbone_3d', {})
     if 'pfe' in params:
         _point_branch(sd, params, batch_stats, model_cfg)
+    elif pointnet2:
+        pointrcnn_from_flax(sd, params, batch_stats, model_cfg)
     elif 'conv_part_0' in params.get('roi_head', {}):
         part_head_from_flax(sd, params, batch_stats, model_cfg)
     elif 'cls_pred' in params.get('roi_head', {}):
         voxelrcnn_head_from_flax(sd, params, batch_stats, model_cfg)
     elif 'roi_head' in params:
         second_head_from_flax(sd, params, batch_stats, model_cfg)
-    if 'backbone_3d' in params:
+    if 'backbone_3d' in params and not pointnet2:
         backbone_3d_from_flax(sd, params['backbone_3d'], batch_stats['backbone_3d'],
                               model_cfg or {'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'}})
 

@@ -10,8 +10,10 @@ VoxelRCNN (``VoxelRCNNHead``; after ``torch_ckpt.py:668
 _map_voxelrcnn_roi_head``), PV-RCNN (voxel set abstraction, point head,
 PV-RCNN head, and a CenterHead RPN) and PartA2 (``UNetV2``, the part head,
 ``PartA2FCHead``; ``PartA2Net`` and a ``PointRCNN`` over UNetV2, i.e.
-PartA2_free).  Another family raises, naming ROADMAP Queue 1 item 14
-(14f-14h are to come), and so does ``VoxelResBackBone8x``: the JAX
+PartA2_free) and PointRCNN (``PointNet2MSG``, ``PointHeadBox``,
+``PointRCNNHead``; after ``torch_ckpt.py:715 _map_pointnet2_backbone`` and
+``:739 _map_pointrcnn_roi_head``).  Another family raises, naming ROADMAP
+Queue 1 item 14 (14g-14h are to come), and so does ``VoxelResBackBone8x``: the JAX
 package's (and so the port's) has OpenPCDet's plain stage widths, one block
 in conv1 and 64 channels in conv4, where OpenPCDet's has two blocks in conv1
 and 128 channels in conv4, so its conv4 and conv_out kernels have other
@@ -48,6 +50,11 @@ own name; its layout is changed only where the two differ:
     sparse convs over the RoI grid, in any shipped orientation as above,
     become the port's dense (3, 3, 3, Cin, Cout) kernels over the grid's
     (x, y, z) axes, as the JAX importer's ``_t_spconv_dense`` does.
+  * PointNet2MSG's FP levels: OpenPCDet's ``PointnetFPModule`` reads
+    [interpolated | skip] features, the port (as the JAX module) [skip |
+    interpolated], so the first weight of each ``FP_modules.{k}.mlp`` has
+    its two input blocks swapped (``skip_first``).  The JAX importer maps
+    those weights unswapped (ROADMAP Queue 3).
   * BatchNorm weights and running statistics, ``num_batches_tracked``
     included, are copied.
   * CenterHead's branches: OpenPCDet's ``heads_list.0.{branch}.0`` is conv
@@ -78,11 +85,12 @@ def check_family(model_cfg):
     model that ``model_cfg`` (the MODEL node) describes."""
     name = model_cfg['NAME']
     backbone = (model_cfg.get('BACKBONE_3D', None) or {}).get('NAME')
-    if name not in FAMILIES or (name == 'PointRCNN' and backbone != 'UNetV2'):
+    if name not in FAMILIES or (name == 'PointRCNN'
+                                and backbone not in ('UNetV2', 'PointNet2MSG')):
         raise NotImplementedError(
             f'OpenPCDet import of {name} ({backbone}): the port imports '
-            f'{", ".join(FAMILIES)} (PointRCNN over UNetV2 only); the rest of the model zoo '
-            'comes with ROADMAP Queue 1 item 14 (14f-14h)')
+            f'{", ".join(FAMILIES)} (PointRCNN over UNetV2 or PointNet2MSG); the rest of the '
+            'model zoo comes with ROADMAP Queue 1 item 14 (14g-14h)')
     if backbone == 'VoxelResBackBone8x':
         raise NotImplementedError(
             'OpenPCDet import of VoxelResBackBone8x: the port\'s (as the JAX package\'s) keeps '
@@ -105,14 +113,31 @@ def check_family(model_cfg):
 def shared_fc_layout(model):
     """(grid points, OpenPCDet's grid axes reversed) of ``model``'s RoI head's
     pooled grid: PV-RCNN's and PartA2FCHead's G³ in one order, SECONDHead's
-    G² with (G_y, G_x) against the port's (G_x, G_y); None without a RoI head
-    or where the layouts agree (VoxelRCNNHead)."""
+    G² with (G_y, G_x) against the port's (G_x, G_y); None without a RoI head,
+    where the layouts agree (VoxelRCNNHead) or without a shared FC
+    (PointRCNNHead)."""
     roi_head = getattr(model, 'roi_head', None)
-    if roi_head is None or model.model_cfg['ROI_HEAD']['NAME'] == 'VoxelRCNNHead':
+    if roi_head is None or model.model_cfg['ROI_HEAD']['NAME'] in ('VoxelRCNNHead',
+                                                                    'PointRCNNHead'):
         return None
     if model.model_cfg['ROI_HEAD']['NAME'] == 'SECONDHead':
         return roi_head.grid_size ** 2, True
     return roi_head.grid_size ** 3, False
+
+
+def fp_skips(model):
+    """{first FP weight's name: its skip width} of a PointNet2MSG backbone,
+    else {}."""
+    backbone = getattr(model, 'backbone_3d', None)
+    return {f'backbone_3d.FP_modules.{k}.mlp.0.weight': c
+            for k, c in enumerate(getattr(backbone, 'skip_channels', ()))}
+
+
+def skip_first(w, skip):
+    """An FP level's first weight (Cout, pre + skip, ...) over OpenPCDet's
+    [interpolated | skip] input → over the port's [skip | interpolated]."""
+    pre = w.shape[1] - skip
+    return torch.cat([w[:, pre:], w[:, :pre]], dim=1)
 
 
 def spconv_kernel(w, c_in, c_out):
@@ -189,8 +214,10 @@ def _squeeze_trailing(shape):
     return tuple(shape)
 
 
-def _convert(key, src, tgt, layout):
+def _convert(key, src, tgt, layout, skips):
     """``src`` in the target's layout, or None when no rule makes it fit."""
+    if key in skips and src.shape == tgt.shape:
+        return skip_first(src, skips[key])
     if src.ndim == 5 and (tgt.ndim == 3 and key.startswith('backbone_3d.')
                           or tgt.ndim == 5 and key.startswith(('roi_head.conv_part.',
                                                                'roi_head.conv_rpn.'))):
@@ -217,7 +244,7 @@ def map_openpcdet_state(sd, model):
     check_family(model.model_cfg)
     if (model.model_cfg.get('DENSE_HEAD', None) or {}).get('NAME') == 'CenterHead':
         sd = fold_center_branches(sd)
-    layout = shared_fc_layout(model)
+    layout, skips = shared_fc_layout(model), fp_skips(model)
     target = {k: v.detach().cpu() for k, v in model.state_dict().items()}
     out = dict(target)
     report = {'mapped': [], 'mismatched': [], 'unmatched_target': [], 'unused_source': []}
@@ -227,7 +254,7 @@ def map_openpcdet_state(sd, model):
             report['unmatched_target'].append(key)
             continue
         src = src.detach().cpu()
-        value = _convert(key, src, tgt, layout)
+        value = _convert(key, src, tgt, layout, skips)
         if value is None:
             report['mismatched'].append((key, tuple(src.shape), tuple(tgt.shape)))
             report['unmatched_target'].append(key)

@@ -9,7 +9,10 @@ PV-RCNN with a LossNet (``test_torch_pvrcnn_active.py``), VoxelRCNN
 (``test_torch_voxel_rcnn.py``'s reduced KITTI model) and PartA2
 (``test_torch_parta2.py``'s reduced PartA2.yaml: UNetV2's decoder, the part
 head's towers and PartA2FCHead's conv branches, whose sparse kernels over
-the RoI grid become the port's dense (3, 3, 3, Cin, Cout) ones), with the
+the RoI grid become the port's dense (3, 3, 3, Cin, Cout) ones) and
+PointRCNN (``test_torch_pointrcnn.py``'s reduced pointrcnn.yaml:
+PointNet2MSG's SA and FP levels, PointHeadBox's towers, PointRCNNHead's
+xyz-up, merge-down and SA levels and towers), with the
 sparse conv kernels in spconv 1.x's (kz, ky, kx, Cin, Cout) and 2.x's native
 (Cout, kz, ky, kx, Cin) layouts.  Each ``.pth`` goes through the JAX importer
 into Flax trees of zeros shaped by ``jax.eval_shape`` of the JAX model's
@@ -17,7 +20,10 @@ init (traced, not compiled), then ``flax_to_state_dict``, and through the
 port's importer into the port model: equal key for key and bit for bit, but
 for ``roi_head.shared_fc_layer.0.weight`` of PV-RCNN and PartA2, which the
 port permutes from OpenPCDet's channel-major input (C·G³) to its
-grid-major one (G³·C) and the JAX importer does not.  That the permutation is right is held to
+grid-major one (G³·C) and the JAX importer does not, and for the first
+weight of each of PointNet2MSG's FP levels, whose [interpolated | skip]
+input blocks the port swaps to its [skip | interpolated] and the JAX
+importer does not.  That the permutations are right is held to
 OpenPCDet's own product: the imported layer on grid-major pooled features
 equals the source weight on the same features flattened channel-major.
 VoxelRCNN's first shared FC maps across unpermuted, bit for bit with the
@@ -66,6 +72,12 @@ def _parta2_tests():
     return test_torch_parta2
 
 
+def _pointrcnn_tests():
+    """``tests/test_torch_pointrcnn.py``, imported at first use."""
+    import test_torch_pointrcnn
+    return test_torch_pointrcnn
+
+
 def _pvrcnn(load):
     c = test_torch_pvrcnn_active._cfg(load, 'llal')
     c.DATA_CONFIG.NUM_SCENES = 2
@@ -78,6 +90,7 @@ CONFIGS = {
     'pvrcnn': _pvrcnn,
     'voxelrcnn': lambda load: _voxel_rcnn_tests()._reduced_kitti(load),
     'parta2': lambda load: _parta2_tests()._reduced(load),
+    'pointrcnn': lambda load: _pointrcnn_tests().reduced(load),
 }
 PERMUTED = ('pvrcnn', 'parta2')         # the first shared FC: channel-major in OpenPCDet
 # what the JAX importer leaves at its init (ROADMAP Queue 3): OpenPCDet's
@@ -141,7 +154,7 @@ def _fabricate(model, layout, seed):
 
 CASES = [('second', '1.x'), ('second', '2.x'), ('pointpillar', '1.x'),
          ('pvrcnn', '1.x'), ('pvrcnn', '2.x'), ('voxelrcnn', '1.x'), ('voxelrcnn', '2.x'),
-         ('parta2', '1.x'), ('parta2', '2.x')]
+         ('parta2', '1.x'), ('parta2', '2.x'), ('pointrcnn', '1.x'), ('pointrcnn', '2.x')]
 
 
 @pytest.mark.parametrize('family, layout', CASES)
@@ -163,6 +176,8 @@ def test_import_equals_the_jax_import(tmp_path, family, layout):
     assert bool(loss_net) == (family == 'pvrcnn')
     assert report['unmatched_target'] == loss_net
     misses = JAX_MISSES.get(family, {'port': (), 'flax': ()})
+    skips = ockpt.fp_skips(model)
+    assert len(skips) == (4 if family == 'pointrcnn' else 0)
     jmissed = [x.replace('/', '.') for x in jreport['unmatched_target']]
     assert all(p.startswith(('roi_head.loss_net.', *misses['flax'])) for p in jmissed)
     assert len([p for p in jmissed if not p.startswith(misses['flax'])]) == (
@@ -184,6 +199,9 @@ def test_import_equals_the_jax_import(tmp_path, family, layout):
         elif key == ockpt.SHARED_FC and family in PERMUTED:
             permuted = ockpt.grid_major(value, model.roi_head.grid_size ** 3)
             assert torch.equal(got[key], permuted)
+            assert not torch.equal(got[key], value)
+        elif key in skips:                  # the JAX importer keeps OpenPCDet's blocks
+            assert torch.equal(got[key], ockpt.skip_first(value, skips[key])), key
             assert not torch.equal(got[key], value)
         else:
             assert got[key].dtype == value.dtype and torch.equal(got[key], value), key
@@ -283,6 +301,27 @@ def test_voxelrcnn_shared_fc_equals_openpcdets_product(tmp_path):
     np.testing.assert_allclose(mine.numpy(), theirs.numpy(), rtol=1e-6, atol=0)
 
 
+def test_pointnet2_fp_equals_openpcdets_product(tmp_path):
+    """OpenPCDet's FP level concatenates [interpolated | skip]; the port's
+    imported first FP weight on its [skip | interpolated] features gives
+    the source weight's product on OpenPCDet's order (f64), at every level."""
+    _, _, model, _ = _models('pointrcnn')
+    model = copy.deepcopy(model)
+    sd = _fabricate(model, '1.x', seed=11)
+    path = tmp_path / 'openpcdet.pth'
+    torch.save({'model_state': sd}, path)
+    ockpt.import_openpcdet_checkpoint(str(path), model)
+    rng = np.random.RandomState(12)
+    for k, skip in enumerate(model.backbone_3d.skip_channels):
+        w = model.backbone_3d.FP_modules[k].mlp[0].weight.detach().double()[..., 0, 0]
+        src = sd[f'backbone_3d.FP_modules.{k}.mlp.0.weight'].double()[..., 0, 0]
+        skip_f = torch.from_numpy(rng.randn(50, skip))
+        interp = torch.from_numpy(rng.randn(50, w.shape[1] - skip))
+        np.testing.assert_allclose((torch.cat([skip_f, interp], 1) @ w.T).numpy(),
+                                   (torch.cat([interp, skip_f], 1) @ src.T).numpy(),
+                                   rtol=1e-12, atol=1e-12)
+
+
 def test_bare_state_dict_and_weights_only(tmp_path):
     _, _, model, _ = _models('second')
     sd = _fabricate(model, '2.x', seed=9)
@@ -299,7 +338,7 @@ def test_bare_state_dict_and_weights_only(tmp_path):
 
 def test_unported_families_and_bad_kernels_raise():
     for cfg in ({'NAME': 'PVRCNNPlusPlus'}, {'NAME': 'CaDDN'}, {'NAME': 'PointRCNN'},
-                {'NAME': 'PointRCNN', 'BACKBONE_3D': {'NAME': 'PointNet2MSG'}}):
+                {'NAME': 'PointRCNN', 'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'}}):
         stub = type('Stub', (), {'model_cfg': cfg})()
         with pytest.raises(NotImplementedError, match='item 14'):
             ockpt.map_openpcdet_state({}, stub)
