@@ -337,9 +337,6 @@ TRAIN_TOL = {'bf16': {'loss': 3e-3, 'cos': 0.75, 'median': 0.75},
 # larger reading (the cosine's, 3.7x its distance from 1).
 PVRCNN_TRAIN_TOL = {'bf16': {'loss': 3e-3, 'cos': 0.75, 'median': 0.25},
                     'f32': {'loss': 1.5e-6, 'grad': 2e-2, 'median': 1.5e-3}}
-RPN_LOSSES = ('rpn_loss_cls', 'rpn_loss_loc', 'rpn_loss')
-TWO_STAGE_LOSSES = RPN_LOSSES + ('point_loss', 'rcnn_loss_cls', 'rcnn_loss_reg',
-                                 'rcnn_loss')
 # parameters whose gradient reaches them through a grouped max-pool
 BEHIND_MAX_POOL = ('backbone_3d.', 'pfe.', 'point_head.', 'roi_head.roi_grid_pool_layer.')
 SPARSE_LAYERS = ['conv_input', 'conv1.0', 'conv2.0', 'conv2.1', 'conv2.2',
@@ -497,7 +494,7 @@ def profile_step(step, batch, rows=10):
                                  'pack_weights_kernel', 'wgrad_fma_kernel',
                                  'wgrad_mma_kernel', 'count_hits_kernel',
                                  'list_hits_kernel', 'sum_blocks_kernel',
-                                 'sum_slices_kernel', 'fps_kernel',
+                                 'sum_slices_kernel', 'fps_kernel', 'fps_cluster_kernel',
                                  'overlap_bev_kernel', 'nms_mask_kernel')
                      if k in e.key), None)
         if name and e.device_type == DeviceType.CUDA:
@@ -1145,8 +1142,9 @@ def time_gather_gemm(name, layer, feats, rbk, n_launch, cdt=torch.bfloat16, weig
 
 def fps_equal(points, valid, k, tag):
     """The FPS kernel against its plain version, for equality; returns the
-    indices and the largest index difference (0, or it raised).  Every chosen
-    index of a frame with valid points is valid."""
+    indices and the largest index difference (0, or it raised).  The first
+    index is 0, valid or not (SPC's candidate mask may leave point 0 out);
+    every later index of a frame with valid points is valid."""
     from crb_active_3ddet_torch.ops import cuda_fps
     got = cuda_fps.farthest_point_sample_cuda(points, valid, k)
     torch.cuda.synchronize()
@@ -1155,7 +1153,9 @@ def fps_equal(points, valid, k, tag):
     if wrong:
         raise RuntimeError(f'FPS {tag}: {wrong} of {got.numel()} indices differ '
                            f'from the plain version')
-    chosen_valid = torch.gather(valid, 1, got.long())
+    if not (got[:, 0] == 0).all():
+        raise RuntimeError(f'FPS {tag}: a frame does not start at point 0')
+    chosen_valid = torch.gather(valid, 1, got[:, 1:].long())
     has_valid = valid.any(dim=1, keepdim=True)
     if not (chosen_valid | ~has_valid).all():
         raise RuntimeError(f'FPS {tag}: an invalid point was chosen')
@@ -1418,8 +1418,10 @@ def train_stage_ms(model, optimizer, dataset, batch, generator=None, iters=3):
     return totals
 
 
-def train_losses(model):
-    return TWO_STAGE_LOSSES if hasattr(model, 'roi_head') else RPN_LOSSES
+def train_losses(tb):
+    """The loss terms of a ``compute_loss`` tb dict, or of a train step's
+    metrics (its scalar entries), without their sum ``loss``."""
+    return tuple(k for k, v in tb.items() if k != 'loss' and torch.is_tensor(v) and v.ndim == 0)
 
 
 def grads_of(model, vox):
@@ -1433,7 +1435,7 @@ def grads_of(model, vox):
     gen = torch.Generator(device=model.device).manual_seed(1)
     loss, tb = model.compute_loss(model(vox, gen))
     loss.backward()
-    return ({k: tb[k].detach() for k in train_losses(model)},
+    return ({k: tb[k].detach() for k in train_losses(tb)},
             {n: p.grad.clone() for n, p in model.named_parameters()})
 
 
@@ -1473,7 +1475,7 @@ def check_train_kernel_path(model, vox, mode, tols):
             f'{spread[-1]:.3e}, median {spread[len(spread) // 2]:.3e}')
     tol = tols[mode]
     loss_err = {k: (abs(tb[k] - tb_ref[k]) / tb_ref[k].abs().clamp(min=1e-30)).item()
-                for k in train_losses(model)}
+                for k in train_losses(tb)}
     apart = _apart(grads, grads_ref)
     worst = sorted(apart.items(), key=lambda kv: -kv[1][0])
     median = sorted(e for e, _ in apart.values())[len(apart) // 2]
@@ -1925,8 +1927,9 @@ def drive_train(dev, cfg_file, prefix, tols, box_std=None, n_iter=5, k2_rows=Tru
 # The reduced PV-RCNN f32 train step, card vs CPU: a summation-order
 # difference flips the argmax of near-tied slots of the grouped max-pools,
 # which moves the gradients behind them.  Readings on an H100 80GB HBM3 at
-# 700 W (PERF.md, Findings; two runs): 9.01e-5 and 8.73e-5.  Limit 4.4x the
-# larger.
+# 700 W (PERF.md, Findings; two runs each): 9.01e-5 and 8.73e-5, and with the
+# CPU on the card's ReLU masks (``relu_masks``) 9.70e-5 and 9.56e-5.  Limit
+# 4.1x the largest.
 REDUCED_BEHIND_TOL = 4e-4
 # An updated entry whose two gradients (both |g| >= 1e-5) differ in sign
 # moves up to 2 lr apart; such entries may lie only behind the max-pools, at
@@ -1934,50 +1937,104 @@ REDUCED_BEHIND_TOL = 4e-4
 # parameter's largest |g| (the CPU tests' JAX-vs-port readings: 61 and 298
 # of 737 121 entries, each within 1.05e-3).
 SIGN_FLIPS = {'share': 2e-3, 'size': 5e-3}
+# A ReLU whose input the card and the CPU round to opposite signs passes
+# the gradient on one and not on the other.  The reduced PV-RCNN++ step
+# flips 3 entries of its RoI grid pool's first post-MLP ReLU (2, 2 048, 64),
+# at inputs 8.36e-6 of their tensor's rms from zero, and its gradients
+# behind them then part from the CPU's by up to 8.70e-3 of their norm (PERF.md,
+# Findings).  So the CPU step takes the card's masks (``relu_masks``).  The
+# flips themselves are held here: readings on an H100 80GB HBM3 at 700 W
+# (two runs alike) 3 of 11 839 104 entries within 8.36e-6 (PV-RCNN++) and 1
+# of 3 153 920 within 2.76e-7 (PV-RCNN); SECOND and PointPillars none.
+# Limits 3x and 3.6x the larger reading.
+RELU_FLIPS = {'share': 1e-6, 'size': 3e-5}
 
 
-def check_reduced_train(dev, cfg_file, box_std=None):
-    """Reduced model in f32, one train step from the same weights and
-    batch on the card and on the CPU: loss terms (rtol 1e-5), gradients
-    (||diff|| <= 1e-4 ||ref|| + 1e-7), updated parameters (1e-6 where the
-    clipped |g| >= 1e-5, else 2 lr) and BN running statistics (1e-5).
-    PV-RCNN without Dropout and from RoI targets drawn on the CPU
+@contextlib.contextmanager
+def relu_masks(masks, flips=None):
+    """While the block runs, ``torch.relu`` (which ``F.relu`` and
+    ``nn.ReLU`` call) records each call's mask (x > 0, on the host) in
+    ``masks``; given a list ``flips``, it applies ``masks`` in call order
+    instead (x · mask: the gradient passes where the recorded call's did)
+    and appends each call's (entries, flips, largest |x| / rms(x) at a
+    flip, shape)."""
+    real = torch.relu
+
+    def relu(x):
+        if flips is None:
+            masks.append((x > 0).cpu())
+            return real(x)
+        if len(flips) >= len(masks) or masks[len(flips)].shape != x.shape:
+            raise RuntimeError(f'ReLU call {len(flips)} of shape {tuple(x.shape)} has no '
+                               'recorded mask of its shape')
+        mask = masks[len(flips)].to(x.device)
+        flip = mask != (x > 0)
+        n = int(flip.sum())
+        rms = x.detach().double().pow(2).mean().sqrt()
+        size = (x.detach()[flip].abs().max() / rms).item() if n else 0.0
+        flips.append((x.numel(), n, size, tuple(x.shape)))
+        return x * mask.to(x.dtype)
+    torch.relu = relu
+    try:
+        yield
+    finally:
+        torch.relu = real
+
+
+def check_reduced_train(dev, small, box_std=None):
+    """A reduced config ``small`` in f32, one train step from the same
+    weights and batch on the card and then on the CPU, the CPU's ReLUs on
+    the card's masks (``relu_masks``; ``RELU_FLIPS`` bounds the masks that
+    the two roundings flip): loss terms (rtol 1e-5), gradients (||diff||
+    <= 1e-4 ||ref|| + 1e-7), updated parameters (1e-6 where the clipped
+    |g| >= 1e-5, else 2 lr) and BN running statistics (1e-5).  A two-stage
+    model without Dropout and from RoI targets drawn on the CPU
     (``common_targets``; a CUDA generator draws other numbers), given to
-    the train step as ``rois`` and ``roi_targets_dict``; behind its grouped
-    max-pools the gradients within ``REDUCED_BEHIND_TOL``; the updated
-    parameters within 1e-5 where both clipped |g| >= 1e-5 with one sign
-    (its LR is 0.01), the entries of opposite signs held to
-    ``SIGN_FLIPS``."""
-    from crb_active_3ddet_torch.config import load_config
+    the train step as ``rois`` and ``roi_targets_dict``; behind grouped
+    max-pools (PV-RCNN's; PV-RCNN++'s vector pools have none) the
+    gradients within ``REDUCED_BEHIND_TOL``; the updated parameters within
+    1e-5 where both clipped |g| >= 1e-5 with one sign (its LR is 0.01),
+    the entries of opposite signs held to ``SIGN_FLIPS``."""
+    from crb_active_3ddet_torch.models.backbones_3d.pfe import StackSAModuleMSG
     from crb_active_3ddet_torch.runtime.train import (host_to_device_batch,
                                                       prepare_device_batch)
-    small = reduced_cfg(load_config(cfg_file))
     name = small.MODEL.NAME
     two_stage = small.MODEL.get('ROI_HEAD', None) is not None
     if two_stage:
         small.MODEL.ROI_HEAD.DP_RATIO = 0.0
-    keys, out, targets = RPN_LOSSES, [], None
-    for d in (torch.device('cpu'), dev):
-        dataset, loader, state, step, schedule = build_train(small, 2, d, seed=1,
-                                                             box_std=box_std)
-        batch = host_to_device_batch(first_batch(loader), d)
-        if two_stage:
-            keys = train_losses(state.model)
-            if targets is None:                          # on the CPU, first
-                targets = common_targets(state.model, prepare_device_batch(
-                    batch, dataset.voxel_cfg, dataset.grid_size,
-                    dataset.point_cloud_range, dataset.voxel_size), seed=2)
+    cpu = torch.device('cpu')
+    built = {d: build_train(small, 2, d, seed=1, box_std=box_std) for d in (cpu, dev)}
+    dataset, loader, state, _, schedule = built[cpu]
+    batches = {d: host_to_device_batch(first_batch(b[1]), d) for d, b in built.items()}
+    behind = BEHIND_MAX_POOL if any(isinstance(m, StackSAModuleMSG)
+                                    for m in state.model.modules()) else ()
+    if two_stage:
+        targets = common_targets(state.model, prepare_device_batch(
+            batches[cpu], dataset.voxel_cfg, dataset.grid_size,
+            dataset.point_cloud_range, dataset.voxel_size), seed=2)
+        for d in batches:
             given = {k: v.to(d) for k, v in targets.items()}
-            batch = {**batch, 'rois': given['rois'], 'roi_targets_dict': given}
-        state, m = step(state, batch)
-        out.append(({k: m[k].item() for k in keys},
-                    {n: p.grad.cpu() for n, p in state.model.named_parameters()},
-                    {k: v.cpu() for k, v in state.model.state_dict().items()}))
-    (lc, gc, sc), (lg, gg, sg) = out
-    for k in keys:
+            batches[d] = {**batches[d], 'rois': given['rois'], 'roi_targets_dict': given}
+    masks, flips, out = [], [], {}
+    for d, ctx in ((dev, relu_masks(masks)), (cpu, relu_masks(masks, flips))):
+        _, _, state, step, _ = built[d]
+        with ctx:
+            state, m = step(state, batches[d])
+        out[d] = ({k: m[k].item() for k in train_losses(m)},
+                  {n: p.grad.cpu() for n, p in state.model.named_parameters()},
+                  {k: v.cpu() for k, v in state.model.state_dict().items()})
+    (lc, gc, sc), (lg, gg, sg) = out[cpu], out[dev]
+    entries, n_flips = sum(f[0] for f in flips), sum(f[1] for f in flips)
+    flip_size = max(f[2] for f in flips)
+    sites = ', '.join(f'call {i} {shape} {n}' for i, (_, n, _, shape) in enumerate(flips) if n)
+    if len(flips) != len(masks) or n_flips > RELU_FLIPS['share'] * entries \
+            or flip_size > RELU_FLIPS['size']:
+        raise RuntimeError(f'reduced {name} train f32: {n_flips} of {entries} ReLU entries '
+                           f'flipped card vs CPU, up to {flip_size:.2e} of their tensor\'s rms '
+                           f'from zero, over {len(flips)} of {len(masks)} calls')
+    for k in lc:
         if not abs(lg[k] - lc[k]) <= 1e-5 * abs(lc[k]):
             raise RuntimeError(f'reduced {name} train f32: {k} {lg[k]} card vs {lc[k]} CPU')
-    behind = BEHIND_MAX_POOL if two_stage else ()
     gerr = {n: ((gg[n] - gc[n]).norm() / (gc[n].norm() + 1e-30)).item() for n in gc}
     for n in gc:
         tol = REDUCED_BEHIND_TOL if n.startswith(behind) else 1e-4
@@ -1986,7 +2043,7 @@ def check_reduced_train(dev, cfg_file, box_std=None):
                                f'{gerr[n]:.3e}')
     atol = 1e-5 if two_stage else 1e-6
     lr, loose, bn = schedule(0), 0, 0.0      # the step clipped the gradients in place
-    flips, flip_size, n_behind = 0, 0.0, 0
+    sign_flips, sign_size, n_behind = 0, 0.0, 0
     for k, v in sc.items():
         d = (sg[k] - v).abs()
         if k.endswith(('running_mean', 'running_var')):
@@ -2002,27 +2059,31 @@ def check_reduced_train(dev, cfg_file, box_std=None):
                 if flip.any():
                     size = (torch.maximum(gc[k].abs(), gg[k].abs())[flip].max()
                             / gc[k].abs().max()).item()
-                    flip_size = max(flip_size, size)
+                    sign_size = max(sign_size, size)
                     if not k.startswith(behind) or size > SIGN_FLIPS['size']:
                         raise RuntimeError(f'reduced {name} train f32: gradient of {k} card '
                                            f'vs CPU of opposite signs, |g| up to {size:.2e} '
                                            'of its largest')
-                flips += int(flip.sum())
+                sign_flips += int(flip.sum())
                 n_behind += v.numel() if k.startswith(behind) else 0
             if not (d[firm] <= atol).all() or not (d <= 2 * lr + 1e-7).all():
                 raise RuntimeError(f'reduced {name} train f32: updated {k} card vs CPU')
             loose += int((~firm & (d > atol)).sum())
-    if flips > SIGN_FLIPS['share'] * n_behind:
-        raise RuntimeError(f'reduced {name} train f32: {flips} gradient entries of opposite '
-                           f'signs card vs CPU, of {n_behind} behind the max-pools')
+    if sign_flips > SIGN_FLIPS['share'] * n_behind:
+        raise RuntimeError(f'reduced {name} train f32: {sign_flips} gradient entries of '
+                           f'opposite signs card vs CPU, of {n_behind} behind the max-pools')
     ahead = [e for n, e in gerr.items() if not n.startswith(behind)]
     behind_err = [e for n, e in gerr.items() if n.startswith(behind)]
     log(f'reduced {name} train f32 card vs CPU: losses '
-        + ', '.join(f'{k} {lg[k]:.6f} / {lc[k]:.6f}' for k in keys)
+        + ', '.join(f'{k} {lg[k]:.6f} / {lc[k]:.6f}' for k in lc)
+        + f'; {n_flips} of {entries} ReLU entries over {len(flips)} calls flipped'
+        + (f' ({sites})' if sites else '') + f', up to {flip_size:.2e} of their tensor\'s '
+        f'rms from zero (limits {RELU_FLIPS["share"]:.0e} of the entries, '
+        f'{RELU_FLIPS["size"]:.0e}), the CPU on the card\'s masks'
         + f'; largest gradient ||diff||/||ref|| {max(ahead):.2e} (tol 1e-4)'
         + (f', behind the grouped max-pools {max(behind_err):.2e} (tol '
-           f'{REDUCED_BEHIND_TOL:.0e}); {flips} entries of {n_behind} behind them '
-           f'with gradients of opposite signs, |g| up to {flip_size:.2e} of their '
+           f'{REDUCED_BEHIND_TOL:.0e}); {sign_flips} entries of {n_behind} behind them '
+           f'with gradients of opposite signs, |g| up to {sign_size:.2e} of their '
            'parameter\'s largest' if behind_err else '')
         + f'; BN statistics max diff {bn:.2e} (tol 1e-5); {loose} updated entries not '
         f'held to {atol:.0e} differ by more than it (within 2 lr)')
@@ -7137,10 +7198,331 @@ def drive_pointrcnn(dev):
     return results
 
 
+PVRCNN_PP_CFG = 'tools/cfgs/waymo_models/pv_rcnn_plusplus.yaml'
+PVRCNN_PP_RES_CFG = 'tools/cfgs/waymo_models/pv_rcnn_plusplus_resnet.yaml'
+# the files cut in depth only, as the Waymo phase's: one epoch over every
+# second train frame (7 frames, 3 steps at the files' batch 2), every second
+# val frame (2 frames, one test batch); and LR 0.003, as WAYMO_LR (the files'
+# 0.01 overflows a short one-cycle, ROADMAP Queue 3)
+PVRCNN_PP_SETS = ('OPTIMIZATION.NUM_EPOCHS', '1', 'OPTIMIZATION.LR', '0.003',
+                  'DATA_CONFIG.SAMPLED_INTERVAL.train', '2',
+                  'DATA_CONFIG.SAMPLED_INTERVAL.test', '2')
+# the test CLI keeps every scored box (the file's SCORE_THRESH 0.1: a 3-step
+# model's scores may all read below it), as CENTER_TEST_SETS
+PVRCNN_PP_TEST_SETS = ('MODEL.POST_PROCESSING.SCORE_THRESH', '0.0')
+# a train step: 12 K2 forward, 11 dgrad, 12 wgrad, K3 once over SPC's
+# candidates, K1's mask at the early TRAIN proposal NMS and its float entry
+# in the proposal targets; a test batch: 12 K2, 1 K3, K1's mask at the early
+# proposal NMS and the final NMS, its float entry at the recall
+PVRCNN_PP_STEP = dict(n_k2=len(SPARSE_LAYERS), n_dgrad=len(SPARSE_LAYERS) - 1,
+                      n_wgrad=len(SPARSE_LAYERS), n_fps=1, n_mask=1, n_float=1)
+PVRCNN_PP_BATCH = PVRCNN_TEST_LAUNCHES
+# VoxelResBackBone8x's K2 layers in call order: conv_input, a
+# SparseBasicBlock of 2 convs in conv1, a downsample and 2 blocks in conv2-4,
+# conv_out.  A stage's block convs share one rulebook and shape: the first of
+# them is timed, the others held against their plain versions untimed
+RES_LAYERS = ['conv_input', 'conv1.0.conv1', 'conv1.0.conv2'] + [
+    name for s in (2, 3, 4) for name in (
+        f'conv{s}.0', *(f'conv{s}.{b}.conv{c}' for b in (1, 2) for c in (1, 2)))] + ['conv_out']
+RES_TIMED = ('conv_input', 'conv1.0.conv1', 'conv2.0', 'conv2.1.conv1', 'conv3.0',
+             'conv3.1.conv1', 'conv4.0', 'conv4.1.conv1', 'conv_out')
+PP_ROI_KEYS = ('rois', 'roi_labels', 'roi_valid', 'roi_scores')
+PP_POINT_KEYS = ('point_coords', 'point_coords_valid')
+PP_DENSE_KEYS = ('cls_preds', 'box_preds', 'dir_cls_preds', 'center_heatmap', 'center_reg')
+
+
+def pvrcnn_pp_check(tag):
+    """A ``check`` for ``f32_ahead_of_nms``: the plain path from the kernel
+    path's RoIs (the early proposal step keeps given RoIs; a near-tie of the
+    proposal NMS may keep others, and SPC then samples other keypoints),
+    held at ``tol``: the BEV map and the dense head's maps, the keypoints
+    equal (SPC's mask over the same RoIs, K3 exact), the VSA's point features,
+    the point head's scores, the RoI head's outputs and decoded boxes; the
+    plain path's own proposals counted against the kernel path's."""
+    from crb_active_3ddet_torch.models.roi_heads import roi_head_template as rht
+
+    def check(model, vox, tol):
+        with torch.no_grad():
+            out = model(vox)
+            with plain_versions():
+                ref = model({**vox, **{k: out[k] for k in PP_ROI_KEYS}})
+                own = model(vox, dense_only=True)
+                own = rht.proposal_layer({k: own[k] for k in ('batch_box_preds',
+                                                              'batch_cls_preds')},
+                                         model.roi_head.model_cfg['NMS_CONFIG']['TEST'])
+        for k in PP_POINT_KEYS:
+            if not torch.equal(out[k], ref[k]):
+                raise RuntimeError(f'{tag}: {k} of the kernel and the plain path differ')
+        rows = ((out['rois'] - own['rois']).abs() / (1 + own['rois'].abs())).amax(-1) <= tol
+        rows &= out['roi_valid'] == own['roi_valid']
+        keys = ['spatial_features_2d'] + [k for k in PP_DENSE_KEYS if k in out] + [
+            'point_features_before_fusion', 'point_features', 'point_cls_scores', 'rcnn_cls',
+            'rcnn_reg', 'batch_box_preds']
+        errs = {}
+        for k in keys:
+            errs[k] = rel_err(out[k], ref[k], heading=k == 'batch_box_preds')
+            log(f'{tag} kernel path vs plain, {k} {tuple(ref[k].shape)}: max |diff|/(1+|ref|) '
+                f'{errs[k][0]:.3e} (limit {tol:.0e}), max |diff| {errs[k][1]:.3e}')
+        log(f'{tag}: keypoints equal; the plain path\'s own proposals {int(rows.sum())} of '
+            f'{rows.numel()} RoI rows within {tol:.0e} of the kernel path\'s (counted, no '
+            'limit: a near-tie of the NMS keeps others); the rest from the kernel path\'s RoIs')
+        bad = [k for k, e in errs.items() if not e[0] <= tol]
+        if bad:
+            raise RuntimeError(f'{tag}: the kernel path disagrees with the plain path at {bad}')
+        return out
+    return check
+
+
+def pvrcnn_pp_parts(model, vox, generator=None, dense_rows=None):
+    """One forward of ``model`` on ``vox`` (training mode with autograd
+    recording when the model is in training) with its SPC mask, FPS, each
+    vector pool and each three-NN call recorded, then each timed alone (CUDA
+    events, mean of 3): the SPC mask, K3, per VSA source (and the RoI grid
+    pool) its three-NN calls and the rest of its pool, the RoI towers.  With
+    ``dense_rows`` (a list) each three-NN call is also held index for index
+    and bit for bit against the dense form at its inputs, timed once, and
+    its (source, dense pairs, pruned ms, dense ms) appended.  Returns (the
+    parts' ms, the three-NN's dense pairs a forward)."""
+    from crb_active_3ddet_torch.models.backbones_3d import pfe as tpfe
+    from crb_active_3ddet_torch.models.backbones_3d import vector_pool as vp
+    from crb_active_3ddet_torch.ops import pointnet2
+    pfe, head = model.pfe, model.roi_head
+    pools = [('raw_points', pfe.SA_rawpoints)] + list(zip(pfe.SA_layer_names, pfe.SA_layers)) \
+        + [('roi_grid_pool', head.roi_grid_pool_layer)]
+    calls = {name: [] for name, _ in pools}
+    nn_calls, spc, fps, towers = [], [], [], []
+    with torch.set_grad_enabled(model.training):
+        with contextlib.ExitStack() as stack:
+            for name, m in pools:
+                stack.enter_context(recording(m, 'forward', calls[name]))
+            stack.enter_context(recording(vp, 'three_nn_lattice', nn_calls))
+            stack.enter_context(recording(tpfe, 'spc_candidates', spc))
+            stack.enter_context(recording(pointnet2, 'farthest_point_sample', fps))
+            stack.enter_context(recording(head, 'tower', towers))
+            model(vox, generator)
+        for name, m in pools:            # (``recording`` left a bound method there)
+            del m.forward
+        del head.tower
+        parts = {'SPC mask': cuda_time_ms(lambda: tpfe.spc_candidates(*spc[0][0]), warmup=1,
+                                          iters=3),
+                 'FPS (K3)': cuda_time_ms(lambda: pointnet2.farthest_point_sample(*fps[0][0]),
+                                          warmup=1, iters=3)}
+        pairs = 0
+        for i, (name, m) in enumerate(pools):
+            total = cuda_time_ms(lambda: m(*calls[name][0][0]), warmup=1, iters=3)
+            nn_ms = 0.0
+            for args, _, (dist, idx) in nn_calls[2 * i:2 * i + 2]:
+                ms = cuda_time_ms(lambda a=args: vp.three_nn_lattice(*a), warmup=1, iters=3)
+                b, mm, g, _ = args[1].shape
+                n_pairs = b * mm * g * args[2].shape[1]
+                pairs += n_pairs
+                nn_ms += ms
+                if dense_rows is not None:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    ddist, didx = vp.three_nn_dense(args[1], args[2], args[3])
+                    torch.cuda.synchronize()
+                    dense_ms = (time.perf_counter() - t) * 1e3
+                    if not (torch.equal(didx, idx) and torch.equal(ddist, dist)):
+                        raise RuntimeError(f'{name}: the pruned three-NN differs from the '
+                                           'dense form')
+                    dense_rows.append((name, g, n_pairs, ms, dense_ms))
+            parts[f'{name} three-NN x{len(nn_calls[2 * i:2 * i + 2])}'] = nn_ms
+            parts[f'{name} rest of the pool'] = total - nn_ms
+        args = towers[0][0]
+        parts['RoI towers'] = cuda_time_ms(lambda: head.tower(*args), warmup=1, iters=3)
+    return parts, pairs
+
+
+def pvrcnn_pp_stages(model, optimizer, cfg, dev, tag, iters=3):
+    """``second_stages`` (the eval and train steps by stage, the forward by
+    module) with its peak device memory, then the parts of one eval forward
+    of the first val batch (``pvrcnn_pp_parts``), each three-NN call held
+    against the dense form and timed beside it."""
+    from crb_active_3ddet_torch.datasets import build_dataloader
+    from crb_active_3ddet_torch.runtime.train import host_to_device_batch, prepare_device_batch
+    from crb_active_3ddet_torch.utils.common import geometry
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    second_stages(model, optimizer, cfg, dev, tag, iters)
+    log(f'{tag} stages: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    bs = int(cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, bs, workers=0,
+                                     training=False)
+    vox = prepare_device_batch(host_to_device_batch(first_batch(loader), dev), *geometry(ds))
+    model.eval()
+    rows = []
+    parts, pairs = pvrcnn_pp_parts(model, vox, None, rows)
+    log(f'{tag} eval forward by part (ms, CUDA events, batch {bs}, mean of 3): '
+        + ', '.join(f'{k} {v:.3f}' for k, v in parts.items())
+        + f'; the three-NN calls {pairs:.3e} dense pairs a forward')
+    log(f'{tag} three-NN, pruned route against the dense form (equal indices and distances '
+        'at every call): ' + '; '.join(
+            f'{name} G {g}: {n:.3e} dense pairs, pruned {ms:.2f} ms, dense {d:.2f} ms '
+            f'({n / d * 1e3:.3e} pairs/s dense)' for name, g, n, ms, d in rows))
+    model.zero_grad(set_to_none=True)
+
+
+def pvrcnn_pp_reduced_cfg(cfg_file, root):
+    """``cfg_file`` over the Waymo tree at a 51.2 m square with buffers of
+    2 048 voxels / 4 096 points, f32, 128 keypoints, narrow BEV, point head
+    and towers, GRID_SIZE 4, TEST proposals 256 → 32, TRAIN 256 → 64, 32
+    RoIs sampled a frame, the vector pools at the file's widths, for the card
+    vs CPU step."""
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    cfg = load_config(cfg_file)
+    cfg_from_list(['DATA_CONFIG.DATA_PATH', str(root), *PVRCNN_PP_SETS], cfg)
+    d, m = cfg.DATA_CONFIG, cfg.MODEL
+    d.POINT_CLOUD_RANGE = [-25.6, -25.6, -2, 25.6, 25.6, 4]
+    for p in d.DATA_PROCESSOR:
+        if p.NAME == 'transform_points_to_voxels':
+            p.MAX_NUMBER_OF_VOXELS = {'train': 2048, 'test': 2048}
+            p.MAX_POINTS_PER_FRAME = {'train': 4096, 'test': 4096}
+    m.BACKBONE_3D.USE_BF16 = False
+    m.BACKBONE_2D.LAYER_NUMS, m.BACKBONE_2D.NUM_FILTERS = [1, 1], [16, 32]
+    m.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [16, 16]
+    if m.DENSE_HEAD.NAME == 'CenterHead':
+        m.DENSE_HEAD.SHARED_CONV_CHANNEL = 16
+    m.PFE.NUM_KEYPOINTS = 128
+    m.POINT_HEAD.CLS_FC = [32, 32]
+    r = m.ROI_HEAD
+    r.SHARED_FC, r.CLS_FC, r.REG_FC, r.DP_RATIO = [64, 64], [32, 32], [32, 32], 0.0
+    r.ROI_GRID_POOL.GRID_SIZE = 4
+    r.NMS_CONFIG.TEST.NMS_PRE_MAXSIZE, r.NMS_CONFIG.TEST.NMS_POST_MAXSIZE = 256, 32
+    r.NMS_CONFIG.TRAIN.NMS_PRE_MAXSIZE = r.NMS_CONFIG.TRAIN.MATRIX_CAP = 256
+    r.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE = 64
+    r.TARGET_CONFIG.ROI_PER_IMAGE = 32
+    m.POST_PROCESSING.NMS_CONFIG.MATRIX_CAP = 256
+    return cfg
+
+
+def drive_pvrcnn_plusplus(dev):
+    """PV-RCNN++ at its two Waymo files' full MODEL and DATA_CONFIG widths
+    over the Waymo phases' tree (``waymo_tree``), cut in depth only
+    (``PVRCNN_PP_SETS``: every second train frame, one epoch; LR 0.003):
+    waymo_models/pv_rcnn_plusplus.yaml (MeanVFE, 150 000 voxels / 180 000
+    points, K2 bf16 with VOXEL_CAPS, AnchorHeadSingle over 3 classes, the
+    early proposals, 4 096 SPC keypoints, vector-pool VSA over bev, x_conv3,
+    x_conv4 and the raw points, the 6³ vector-pool RoI grid, batch 2)
+    through ``tools/train.main`` under ``held_train_steps`` (a step:
+    ``PVRCNN_PP_STEP``) and ``tools/test.main`` on the val split on the
+    kernel and the plain path (a batch: ``PVRCNN_PP_BATCH``), every K1 call
+    bit for bit, K2 against its plain version, K3 equal; the trained model
+    on every val batch with K2 f32 (``f32_ahead_of_nms`` with
+    ``pvrcnn_pp_check``); the stages, the parts of an eval forward, every
+    three-NN call held against and timed beside the dense form, peak memory
+    and a profiled train step; pv_rcnn_plusplus_resnet.yaml
+    (VoxelResBackBone8x f32, CenterHead RPN): one train step and one test
+    batch (``one_step_and_batch``, every f32 K2 call bit-equal to its plain
+    version); a reduced f32 train step of pv_rcnn_plusplus.yaml card vs CPU
+    (``check_reduced_train`` over ``pvrcnn_pp_reduced_cfg``); the kernels timed at these shapes
+    (``pvrcnn_pp.``, ``pvrcnn_pp_train.``, ``pvrcnn_pp_resnet.``).  Returns
+    the kernels' JSON entries."""
+    import shutil
+    from pathlib import Path
+    from crb_active_3ddet_torch.config import cfg_from_list, load_config
+    from crb_active_3ddet_torch.tools import train as train_cli
+    work = Path(tempfile.mkdtemp(prefix='chip_smoke_pvrcnn_pp_'))
+    root = waymo_tree()
+    key = 'pvrcnn_pp'
+    cfg = load_config(PVRCNN_PP_CFG)
+    file_lr = cfg.OPTIMIZATION.LR
+    sets = ('DATA_CONFIG.DATA_PATH', str(root), *PVRCNN_PP_SETS)
+    cfg_from_list(list(sets), cfg)
+    pfe, head = cfg.MODEL.PFE, cfg.MODEL.ROI_HEAD
+    log(f'==== {key}: {PVRCNN_PP_CFG} at its widths ({cfg.MODEL.NAME}, '
+        f'{cfg.MODEL.BACKBONE_3D.NAME} K2 bf16 {cfg.MODEL.BACKBONE_3D.USE_BF16} caps '
+        f'{list(cfg.MODEL.BACKBONE_3D.VOXEL_CAPS)}, {cfg.MODEL.DENSE_HEAD.NAME}, '
+        f'{pfe.NUM_KEYPOINTS} {pfe.SAMPLE_METHOD} keypoints, vector pools over '
+        f'{list(pfe.FEATURES_SOURCE)}, {head.NAME} vector-pool grid {head.ROI_GRID_POOL.GRID_SIZE}, '
+        f'batch {cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU}); cut in depth only: --set '
+        f'{" ".join(PVRCNN_PP_SETS)} (LR: the file\'s {file_lr} overflows a short one-cycle, '
+        'ROADMAP Queue 3) ====')
+    out = work / key
+    t = time.perf_counter()
+    with held_train_steps(key, PVRCNN_PP_STEP) as w:
+        state = train_cli.main(['--cfg_file', PVRCNN_PP_CFG, '--output_dir', str(out), '--set',
+                                *sets])
+        torch.cuda.synchronize()
+    steps = w['steps']
+    if len(steps) < 3:
+        raise RuntimeError(f'{key}: train.main ran {len(steps)} steps')
+    log(f'{key} train.main: {len(steps)} steps in {time.perf_counter() - t:.1f} s, every K1, '
+        f'K2 and K3 call against its plain version (K1 bit for bit, K3 equal); per step '
+        f'{[round(x["ms"], 1) for x in steps]} ms; peak device memory of a step '
+        f'{max(x["peak"] for x in steps) / 2**30:.2f} GiB')
+    log(f'{key} test CLI with --set {" ".join(PVRCNN_PP_TEST_SETS)} (the file\'s '
+        f'{cfg.MODEL.POST_PROCESSING.SCORE_THRESH}: a 3-step model\'s scores may all read below '
+        'it)')
+    test_rec = test_cli_paths(key, PVRCNN_PP_CFG, out / 'ckpt' / 'checkpoint_epoch_1.pth', out,
+                              [*sets, *PVRCNN_PP_TEST_SETS], batch=2,
+                              per_batch=PVRCNN_PP_BATCH)
+    with torch.no_grad():
+        n_float, n_mask = k1_calls_exact(test_rec, f'{key} test CLI')
+    log(f'{key} test CLI: {n_float} K1 float and {n_mask} K1 mask calls bit-equal to their '
+        'plain versions')
+    model = state.model
+    f32_ahead_of_nms(model, cfg, dev, key, check=pvrcnn_pp_check(key))
+    pvrcnn_pp_stages(model, state.optimizer, cfg, dev, key, iters=1)
+    profiled_train_step(model, state.optimizer, cfg, dev, key)
+    first, n_steps, n_test = w['first'], len(steps), len(test_rec['float'])
+    # (no K2 rows: the Waymo phase's ``waymo.`` and ``waymo_train.`` rows time
+    # the same kernel, route and shapes, the same backbone, caps and buffers at
+    # batch 2; the calls are held above, untimed)
+    results = [time_fps(f'{key}.fps[spc]', *test_rec['fps'][0][0], n_test)]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), test_rec['mask'], test_rec['fix']):
+        results.append(time_mask(f'{key}.nms_mask[{name}]', boxes, alive, thresh, n_test,
+                                 fix[2][1], f'{key} test {name}'))
+    (a_, b_), _, _ = test_rec['float'][0]
+    results.append(time_overlap(f'{key}.overlap_bev[recall]', a_, b_, n_test,
+                                f'{key} test recall'))
+    # (no train K3 row: the test row times the same kernel, route and shape;
+    # ``held_train_steps`` holds every step's K3 call, untimed)
+    rec = first['rec']
+    (boxes, alive, thresh), _, _ = rec['mask'][0]
+    results.append(time_mask(f'{key}_train.nms_mask[proposal_nms]', boxes, alive, thresh,
+                             n_steps, rec['fix'][0][2][1], f'{key} train proposal_nms'))
+    (a_, b_), _, _ = rec['float'][0]
+    results.append(time_overlap(f'{key}_train.overlap_bev[roi_targets]', a_, b_, n_steps,
+                                f'{key} train roi_targets'))
+    w.clear()
+    del state, model, first, rec, test_rec
+
+    # ---- pv_rcnn_plusplus_resnet.yaml: one train step and one test batch ----
+    rkey = 'pvrcnn_pp_resnet'
+    rcfg = load_config(PVRCNN_PP_RES_CFG)
+    log(f'==== {rkey}: {PVRCNN_PP_RES_CFG} at its widths ({rcfg.MODEL.BACKBONE_3D.NAME}, K2 f32 '
+        f'at every stage (no USE_BF16, no VOXEL_CAPS), {rcfg.MODEL.DENSE_HEAD.NAME} RPN, '
+        f'TEST proposals {rcfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE}); one train step '
+        'and one test batch over the Waymo tree ====')
+    nr = len(RES_LAYERS)
+    rfirst, rtest, rmodel, _, _ = one_step_and_batch(
+        dev, PVRCNN_PP_RES_CFG, sets, rkey,
+        {**PVRCNN_PP_STEP, 'n_k2': nr, 'n_dgrad': nr - 1, 'n_wgrad': nr},
+        {**PVRCNN_PP_BATCH, 'n_k2': nr}, check_f32=True)
+    rows = [time_gather_gemm(f'{rkey}.gather_gemm[{lname}]', None, f[None], rbk, 1,
+                             cdt=torch.float32, weights=wt, timed=lname in RES_TIMED)
+            for lname, ((f, rbk, wt), _, _) in zip(RES_LAYERS, rtest['k2'])]
+    results += [r for r in rows if r is not None]
+    for name, ((boxes, alive, thresh), _, _), fix in zip(
+            ('proposal_nms', 'nms'), rtest['mask'], rtest['fix']):
+        results.append(time_mask(f'{rkey}.nms_mask[{name}]', boxes, alive, thresh, 1,
+                                 fix[2][1], f'{rkey} test {name}'))
+    del rmodel, rfirst, rtest
+
+    # ---- a reduced f32 train step, card vs CPU (the resnet file's CenterHead
+    # and VoxelResBackBone8x are held to the JAX package on the CPU) ----
+    check_reduced_train(dev, pvrcnn_pp_reduced_cfg(PVRCNN_PP_CFG, root), box_std=0.001)
+    shutil.rmtree(work)
+    return results
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 1
+    from crb_active_3ddet_torch.config import load_config
     from crb_active_3ddet_torch.ops import cuda_build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7169,6 +7551,9 @@ def main():
             + '; '.join(f'{entry} {regs}/{smem}/{spill}'
                         for entry, regs, smem, spill in ptxas_entries(report)))
 
+    def reduced(cfg_file):
+        return reduced_cfg(load_config(cfg_file))
+
     def phase(name, fn, *args, **kw):
         t = time.perf_counter()
         out = fn(*args, **kw)
@@ -7194,9 +7579,10 @@ def main():
     phase('mask stress', mask_stress, dev)
     for cfg_file in (SECOND_CFG, PVRCNN_CFG, PILLAR_CFG):
         phase(f'reduced {cfg_file}', check_reduced, cfg_file, dev)
-    phase('reduced SECOND train', check_reduced_train, dev, SECOND_CFG)
-    phase('reduced PV-RCNN train', check_reduced_train, dev, PVRCNN_CFG, box_std=0.001)
-    phase('reduced PointPillars train', check_reduced_train, dev, PILLAR_CFG)
+    phase('reduced SECOND train', check_reduced_train, dev, reduced(SECOND_CFG))
+    phase('reduced PV-RCNN train', check_reduced_train, dev, reduced(PVRCNN_CFG),
+          box_std=0.001)
+    phase('reduced PointPillars train', check_reduced_train, dev, reduced(PILLAR_CFG))
     # one round and 16 scenes (a pool of 8: the other strategies' queries
     # run over the same pool), to keep the script within its time
     results += phase('SECOND AL loop', drive_active, dev, rounds=1, scenes=16)
@@ -7221,6 +7607,8 @@ def main():
                      'the files\' widths', drive_parta2, dev)
     results += phase('PointRCNN (pointrcnn, pointrcnn_iou on KITTI) at the files\' widths',
                      drive_pointrcnn, dev)
+    results += phase('PV-RCNN++ (pv_rcnn_plusplus, pv_rcnn_plusplus_resnet on Waymo) at the '
+                     'files\' widths', drive_pvrcnn_plusplus, dev)
     # PointPillars: no sparse layer, so no K2 launch; CRB from the entropy
     # file with METHOD crb set in code; one round each over 40 scenes (16
     # labelled, a pool of 24 of which CRB's stage 1 keeps 16), to keep the

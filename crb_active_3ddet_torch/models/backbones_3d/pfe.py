@@ -11,8 +11,18 @@ channels-last as in the JAX package, so a 1×1 conv is applied as a linear map
 over the last dim.  In training every BatchNorm takes Flax's batch
 statistics over all leading axes (``models/flax_layers.py``), with no mask,
 as the JAX modules' plain ``nn.BatchNorm``: zeroed empty groups and invalid
-keypoints count in the mean.  ``SAMPLE_METHOD: FPS`` only; the SPC sampling and the vector-pool aggregation
-of PV-RCNN++ are not ported yet.
+keypoints count in the mean.
+
+PV-RCNN++ (``SAMPLE_METHOD: SPC``, JAX ``pfe.py:111-126``): the keypoints
+are sampled by FPS over the candidate points alone, a valid point being a
+candidate when it lies within ‖roi_dims / 2‖ + SAMPLE_RADIUS_WITH_ROI of
+some RoI's centre (``spc_candidates``); a frame without a candidate falls
+back to all its valid points.  As in the JAX module: NUM_SECTORS is not
+read, every one of the R RoI rows counts (a zero-padded RoI makes the points
+within SAMPLE_RADIUS_WITH_ROI of the origin candidates), FPS still starts at
+index 0 whether or not point 0 is a candidate, and a keypoint's validity is
+its point's, not its candidacy.  An SA_LAYER entry with NUM_GROUPS is a
+vector pool (``vector_pool.VectorPoolAggregationMSG``).
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from ...utils.common import get_voxel_centers
 from ..flax_layers import flax_batch_norm, flax_dropout
 
 _BN_EPS = 1e-3
+_SPC_CHUNK = 1 << 24            # (point, RoI) pairs a step of the SPC test
 
 
 def pointwise_stack(channels, conv, norm, dropout_after=(), dp_ratio=0.0,
@@ -135,12 +146,31 @@ def bilinear_interpolate(im, x, y):
             + at(y0, x1) * wc[..., None] + at(y1, x1) * wd[..., None])
 
 
+def _norm3(v):
+    """Euclidean norm over the last axis of 3, as (x² + y²) + z²."""
+    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1]) + v[..., 2] * v[..., 2])
+
+
+def spc_candidates(xyz, valid, rois, radius: float):
+    """SPC's candidate mask: xyz (B, N, 3) with validity (B, N), rois
+    (B, R, 7) → (B, N) bool, a valid point within ‖dims / 2‖ + ``radius``
+    of some RoI's centre (strictly), or every valid point of a frame
+    without one.  The (B, N, R) test runs over chunks of points."""
+    b, n, _ = xyz.shape
+    limit = _norm3(rois[..., 3:6] / 2) + radius                 # (B, R)
+    rows = max(1, _SPC_CHUNK // max(1, b * rois.shape[1]))
+    near = [(_norm3(xyz[:, n0:n0 + rows, None, :] - rois[:, None, :, 0:3])
+             < limit[:, None, :]).any(-1) for n0 in range(0, n, rows)]
+    cand = valid & torch.cat(near, dim=1)
+    return torch.where(cand.any(-1, keepdim=True), cand, valid)
+
+
 class VoxelSetAbstraction(nn.Module):
     def __init__(self, model_cfg, voxel_size, point_cloud_range,
                  num_bev_features, num_rawpoint_features, backbone_channels):
         super().__init__()
-        if model_cfg.get('SAMPLE_METHOD', 'FPS') != 'FPS':
-            raise NotImplementedError('only SAMPLE_METHOD FPS is ported yet')
+        if model_cfg.get('SAMPLE_METHOD', 'FPS') not in ('FPS', 'SPC'):
+            raise NotImplementedError(f"SAMPLE_METHOD {model_cfg['SAMPLE_METHOD']}")
         self.model_cfg = model_cfg
         self.voxel_size = tuple(float(v) for v in voxel_size)
         self.point_cloud_range = tuple(float(x) for x in point_cloud_range)
@@ -148,8 +178,8 @@ class VoxelSetAbstraction(nn.Module):
 
         def make_sa(layer_cfg, in_channels):
             if 'NUM_GROUPS' in layer_cfg:
-                raise NotImplementedError('vector-pool aggregation (PV-RCNN++) '
-                                          'is not ported yet')
+                from .vector_pool import VectorPoolAggregationMSG
+                return VectorPoolAggregationMSG(layer_cfg, in_channels)
             return StackSAModuleMSG(layer_cfg['POOL_RADIUS'], layer_cfg['NSAMPLE'],
                                     layer_cfg['MLPS'], in_channels)
 
@@ -179,8 +209,12 @@ class VoxelSetAbstraction(nn.Module):
         points_valid = batch_dict['points_valid']
         xyz = points[..., :3].contiguous()
 
-        # keypoints: FPS over the raw points
-        kp_idx = pn2.farthest_point_sample(xyz, points_valid,
+        # keypoints: FPS over the raw points, or over SPC's candidates
+        cand_valid = points_valid
+        if cfg.get('SAMPLE_METHOD', 'FPS') == 'SPC' and 'rois' in batch_dict:
+            cand_valid = spc_candidates(xyz, points_valid, batch_dict['rois'],
+                                        float(cfg['SPC_SAMPLING']['SAMPLE_RADIUS_WITH_ROI']))
+        kp_idx = pn2.farthest_point_sample(xyz, cand_valid,
                                            int(cfg['NUM_KEYPOINTS'])).long()
         keypoints = torch.gather(xyz, 1, kp_idx[..., None].expand(-1, -1, 3))
         kp_valid = torch.gather(points_valid, 1, kp_idx)

@@ -1,6 +1,6 @@
 """Config-driven detector (torch): the PointPillar, SECONDNet, SECONDNetIoU,
-CenterPoint, VoxelRCNN, PVRCNN, PartA2Net and PointRCNN (over PointNet2MSG
-or UNetV2) topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
+CenterPoint, VoxelRCNN, PVRCNN, PVRCNNPlusPlus, PartA2Net and PointRCNN (over
+PointNet2MSG or UNetV2) topologies of ``crb_active_3ddet_tpu/models/detectors/detector3d.py``
 (reference ``detector3d_template.py:24-53``, ``pointpillar.py:9-34``,
 ``second_net.py:9-34``, ``second_net_iou.py``, ``centerpoint.py``,
 ``voxel_rcnn.py``, ``pv_rcnn.py:9-43``, ``PartA2_net.py``,
@@ -14,14 +14,17 @@ head's offsets; a CenterHead's decoded peaks are PV-RCNN's and VoxelRCNN's
 proposals as an anchor head's boxes are; PointRCNN has no BEV branch: its
 point head's boxes are the proposals, over UNetV2's voxels (PartA2_free) or
 PointNet2MSG's points, and over PointNet2MSG it has no VFE: the backbone
-reads the raw points, ``num_point_features`` wide).
+reads the raw points, ``num_point_features`` wide).  PVRCNNPlusPlus runs
+[vfe] → backbone_3d → map_to_bev → backbone_2d → dense_head → roi_proposal
+→ pfe → point_head → roi_head (JAX ``detector3d.py:111-118``): its proposals
+come first (``EarlyRoIProposal``), SPC samples the keypoints around them.
 ``compute_loss`` is the training loss (``detector3d.py:154-218``): the
 dense head's (anchor or CenterHead) when there is one, plus the point
 head's (PartA2's part head: the foreground, part and box terms; PointHeadBox:
 the class and box terms) and the RoI
 head's when the forward made their targets.
-The modules that draw random numbers in training (the RoI heads: the RoI
-sample and the Dropout) take the ``torch.Generator`` that ``forward`` is
+The modules that draw random numbers in training (the RoI heads and
+PVRCNNPlusPlus's early proposal step: the RoI sample and the Dropout) take the ``torch.Generator`` that ``forward`` is
 given.
 """
 
@@ -38,6 +41,7 @@ from ..backbones_2d.base_bev_backbone import build_backbone_2d
 from ..backbones_2d.map_to_bev import build_map_to_bev
 from ..backbones_3d.pfe import build_pfe
 from ..backbones_3d.spconv_backbone import DenseConv3d, SparseConv3d, build_backbone_3d
+from ..backbones_3d.vector_pool import VectorPoolAggregation, kaiming_normal_
 from ..backbones_3d.vfe import build_vfe
 from ..dense_heads import anchor_head_single as ahs
 from ..dense_heads.anchor_head_single import build_dense_head
@@ -51,10 +55,30 @@ from ..roi_heads.pvrcnn_head import build_roi_head
 from ..roi_heads.second_head import get_box_iou_layer_loss
 
 _PORTED = {'PointPillar', 'SECONDNet', 'SECONDNetIoU', 'CenterPoint', 'VoxelRCNN', 'PVRCNN',
-           'PartA2Net', 'PointRCNN'}
-_DRAWS = ('roi_head',)          # modules whose training forward draws
+           'PartA2Net', 'PointRCNN', 'PVRCNNPlusPlus'}
+_DRAWS = ('roi_proposal', 'roi_head')          # modules whose training forward draws
 # the modules whose outputs the dense head reads
 _DENSE_PATH = ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d', 'dense_head')
+
+
+class EarlyRoIProposal(nn.Module):
+    """PVRCNNPlusPlus's proposal step ahead of the pfe (JAX
+    ``detector3d.py:132-152``), so that SPC samples its keypoints around
+    the RoIs: the RoI head's proposal layer (NMS_CONFIG.TRAIN or TEST)
+    and, in training, its proposal targets drawn from ``generator``, kept
+    as ``roi_targets_dict`` for the head.  Given ``rois`` (and in training
+    their ``roi_targets_dict``), it keeps them, as the heads do."""
+
+    def __init__(self, roi_cfg):
+        super().__init__()
+        self.model_cfg = roi_cfg
+
+    def forward(self, batch_dict, generator=None):
+        batch_dict, targets = rht.rois_and_targets(batch_dict, self.model_cfg, self.training,
+                                                   generator)
+        if targets is not None:
+            batch_dict['roi_targets_dict'] = targets
+        return batch_dict
 
 
 class Detector3D(nn.Module):
@@ -112,6 +136,13 @@ class Detector3D(nn.Module):
                 else self.backbone_2d.num_bev_features, voxel_size, point_cloud_range,
                 getattr(getattr(self, 'backbone_3d', None), 'backbone_channels', None))
             topology.append('roi_head')
+        if model_cfg['NAME'] == 'PVRCNNPlusPlus':
+            # the proposals come before the keypoint sampling, which centres
+            # on them; the pfe reads the BEV map after the 2D backbone
+            self.roi_proposal = EarlyRoIProposal(model_cfg['ROI_HEAD'])
+            topology = [n for n in ('vfe', 'backbone_3d', 'map_to_bev', 'backbone_2d',
+                                    'dense_head', 'roi_proposal', 'pfe', 'point_head',
+                                    'roi_head') if n == 'roi_proposal' or n in topology]
         self.module_topology = tuple(topology)
 
     @property
@@ -178,7 +209,8 @@ def init_weights(model, generator: torch.Generator, box_std=None):
     normal biases and BN affine terms, positive running variances.  The
     dense head keeps its cls bias prior (the anchor heads' focal prior,
     CenterHead's −2.19).  Fan-in: a sparse conv weight is (K, Cin, Cout);
-    a dense 3D conv weight (kx, ky, kz, Cin, Cout); every other weight
+    a dense 3D conv weight (kx, ky, kz, Cin, Cout); a vector pool's local
+    kernel (G, Cin, Cout) one Cin a sub-voxel; every other weight
     (Conv2d, Conv1d, ConvTranspose2d as laid out, Linear) has its outputs
     first.
 
@@ -199,7 +231,9 @@ def init_weights(model, generator: torch.Generator, box_std=None):
             if id(p) in cls_biases:
                 continue
             r = torch.randn(p.shape, generator=generator)
-            if name.endswith('weight') and p.ndim > 1:
+            if name.endswith('local_kernel'):         # (G, Cin, Cout): Cin a sub-voxel
+                r = r / math.sqrt(p.shape[1])
+            elif name.endswith('weight') and p.ndim > 1:
                 fan_in = p[..., 0].numel() if id(p) in sparse else p[0].numel()
                 r = r / math.sqrt(fan_in)
             elif name.endswith('weight'):
@@ -235,7 +269,8 @@ def flax_init(model, generator: torch.Generator):
     PartA2FCHead's output layers are lecun-normal; the PartA2 head's dense
     3D conv kernels variance_scaling(1, fan_out, normal) as the sparse
     ones; llal's LossNet: its convs and linear map lecun-normal,
-    biases 0).  Fan-in as Flax counts it:
+    biases 0; a vector pool's (G, 3 + C, 32) local kernel kaiming-normal,
+    its fan-in G·(3 + C) as Flax counts it).  Fan-in as Flax counts it:
     a ConvTranspose2d weight (in, out, kh, kw) has in·kh·kw, every other
     weight (out, ...) the product of its trailing dims.  The draws differ
     from JAX's (another generator); their distribution is the same."""
@@ -268,6 +303,10 @@ def flax_init(model, generator: torch.Generator):
                 done.add(id(m.bias))
         for conv in head.cls_convs() if head is not None else ():
             conv.bias.fill_(head.cls_bias_init)
+        for m in model.modules():
+            if isinstance(m, VectorPoolAggregation):
+                kaiming_normal_(m.local_kernel, generator)
+                done.add(id(m.local_kernel))
     missed = [n for n, p in model.named_parameters() if id(p) not in done]
     if missed:
         raise NotImplementedError(f'flax_init has no initializer for {missed}')

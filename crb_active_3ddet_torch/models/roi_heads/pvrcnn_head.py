@@ -20,6 +20,12 @@ runs that many times on the one pooled grid, so that ``rcnn_cls`` and
 shared features and the LossNet read the first round, as in the JAX head
 (JAX ``pvrcnn_head.py:150-176``); without a generator the tower runs once,
 deterministic.
+
+PV-RCNN++'s ROI_GRID_POOL (NUM_GROUPS) is a vector pool over the keypoints
+(``backbones_3d/vector_pool.py``; LOCAL_AGGREGATION_TYPE and
+NEIGHBOR_NSAMPLE are not read, as in the JAX head), its output reshaped
+grid-major as the ball-query pool's.  Its RoIs come from the detector's
+early proposal step, with their ``roi_targets_dict`` in training.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ from torch import nn
 
 from ...utils import common
 from ..backbones_3d.pfe import StackSAModuleMSG, pointwise_stack, run_pointwise
+from ..backbones_3d.vector_pool import VectorPoolAggregationMSG
 from . import roi_head_template as rht
 from .loss_net import LossNet
 
@@ -56,12 +63,12 @@ class PVRCNNHead(nn.Module):
         self.model_cfg = model_cfg
         self.num_class = num_class
         pool = model_cfg['ROI_GRID_POOL']
-        if 'NUM_GROUPS' in pool:
-            raise NotImplementedError('vector-pool RoI grid pooling (PV-RCNN++) '
-                                      'is not ported yet')
         self.grid_size = int(pool['GRID_SIZE'])
-        self.roi_grid_pool_layer = StackSAModuleMSG(
-            pool['POOL_RADIUS'], pool['NSAMPLE'], pool['MLPS'], input_channels)
+        if 'NUM_GROUPS' in pool:                # PV-RCNN++: a vector pool
+            self.roi_grid_pool_layer = VectorPoolAggregationMSG(pool, input_channels)
+        else:
+            self.roi_grid_pool_layer = StackSAModuleMSG(
+                pool['POOL_RADIUS'], pool['NSAMPLE'], pool['MLPS'], input_channels)
         pooled = self.grid_size ** 3 * self.roi_grid_pool_layer.num_out_channels
         dp = float(model_cfg.get('DP_RATIO', 0.0))
         shared = list(model_cfg['SHARED_FC'])

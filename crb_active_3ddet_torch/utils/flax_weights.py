@@ -23,6 +23,8 @@ OpenPCDet ``.pth`` into the same model.  Layouts:
     radius loop (``Dense_0, Dense_1`` branch 0, ``Dense_2, Dense_3`` branch
     1); ``SA_x_conv{i}`` become ``SA_layers.{k}`` in FEATURES_SOURCE order.
     The shared FC's input stays grid-major, as in the JAX package.
+    PV-RCNN++'s vector pools (``SA_rawpoints``, ``SA_x_conv{i}``,
+    ``roi_grid_pool`` with NUM_GROUPS): ``vector_pool_from_flax``.
   * llal's LossNet: ``roi_head.loss_net.conv_{k}`` / ``bn_{k}`` →
     ``roi_head.loss_net.conv_layers.{k}.{0,1}`` (a Conv1d(C_k, 1, 1) and its
     BatchNorm1d), ``linear`` → ``roi_head.loss_net.linear``.
@@ -144,6 +146,34 @@ def sa_module_from_flax(sd, prefix, params, stats, mlps):
             _bn(sd, f'{prefix}.mlps.{m}.{3 * j + 1}',
                 params[f'BatchNorm_{i}'], stats[f'BatchNorm_{i}'])
             i += 1
+
+
+def vector_pool_from_flax(sd, prefix, params, stats, layer_cfg):
+    """VectorPoolAggregationMSG: each ``group_{k}``'s ``local_kernel`` (kept
+    as (G, 3 + C, 32)), ``BatchNorm_0`` and POST_MLPS ``Dense_j`` /
+    ``BatchNorm_{j+1}`` → ``layers.{k}.local_kernel`` / ``local_bn.0`` /
+    ``post_mlps.{3j, 3j+1}``; the MSG_POST_MLPS ``Dense_j`` / ``BatchNorm_j``
+    → ``msg_post_mlps.{3j, 3j+1}``."""
+    for k in range(int(layer_cfg['NUM_GROUPS'])):
+        g, sg = params[f'group_{k}'], stats[f'group_{k}']
+        sd[f'{prefix}.layers.{k}.local_kernel'] = g['local_kernel']
+        _bn(sd, f'{prefix}.layers.{k}.local_bn.0', g['BatchNorm_0'], sg['BatchNorm_0'])
+        for j in range(len(layer_cfg[f'GROUP_CFG_{k}']['POST_MLPS'])):
+            sd[f'{prefix}.layers.{k}.post_mlps.{3 * j}.weight'] = _dense(g[f'Dense_{j}']['kernel'])
+            _bn(sd, f'{prefix}.layers.{k}.post_mlps.{3 * j + 1}', g[f'BatchNorm_{j + 1}'],
+                sg[f'BatchNorm_{j + 1}'])
+    for j in range(len(layer_cfg['MSG_POST_MLPS'])):
+        sd[f'{prefix}.msg_post_mlps.{3 * j}.weight'] = _dense(params[f'Dense_{j}']['kernel'])
+        _bn(sd, f'{prefix}.msg_post_mlps.{3 * j + 1}', params[f'BatchNorm_{j}'],
+            stats[f'BatchNorm_{j}'])
+
+
+def _pool_from_flax(sd, prefix, params, stats, layer_cfg):
+    """A StackSAModuleMSG or, for a config with NUM_GROUPS, a vector pool."""
+    if 'NUM_GROUPS' in layer_cfg:
+        vector_pool_from_flax(sd, prefix, params, stats, layer_cfg)
+    else:
+        sa_module_from_flax(sd, prefix, params, stats, layer_cfg['MLPS'])
 
 
 def _fc_stack(sd, prefix, params, stats, name, n_layers, dropout_after, out=None,
@@ -302,11 +332,11 @@ def _point_branch(sd, params, batch_stats, model_cfg):
     k = 0
     for src in model_cfg['PFE']['FEATURES_SOURCE']:
         if src == 'raw_points':
-            sa_module_from_flax(sd, 'pfe.SA_rawpoints', pfe['SA_rawpoints'],
-                       spfe['SA_rawpoints'], sa_cfg[src]['MLPS'])
+            _pool_from_flax(sd, 'pfe.SA_rawpoints', pfe['SA_rawpoints'], spfe['SA_rawpoints'],
+                            sa_cfg[src])
         elif src != 'bev':
-            sa_module_from_flax(sd, f'pfe.SA_layers.{k}', pfe[f'SA_{src}'],
-                       spfe[f'SA_{src}'], sa_cfg[src]['MLPS'])
+            _pool_from_flax(sd, f'pfe.SA_layers.{k}', pfe[f'SA_{src}'], spfe[f'SA_{src}'],
+                            sa_cfg[src])
             k += 1
     sd['pfe.vsa_point_feature_fusion.0.weight'] = _dense(pfe['vsa_fusion']['kernel'])
     _bn(sd, 'pfe.vsa_point_feature_fusion.1', pfe['BatchNorm_0'],
@@ -323,8 +353,8 @@ def _point_branch(sd, params, batch_stats, model_cfg):
 
     rh, srh = params['roi_head'], batch_stats['roi_head']
     roi_cfg = model_cfg['ROI_HEAD']
-    sa_module_from_flax(sd, 'roi_head.roi_grid_pool_layer', rh['roi_grid_pool'],
-               srh['roi_grid_pool'], roi_cfg['ROI_GRID_POOL']['MLPS'])
+    _pool_from_flax(sd, 'roi_head.roi_grid_pool_layer', rh['roi_grid_pool'],
+                    srh['roi_grid_pool'], roi_cfg['ROI_GRID_POOL'])
     n_shared = len(roi_cfg['SHARED_FC'])
     between = range(n_shared - 1) if float(roi_cfg.get('DP_RATIO', 0.0)) > 0 else ()
     _fc_stack(sd, 'roi_head.shared_fc_layer', rh, srh, 'shared', n_shared, between)
@@ -471,7 +501,7 @@ def pillar_vfe_from_flax(sd, params, batch_stats):
 
 def flax_to_state_dict(params, batch_stats, model_cfg=None):
     """Flax PointPillar, SECONDNet, SECONDNetIoU, CenterPoint, VoxelRCNN,
-    PVRCNN, PartA2 or PointRCNN variables → port ``state_dict`` (torch tensors).  The
+    PVRCNN, PVRCNNPlusPlus, PartA2 or PointRCNN variables → port ``state_dict`` (torch tensors).  The
     two-stage models and the backbones other than VoxelBackBone8x need
     ``model_cfg`` (the MODEL node): the Flax names of the point branch do
     not say where one MLP ends and the next begins, nor those of an FC tower

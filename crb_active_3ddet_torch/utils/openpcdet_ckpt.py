@@ -85,12 +85,19 @@ def check_family(model_cfg):
     model that ``model_cfg`` (the MODEL node) describes."""
     name = model_cfg['NAME']
     backbone = (model_cfg.get('BACKBONE_3D', None) or {}).get('NAME')
+    if name == 'PVRCNNPlusPlus':
+        raise NotImplementedError(
+            'OpenPCDet import of PVRCNNPlusPlus: the port\'s vector pools (as the JAX '
+            'package\'s, which has no such importer either) encode a sub-voxel\'s position in '
+            '3 channels where OpenPCDet\'s encode 9 (the centre and its three neighbours\' '
+            'offsets), reduce the channels otherwise and pool the RoI grid by '
+            'voxel_random_choice, so their local kernels differ in shape and meaning')
     if name not in FAMILIES or (name == 'PointRCNN'
                                 and backbone not in ('UNetV2', 'PointNet2MSG')):
         raise NotImplementedError(
             f'OpenPCDet import of {name} ({backbone}): the port imports '
             f'{", ".join(FAMILIES)} (PointRCNN over UNetV2 or PointNet2MSG); the rest of the '
-            'model zoo comes with ROADMAP Queue 1 item 14 (14g-14h)')
+            'model zoo comes with ROADMAP Queue 1 item 14 (14h)')
     if backbone == 'VoxelResBackBone8x':
         raise NotImplementedError(
             'OpenPCDet import of VoxelResBackBone8x: the port\'s (as the JAX package\'s) keeps '

@@ -595,6 +595,71 @@ def test_fps_cluster_route_equals_plain(cuda_device, n, k, nv, snapped):
     assert torch.equal(got, cuda_fps.fps_plain(p, v, k))
 
 
+def _spc_frames(seed, n=180000, r=128):
+    """Two Waymo-sized frames (150 m square, the second with 20 000 padded
+    rows) and r RoIs a frame about some of their points."""
+    rng = np.random.RandomState(seed)
+    pts = (rng.rand(2, n, 3) * np.array([150, 150, 6]) - np.array([75, 75, 2])).astype(np.float32)
+    valid = np.ones((2, n), bool)
+    valid[1, n - 20000:] = False
+    rois = np.zeros((2, r, 7), np.float32)
+    rois[:, :, :3] = pts[np.arange(2)[:, None], rng.randint(0, n - 20000, (2, r))]
+    rois[:, :, 3:6] = rng.uniform(0.8, 5.0, (2, r, 3))
+    rois[:, -8:] = 0.0                              # zero-padded RoI rows
+    pts[:, 0] = [70.0, -70.0, 3.0]                  # point 0 outside every RoI's reach
+    return pts, valid, rois
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('case', ['spc', 'empty'])
+def test_fps_cluster_route_under_spc_mask(cuda_device, case):
+    """K3 at PV-RCNN++'s Waymo shape, (2, 180 000) → 4 096, over SPC's
+    candidate mask (``pfe.spc_candidates``: point 0 no candidate, FPS starts
+    there all the same) and over an empty candidate set (the kernel's own
+    case; SPC falls back to the valid points before it), bit for bit
+    against the plain version, one launch."""
+    from crb_active_3ddet_torch.models.backbones_3d.pfe import spc_candidates
+    pts, valid, rois = _spc_frames(3)
+    mask = spc_candidates(_t(pts), _t(valid), _t(rois), 1.6)
+    assert not mask[:, 0].any() and 4096 < int(mask.sum(1).min()) < int(_t(valid).sum(1).min())
+    if case == 'empty':
+        mask[:] = False
+    p, v = _t(pts).to(cuda_device), mask.to(cuda_device)
+    n0 = cuda_fps.launches
+    got = cuda_fps.farthest_point_sample_cuda(p, v, 4096)
+    torch.cuda.synchronize()
+    assert cuda_fps.launches == n0 + 1
+    assert torch.equal(got, cuda_fps.fps_plain(p, v, 4096))
+    assert (got[:, 0] == 0).all()
+    if case == 'spc':
+        assert torch.gather(v, 1, got[:, 1:].long()).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('r,n', [(0.2, (2, 2, 2)), (0.4, (3, 3, 3)), (4.8, (3, 3, 3))])
+def test_pruned_three_nn_equals_dense_on_the_card(cuda_device, r, n):
+    """The vector pool's pruned three-NN (``three_nn_lattice``) against its
+    dense form on the card, index for index and bit for bit, at 2 × 2 048
+    query points over 60 000 supports (a tenth padded, part of the query
+    points far from every support), and against its own CPU result (the same
+    indices; the distances within 1e-6, as the two devices round them)."""
+    from crb_active_3ddet_torch.models.backbones_3d import vector_pool as vp
+    rng = np.random.RandomState(5)
+    xyz = (rng.rand(2, 60000, 3) * np.array([40, 40, 3])).astype(np.float32)
+    valid = rng.rand(2, 60000) < 0.9
+    new = xyz[:, rng.randint(0, 60000, 2048)] + (rng.randn(2, 2048, 3) * 0.1).astype(np.float32)
+    new[:, :64] += np.float32(100.0)
+    offsets = vp._sub_voxel_offsets(r, n).astype(np.float32)
+    args = (_t(new), _t(new[:, :, None] + offsets), _t(xyz), _t(valid))
+    on_card = [a.to(cuda_device) for a in args]
+    dist, idx = vp.three_nn_lattice(*on_card, vp.lattice_reach(offsets))
+    ddist, didx = vp.three_nn_dense(*on_card[1:])
+    assert torch.equal(idx, didx) and torch.equal(dist, ddist)
+    cdist, cidx = vp.three_nn_lattice(*args, vp.lattice_reach(offsets))
+    assert torch.equal(idx.cpu(), cidx)
+    torch.testing.assert_close(dist.cpu(), cdist, rtol=1e-6, atol=0)
+
+
 @pytest.mark.cuda
 def test_fps_kernel_refuses_too_many_points(cuda_device):
     n = 180225

@@ -337,11 +337,14 @@ def test_bare_state_dict_and_weights_only(tmp_path):
 
 
 def test_unported_families_and_bad_kernels_raise():
-    for cfg in ({'NAME': 'PVRCNNPlusPlus'}, {'NAME': 'CaDDN'}, {'NAME': 'PointRCNN'},
+    for cfg in ({'NAME': 'CaDDN'}, {'NAME': 'PointRCNN'},
                 {'NAME': 'PointRCNN', 'BACKBONE_3D': {'NAME': 'VoxelBackBone8x'}}):
         stub = type('Stub', (), {'model_cfg': cfg})()
         with pytest.raises(NotImplementedError, match='item 14'):
             ockpt.map_openpcdet_state({}, stub)
+    stub = type('Stub', (), {'model_cfg': {'NAME': 'PVRCNNPlusPlus'}})()
+    with pytest.raises(NotImplementedError, match='encode 9'):
+        ockpt.map_openpcdet_state({}, stub)
     stub = type('Stub', (), {'model_cfg': {'NAME': 'SECONDNet', 'BACKBONE_3D': {
         'NAME': 'VoxelResBackBone8x'}}})()
     with pytest.raises(NotImplementedError, match='128 channels in conv4'):
